@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Drive usearch_torch's main path on one CUDA card and hold its kernels
+against their plain versions.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. setup: the card's name and power limit, TF32 off, the kernels built from
+   usearch_torch/csrc;
+2. every kernel against its plain version on the card, at N=65,536 rows,
+   Q=512 and Q=40 queries, width 256, ~10% deleted rows: B1 (binned scan)
+   and B2 (bin minima) on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact
+   on f32;
+3. the main path through the public entry points, at the shape of bench.py:
+   `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added on the
+   card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024 exact
+   queries against a plain ground truth, 1% of the keys removed; then an
+   f32 cos index of 262,144 rows through the compact + rescore path. The
+   kernels' launch counters are zeroed just before each index is driven and
+   read just after, and both kernels must have launched on each path;
+4. each kernel at each path's shapes: held against its plain version with
+   phase 2's tolerances, then timed beside its bound, the plain version's
+   time and one library call's time as a yardstick.
+
+The line before the last is a JSON object with a row per kernel; the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+a checkout of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from usearch_torch import Index, build
+from usearch_torch.enums import ScalarKind, normalize_metric
+from usearch_torch.ops import scan
+from usearch_torch.ops.casts import cast_rows
+from usearch_torch.ops.distances import dot, row_stats, scan_epilogue, tile_dists
+from usearch_torch.ops.topk import masked_topk
+
+SEED = 0
+#: phase 2 shape
+CHECK = dict(n=65536, q=512, ragged_q=40, w=256, deleted=0.1)
+#: phase 3/4 shapes: bench.py's headline, and the f32 compact path
+MAIN = dict(n=1_000_000, w=256, q=16384, k=10, exact_q=1024, removed=0.01)
+COMPACT = dict(n=262144, w=256, q=16384, k=10, exact_q=1024)
+#: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s
+PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+#: float bin minima: f32 sums of W products in another order
+FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
+METRICS = ("ip", "cos", "l2sq")
+DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+#: the kernel wrappers of the main path, each with its launch counter
+KERNELS = (scan.binned_scan, scan.binned_minima)
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def make_rows(n: int, w: int, dtype, gen, dev) -> torch.Tensor:
+    """Random rows in storage dtype; i8 through the port's quantizer."""
+    x = torch.randn(n, w, generator=gen, device=dev)
+    if dtype == torch.int8:
+        return cast_rows(x, ScalarKind.F32, ScalarKind.I8)
+    return x.to(dtype)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 units in the last place."""
+
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bin_gaps(metric, q, table, q_sq, t_sq, penalty, shifted, round_bf16):
+    """Gap between the two best rows of every bin, from the full scores, in
+    query chunks of at most 2**28 scores."""
+    if round_bf16:
+        q, table = q.to(torch.bfloat16), table.to(torch.bfloat16)
+    step = max(1, (1 << 28) // table.shape[0])
+    gaps = []
+    for lo in range(0, q.shape[0], step):
+        d = scan_epilogue(metric, dot(q[lo : lo + step], table), q_sq[lo : lo + step], t_sq, penalty, shifted)
+        two = torch.topk(d.view(d.shape[0], -1, 128), 2, dim=-1, largest=False).values
+        gaps.append(two[..., 1] - two[..., 0])
+    return torch.cat(gaps)
+
+
+def check_kernels(dev) -> None:
+    """Phase 2."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, nq, w = CHECK["n"], CHECK["q"], CHECK["w"]
+    valid = torch.rand(n, generator=gen, device=dev) >= CHECK["deleted"]
+    for name, dtype in DTYPES.items():
+        table = make_rows(n, w, dtype, gen, dev)
+        q = make_rows(nq, w, dtype, gen, dev)
+        table[:3] = 0  # zero rows and a zero query exercise cos's zero-norm rules
+        q[0] = 0
+        stats = torch.stack([(table.float() ** 2).sum(1), table.float().sum(1)], 1)
+        for metric_name in METRICS:
+            metric = normalize_metric(metric_name)
+            # the full query batch, and a ragged one that fills no block
+            for qc in (q, q[: CHECK["ragged_q"]]):
+                modes = [False, True] if dtype == torch.float32 else [False]
+                for compact in modes:
+                    check_one(f"{name}/{metric_name}{' compact' if compact else ''} Q={qc.shape[0]}",
+                              (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
+
+
+def check_one(tag: str, args, compact: bool) -> None:
+    """B1 (and B2 when not compact) against the plain versions."""
+    hold_b1(tag, args, compact, scan.binned_scan(*args, compact=compact),
+            scan.binned_scan_plain(*args, compact=compact))
+    if not compact:
+        hold_b2(tag, args, scan.binned_minima(*args), scan.binned_minima_plain(*args))
+
+
+def hold_b1(tag: str, args, compact: bool, kern, plain) -> float:
+    """B1's surface against its plain version's: i8 bit for bit; compact
+    bf16 minima within 1 ulp; float minima within FLOAT_RTOL/FLOAT_ATOL;
+    argmins equal wherever a bin's two best rows are further apart than
+    that. Fails on a mismatch; returns the max abs error of the minima."""
+    (kv, ki), (pv, pi) = kern, plain
+    torch.cuda.synchronize()
+    if args[1].dtype == torch.int8:
+        ok, detail = torch.equal(kv, pv) and torch.equal(ki, pi), "bit for bit"
+    elif compact:
+        ulps = int(bf16_ulps(kv, pv).max())
+        sure = bin_gaps(*args, shifted=True, round_bf16=True) > FLOAT_ATOL
+        ok = ulps <= 1 and torch.equal(ki[sure], pi[sure])
+        detail = f"bf16 minima within {ulps} ulp, argmins equal on {int(sure.sum())} clear bins"
+    else:
+        sure = bin_gaps(*args, shifted=False, round_bf16=False) > FLOAT_ATOL + FLOAT_RTOL * pv.abs()
+        ok = torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.equal(ki[sure], pi[sure])
+        detail = f"minima within rtol {FLOAT_RTOL}, argmins equal on {int(sure.sum())} clear bins"
+    err = float((kv.float() - pv.float()).abs().max())
+    log(f"  {tag}: B1{' compact' if compact else ''} vs plain {'ok' if ok else 'MISMATCH'}, "
+        f"{detail} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"B1 disagrees with its plain version at {tag}")
+    return err
+
+
+def hold_b2(tag: str, args, kern, plain) -> float:
+    """B2's minima against its plain version's: i8 bit for bit, floats
+    within FLOAT_RTOL/FLOAT_ATOL. Fails on a mismatch; returns the max abs
+    error."""
+    torch.cuda.synchronize()
+    if args[1].dtype == torch.int8:
+        ok = torch.equal(kern, plain)
+    else:
+        ok = torch.allclose(kern, plain, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+    err = float((kern - plain).abs().max())
+    log(f"  {tag}: B2 vs plain {'ok' if ok else 'MISMATCH'} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"B2 disagrees with its plain version at {tag}")
+    return err
+
+
+def unit_rows(n: int, w: int, gen, dev) -> torch.Tensor:
+    x = torch.randn(n, w, generator=gen, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def ground_truth(index, queries: torch.Tensor, k: int):
+    """Plain exact top-k over the index's table: (distances, slots)."""
+    q = index._cast_device(queries, ScalarKind.F32)
+    q_stats = row_stats(q, index.dtype)
+    best_d, best_i = [], []
+    for lo in range(0, q.shape[0], 256):
+        d = tile_dists(index.metric, index.dtype, q[lo : lo + 256], q_stats[lo : lo + 256],
+                       index._table, index._stats, index.ndim)
+        dd, ii = masked_topk(d, index._valid, k)
+        best_d.append(dd)
+        best_i.append(ii)
+    return torch.cat(best_d).cpu().numpy(), torch.cat(best_i).cpu().numpy()
+
+
+def same_apart_from_ties(index, matches, gt_d, gt_slots, tol: float) -> bool:
+    """Keys equal to the ground truth's, except where distances tie."""
+    gt_keys = index._slot_keys[np.clip(gt_slots, 0, None)]
+    differs = matches.keys != gt_keys
+    return bool(np.all(np.abs(matches.distances - gt_d)[differs] <= tol)) and bool(
+        np.allclose(matches.distances, gt_d, rtol=1e-5, atol=tol)
+    )
+
+
+def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
+    """One index through add, approximate search, exact search, removal;
+    the kernels' launch counters are zeroed just before and read just
+    after, and both kernels must have launched."""
+    n, w, nq, k, eq = spec["n"], spec["w"], spec["q"], spec["k"], spec["exact_q"]
+    x = unit_rows(n, w, gen, dev)
+    torch.cuda.synchronize()
+    for kern in KERNELS:
+        kern.launches = 0
+    index = Index(ndim=w, metric=metric, dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys = index.add(None, x)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    index.search(x[member], k)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = index.search(x[member], k)
+    search_s = time.perf_counter() - t0
+    search_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    want = keys[member.cpu().numpy()]
+    recall1 = float(np.mean(m.keys[:, 0] == want))
+    log(f"  {dtype} {metric} {n} x {w}: capacity {index.capacity}, add {add_s:.3f} s, "
+        f"search {nq} queries {search_s * 1e3:.1f} ms = {nq / search_s:.0f} QPS, recall@1 {recall1:.4f}, "
+        f"search memory {search_gib:.2f} GiB above the index")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"approximate search at {dtype}/{metric}: recall@1 {recall1:.4f}")
+
+    qx = x[member[:eq]]
+    me = index.search(qx, k, exact=True)
+    gt_d, gt_slots = ground_truth(index, qx, k)
+    tol = 0.0 if dtype == "i8" else 1e-5
+    if not same_apart_from_ties(index, me, gt_d, gt_slots, tol):
+        fail(f"exact search at {dtype}/{metric} differs from the plain ground truth")
+    log(f"  exact search of {eq} queries: keys equal to the plain ground truth apart from ties")
+
+    if removed:
+        gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * removed)].cpu().numpy()]
+        index.remove(gone)
+        probe = x[torch.as_tensor(gone[:eq].astype(np.int64), device=dev)]
+        hits = np.isin(index.search(probe, k).keys, gone).sum()
+        hits += np.isin(index.search(probe, k, exact=True).keys, gone).sum()
+        if hits or len(index) != n - len(gone):
+            fail(f"{hits} removed keys came back")
+        log(f"  removed {len(gone)} keys: none comes back (approximate and exact)")
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    log(f"  kernel launches on the {dtype} {metric} path: {launches}")
+    if min(launches.values()) == 0:
+        fail(f"a kernel of the {dtype} {metric} path never launched: {launches}")
+    return dict(index=index, queries=x[member], recall1=recall1, qps=nq / search_s, launches=launches)
+
+
+def run_main_path(dev):
+    """Phase 3: the i8 IP index, then the f32 cos (compact) index."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    head = drive(dev, MAIN, "ip", "i8", gen, removed=MAIN["removed"])
+    comp = drive(dev, COMPACT, "cos", "f32", gen)
+    return head, comp
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the current stream, after one warm call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(ops: float, peak_ops: float, nbytes: float):
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def library_ms(q: torch.Tensor, table: torch.Tensor) -> float:
+    """One library product of the same operands: torch._int_mm for i8,
+    torch.matmul otherwise; over row chunks when one output would not fit."""
+    rows = max(128, min(table.shape[0], (8 << 30) // (4 * q.shape[0])))
+    total = 0.0
+    for lo in range(0, table.shape[0], rows):
+        t = table[lo : lo + rows]
+        if q.dtype == torch.int8:
+            total += time_ms(lambda: torch._int_mm(q, t.t()), 2)
+        else:
+            total += time_ms(lambda: torch.matmul(q, t.t()), 2)
+    return total
+
+
+def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, peak_key) -> dict:
+    """Phase 4 row of one kernel at one main-path shape: held against its
+    plain version as in phase 2, then timed beside its bound, the plain
+    version and one library product."""
+    metric = normalize_metric(metric)
+    args = (metric, q, table, *scan.scan_aux(metric, q, stats, valid))
+    tag = f"{name} {path} Q={q.shape[0]} N={table.shape[0]}"
+    if name == "binned_scan":
+        kern = lambda: scan.binned_scan(*args, compact=compact)
+        plain = lambda: scan.binned_scan_plain(*args, compact=compact)
+        out_bytes = (2 + 1) if compact else (4 + 4)
+        err = hold_b1(tag, args, compact, kern(), plain())
+    else:
+        kern = lambda: scan.binned_minima(*args)
+        plain = lambda: scan.binned_minima_plain(*args)
+        out_bytes = 4
+        err = hold_b2(tag, args, kern(), plain())
+    ms = time_ms(kern, 5)
+    plain_ms = time_ms(plain, 1)
+    nq, (n, w) = q.shape[0], table.shape
+    ops = 2.0 * nq * n * w
+    nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + nq * (n // 128) * out_bytes
+    b_ms, b_by = bound_ms(ops, PEAK_OPS[peak_key], nbytes)
+    lq, lt = (q, table) if not compact else (q.to(torch.bfloat16), table.to(torch.bfloat16))
+    lib = library_ms(lq, lt)
+    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), plain {plain_ms:.1f} ms, "
+        f"library {lib:.3f} ms, launches on its path {launches}, max abs err {err:.3g}")
+    return dict(name=f"{name}[{path}]", route="cuda", source="usearch_torch/csrc/scan.cu",
+                replaces="usearch_tpu/ops/pallas_scan.py:" + ("446" if name == "binned_scan" else "631"),
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def profile_search(index, queries, k: int, exact: bool) -> None:
+    """Device time by kernel over one warm search, and the device's idle
+    share of the search's wall time (torch.profiler)."""
+    index.search(queries, k, exact=exact)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.search(queries, k, exact=exact)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # operator events repeat their kernels' device time
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    label = f"{'exact' if exact else 'approximate'} search of {queries.shape[0]} queries"
+    if busy == 0:
+        log(f"  profile of {label}: wall {wall_ms:.2f} ms, device time not measured (no device events)")
+        return
+    log(f"  profile of {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+        f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:9.3f} ms  {ms / busy:6.1%}  {name[:100]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    log("== phase 1: setup")
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, entry in build.build_log.items():
+        log(f"nvcc {name}.cu:\n{entry['report'].strip()}")
+
+    log("== phase 2: kernels against their plain versions")
+    check_kernels(dev)
+
+    log("== phase 3: main path")
+    head, comp = run_main_path(dev)
+
+    log("== phase 4: kernels at the main path's shapes, " + card)
+    for run, spec in ((head, MAIN), (comp, COMPACT)):
+        ix = run["index"]
+        per_search = {}
+        for exact, kern in ((False, scan.binned_scan), (True, scan.binned_minima)):
+            before = kern.launches
+            ix.search(run["queries"][: spec["exact_q"]] if exact else run["queries"], spec["k"], exact=exact)
+            per_search[kern.__name__] = kern.launches - before
+        log(f"  launches per search, {ix.dtype.value} {ix.metric.value}: {per_search}")
+    ix, cx = head["index"], comp["index"]
+    profile_search(ix, head["queries"], MAIN["k"], exact=False)
+    profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
+    profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
+    q8 = ix._cast_device(head["queries"], ScalarKind.F32)
+    qf = cx._cast_device(comp["queries"], ScalarKind.F32)
+    hl, cl = head["launches"], comp["launches"]
+    rows = [
+        kernel_row("binned_scan", "i8 ip", "ip", q8, ix._table, ix._stats, ix._valid, False,
+                   hl["binned_scan"], "i8"),
+        kernel_row("binned_minima", "i8 ip", "ip", q8[: MAIN["exact_q"]].contiguous(), ix._table, ix._stats,
+                   ix._valid, False, hl["binned_minima"], "i8"),
+        kernel_row("binned_scan", "f32 cos compact", "cos", qf, cx._table, cx._stats, cx._valid, True,
+                   cl["binned_scan"], "bf16"),
+        kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
+                   cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
+    ]
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"total {time.perf_counter() - t_start:.1f} s")
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

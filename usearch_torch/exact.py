@@ -1,0 +1,151 @@
+"""Exact engine: row layout, the kernel gate, and brute-force search.
+
+Counterpart of `usearch_tpu/exact.py`. `search_kernel` sends a search to the
+scan kernels (ops/scan.py) under the same gates as the JAX package, so the
+same calls take the kernel path in both; everything else takes the plain
+tiled scan of ops/topk.py.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .enums import MetricKind, ScalarKind, kind_of_dtype, normalize_dtype, normalize_metric
+from .matches import BatchMatches
+from .ops.casts import cast_vectors
+from .ops.distances import row_stats, tile_dists
+from .ops.scan import search_binned, search_exact, supports
+from .ops.topk import masked_topk, scan_topk
+
+#: row-tile target in bytes of the plain scan
+_TILE_BYTES = 32 * 1024 * 1024
+
+
+def resolve_device(device) -> torch.device:
+    """The device of an entry point; a CUDA device that is absent raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def pad_rows(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def pad_queries(n: int) -> int:
+    """Query counts bucketed to powers of two (at least 8)."""
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def storage_width(kind: ScalarKind, ndim: int) -> int:
+    """Stored row width: dims padded to a multiple of 128."""
+    if kind == ScalarKind.B1:
+        raise NotImplementedError("b1 storage is not ported yet (ROADMAP queue A.7)")
+    return pad_rows(ndim, 128)
+
+
+def pick_tile_rows(n_rows: int, row_bytes: int) -> int:
+    """Rows per tile of the plain scan: a power of two near 32 MB."""
+    tile = _TILE_BYTES // max(row_bytes, 1)
+    tile = 1 << max(int(math.floor(math.log2(max(tile, 8)))), 3)
+    return min(tile, n_rows)
+
+
+def prepare_rows(vectors, input_kind: ScalarKind, kind: ScalarKind, ndim: int) -> torch.Tensor:
+    """Host cast and zero-pad of a ``[B, ndim]`` batch to ``[B, width]``
+    (a CPU tensor of the storage dtype)."""
+    rows = cast_vectors(np.atleast_2d(vectors), input_kind, kind)
+    width = storage_width(kind, ndim)
+    return torch.nn.functional.pad(rows, (0, width - rows.shape[-1]))
+
+
+def kernel_tiles(metric, kind, n_q: int, n_rows: int, k: int, approx: bool) -> Optional[Tuple[int, int]]:
+    """(q_tile, t_tile) when the scan kernels serve this search, else None.
+
+    The gates of the JAX package's `_pallas_tiles`, unchanged: k <= 128
+    approximate and k <= 32 exact, a supported (metric, dtype), t_tile from
+    8192 halved down to 512 until it divides the rows with at least two
+    tiles, q_tile = min(512, Q) dividing Q. The CUDA kernels take any
+    multiple of 128 rows; the tiles only keep both packages on one path."""
+    if k > (128 if approx else 32) or not supports(metric, kind):
+        return None
+    t_tile = 8192
+    while t_tile > 512 and n_rows % t_tile:
+        t_tile //= 2
+    if n_rows % t_tile or n_rows < 2 * t_tile:
+        return None
+    q_tile = min(512, n_q)
+    if n_q % q_tile:
+        return None
+    return q_tile, t_tile
+
+
+def search_kernel(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_rows: int,
+                  approx: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of prepared queries against a prepared table: ``[Q, k]`` f32
+    distances and i32 rows (-1 where none)."""
+    if kernel_tiles(metric, kind, q.shape[0], table.shape[0], k, approx) is not None:
+        if approx:
+            # f32 storage ranks bins on bf16-rounded dots and rescores
+            # scan.OVERSAMPLE * k candidates exactly (compact mode)
+            compact = kind in (ScalarKind.F32, ScalarKind.F16)
+            return search_binned(metric, q, table, stats, valid, k, compact=compact)
+        return search_exact(metric, q, table, stats, valid, k)
+    q_stats = row_stats(q, kind)
+    if table.shape[0] <= tile_rows:
+        return masked_topk(tile_dists(metric, kind, q, q_stats, table, stats, ndim), valid, k)
+    return scan_topk(metric, kind, q, q_stats, table, stats, valid, k, tile_rows, ndim, approx)
+
+
+def exact_search(dataset, queries, count: int = 10, metric=MetricKind.IP, dtype=None, *,
+                 device="cuda", threads: int = 0, log: bool = False, progress=None) -> BatchMatches:
+    """Brute-force search of ``queries`` against the rows of ``dataset``;
+    keys are dataset row numbers. Runs on ``device`` (the card by default)."""
+    dev = resolve_device(device)
+    metric = normalize_metric(metric)
+    dataset = np.atleast_2d(dataset)
+    queries = np.atleast_2d(queries)
+    n_rows, ndim = dataset.shape
+    n_q = queries.shape[0]
+    count = min(count, n_rows)
+    in_kind = kind_of_dtype(dataset.dtype)
+    kind = normalize_dtype(dtype, metric=metric) if dtype is not None else in_kind
+    if kind == ScalarKind.F64:
+        kind = ScalarKind.F32  # device math runs in f32
+    if ScalarKind.B1 in (kind, in_kind) or metric not in (
+        MetricKind.IP, MetricKind.Cos, MetricKind.L2sq, MetricKind.Pearson
+    ):
+        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7)")
+
+    if n_rows > 64 * 1024:
+        n_pad = 1 << (n_rows - 1).bit_length()
+    elif n_rows >= 1024:
+        n_pad = pad_rows(n_rows, 512)  # t_tile = 512 always divides
+    else:
+        n_pad = pad_rows(n_rows, 8)
+    table = prepare_rows(dataset, in_kind, kind, ndim)
+    q = prepare_rows(queries, kind_of_dtype(queries.dtype), kind, ndim)
+    table = torch.nn.functional.pad(table, (0, 0, 0, n_pad - n_rows)).to(dev)
+    q = torch.nn.functional.pad(q, (0, 0, 0, pad_queries(n_q) - n_q)).to(dev)
+    stats = row_stats(table, kind)
+    valid = torch.arange(n_pad, device=dev) < n_rows
+
+    tile_rows = pick_tile_rows(n_pad, table.shape[1] * table.element_size())
+    while n_pad % tile_rows:
+        tile_rows //= 2
+    d, i = search_kernel(metric, kind, q, table, stats, valid, ndim, count, tile_rows)
+    d = d[:n_q].cpu().numpy()
+    i = i[:n_q].cpu().numpy()
+    return BatchMatches(
+        keys=np.where(i >= 0, i, 0).astype(np.uint64),
+        distances=d.astype(np.float32),
+        counts=np.sum(i >= 0, axis=1).astype(np.uint64),
+        computed_distances=int(n_rows) * n_q,
+    )

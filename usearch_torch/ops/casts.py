@@ -1,0 +1,69 @@
+"""Ingestion casts between scalar kinds, on tensors.
+
+Counterpart of `usearch_tpu/ops/casts.py`, with the same semantics:
+
+- float to float: a plain numeric cast (round to nearest even);
+- float to i8: scale each row to unit L2 norm, then to +-127, clamp and
+  truncate toward zero;
+- i8 to float: divide by 127.
+
+One torch function serves host batches (a CPU tensor) and rows already on
+the card, so both ingest paths quantize alike. Packed b1 rows are not part
+of this slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..enums import ScalarKind, to_torch_dtype
+
+_B1_TODO = "b1 storage is not ported yet (ROADMAP queue A.7)"
+
+
+def _i8_quantize(x: torch.Tensor) -> torch.Tensor:
+    """Unit-normalize each row, scale to +-127, clamp, truncate. The norm is
+    taken on max-rescaled rows, so ``x * x`` cannot overflow f32."""
+    x = x.float()
+    mx = x.abs().amax(dim=-1, keepdim=True)
+    mx = torch.where(mx == 0.0, 1.0, mx)
+    xn = x / mx
+    norm = torch.sqrt((xn * xn).sum(dim=-1, keepdim=True).double()).float()  # correctly rounded
+    norm = torch.where(norm == 0.0, 1.0, norm)
+    s = torch.clamp(xn * (127.0 / norm), -127.0, 127.0)
+    return torch.trunc(s).to(torch.int8)
+
+
+def decode_i8(x: torch.Tensor) -> torch.Tensor:
+    return x.float() / 127.0
+
+
+def as_tensor(values) -> torch.Tensor:
+    """A numpy batch as a CPU tensor (no copy where the layout allows).
+    bf16 arrays from other libraries are reinterpreted bit for bit."""
+    values = np.ascontiguousarray(values)
+    if not values.flags.writeable:  # torch tensors over read-only memory are unsafe
+        values = values.copy()
+    if values.dtype.name == "bfloat16":
+        return torch.from_numpy(values.view(np.int16)).view(torch.bfloat16)
+    if values.dtype.kind in "iu" and values.dtype not in (np.int8, np.uint8):
+        values = values.astype(np.float32)
+    return torch.from_numpy(values)
+
+
+def cast_rows(x: torch.Tensor, from_kind: ScalarKind, to_kind: ScalarKind) -> torch.Tensor:
+    """Cast rows on whatever device they lie on."""
+    if ScalarKind.B1 in (from_kind, to_kind):
+        raise NotImplementedError(_B1_TODO)
+    if from_kind == to_kind:
+        return x.to(to_torch_dtype(to_kind))
+    decoded = decode_i8(x) if from_kind == ScalarKind.I8 else x.float()
+    if to_kind == ScalarKind.I8:
+        return _i8_quantize(decoded)
+    return decoded.to(to_torch_dtype(to_kind))
+
+
+def cast_vectors(values, from_kind: ScalarKind, to_kind: ScalarKind) -> torch.Tensor:
+    """Cast a host ``[*, ndim]`` batch; the result is a CPU tensor."""
+    return cast_rows(as_tensor(values), from_kind, to_kind)

@@ -1,0 +1,248 @@
+"""The binned scan: kernels B1 and B2, their plain versions, and the search
+around them.
+
+Counterpart of the transposed binned path of `usearch_tpu/ops/pallas_scan.py`.
+For every query and every 128-row bin of the table, a kernel computes the
+dots, the metric epilogue plus the deleted-row penalty, and the bin's
+minimum (B1 also its first arg-min row). The ``[Q, N/128]`` surface is 128x
+smaller than the score matrix, which never reaches device memory; a top-k
+over it picks candidates, then plain torch finishes:
+
+- `search_binned` (approximate): the best ``k`` bins, one row each; in
+  compact mode (f32 storage) ``OVERSAMPLE * k`` bins rescored exactly.
+- `search_exact`: the best ``k + 4`` bins by minimum, every row of them
+  rescored exactly. A row closer than the true k-th distance makes its bin's
+  minimum smaller than that distance, so no better row is left out.
+
+Surfaces are ``[Q, N/128]`` (the JAX kernels write ``[N/128, Q]``), so the
+top-k reads each query's bins contiguously. The top-k is ``torch.topk``,
+exact everywhere, where the JAX package uses ``lax.approx_min_k``.
+
+Each kernel wrapper runs the plain version for CPU tensors and the CUDA
+kernel (csrc/scan.cu) for CUDA tensors; there is no fallback between them.
+``binned_scan.launches`` and ``binned_minima.launches`` count kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..enums import MetricKind, ScalarKind
+from .distances import I8_F32_EXACT_WIDTH, MASKED, dists_from_dots, dot, scan_epilogue
+from .topk import finish, sort_pairs, topk_min
+
+LANES = 128
+#: bins beyond k rescored by the exact path: absorbs f32 rounding between
+#: the kernel's minima and the rescore (free margin for exact i8 dots)
+EXACT_BIN_SLACK = 4
+#: candidates per k that the compact (f32 storage) approximate path rescores
+#: exactly; the JAX package's default (USEARCH_TPU_OVERSAMPLE)
+OVERSAMPLE = 2
+#: bytes of the largest temporary of one chunk of the exact rescore
+_RESCORE_BUDGET = 128 * 1024 * 1024
+#: elements of the score block of one step of the plain versions
+_PLAIN_BLOCK = 1 << 26
+
+_METRIC_CODES = {MetricKind.IP: 0, MetricKind.Cos: 1, MetricKind.L2sq: 2}
+_DTYPE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def supports(metric: MetricKind, kind: ScalarKind) -> bool:
+    """The (metric, storage) pairs the kernels take; the same set as the JAX
+    package's, which excludes f16."""
+    return metric in _METRIC_CODES and kind in (ScalarKind.BF16, ScalarKind.F32, ScalarKind.I8)
+
+
+def _check(metric, q, table, q_sq, t_sq, penalty) -> None:
+    if metric not in _METRIC_CODES:
+        raise ValueError(f"the scan kernels take ip/cos/l2sq, got {metric}")
+    if q.dtype not in _DTYPE_CODES or table.dtype != q.dtype:
+        raise TypeError(f"q and table must share a dtype of {list(_DTYPE_CODES)}: {q.dtype}, {table.dtype}")
+    if q.dim() != 2 or table.dim() != 2 or q.shape[1] != table.shape[1]:
+        raise ValueError(f"q [Q, W] and table [N, W] expected: {tuple(q.shape)}, {tuple(table.shape)}")
+    n, width = table.shape
+    if n % LANES or width % LANES:
+        raise ValueError(f"table rows and width must be multiples of {LANES}: {tuple(table.shape)}")
+    aux = [(q_sq, q.shape[0]), (penalty, n)] + ([] if metric == MetricKind.IP else [(t_sq, n)])
+    for x, length in aux:
+        if x is None or x.dtype != torch.float32 or x.shape != (length,):
+            raise ValueError(f"aux vectors must be f32 of length {length}")
+    for x in (q, table, q_sq, t_sq, penalty):
+        if x is not None and (x.device != q.device or not x.is_contiguous()):
+            raise ValueError("all operands must be contiguous and on one device")
+
+
+def _row_blocks(n_q: int, n_rows: int):
+    step = max(LANES, (_PLAIN_BLOCK // max(n_q, 1)) // LANES * LANES)
+    for off in range(0, n_rows, step):
+        yield off, min(off + step, n_rows)
+
+
+def _plain_bins(metric, q, table, q_sq, t_sq, penalty, shifted: bool, round_bf16: bool):
+    """Per-bin minimum and first arg-min row, ``[Q, N/128]`` f32 + i64."""
+    n_q, n = q.shape[0], table.shape[0]
+    if round_bf16:
+        q = q.to(torch.bfloat16)
+    vals = torch.empty((n_q, n // LANES), dtype=torch.float32, device=q.device)
+    args = torch.empty((n_q, n // LANES), dtype=torch.int64, device=q.device)
+    for lo, hi in _row_blocks(n_q, n):
+        tile = table[lo:hi].to(torch.bfloat16) if round_bf16 else table[lo:hi]
+        ts = None if t_sq is None else t_sq[lo:hi]
+        d = scan_epilogue(metric, dot(q, tile), q_sq, ts, penalty[lo:hi], shifted)
+        v, a = d.view(n_q, -1, LANES).min(dim=-1)  # first arg-min on ties
+        vals[:, lo // LANES : hi // LANES] = v
+        args[:, lo // LANES : hi // LANES] = a
+    return vals, args
+
+
+def binned_scan_plain(metric, q, table, q_sq, t_sq, penalty, compact: bool = False):
+    """What kernel B1 computes, in plain torch. Returns ``[Q, N/128]``
+    minima and rows: f32 + global i32, or (compact) bf16 minima of the
+    shifted distance + i8 row within the bin, from bf16-rounded operands."""
+    vals, args = _plain_bins(metric, q, table, q_sq, t_sq, penalty, compact, compact)
+    if compact:
+        return vals.to(torch.bfloat16), args.to(torch.int8)
+    base = torch.arange(0, table.shape[0], LANES, device=q.device)
+    return vals, (args + base).to(torch.int32)
+
+
+def binned_minima_plain(metric, q, table, q_sq, t_sq, penalty):
+    """What kernel B2 computes, in plain torch: ``[Q, N/128]`` f32 minima."""
+    return _plain_bins(metric, q, table, q_sq, t_sq, penalty, False, False)[0]
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else ctypes.c_void_p(x.data_ptr())
+
+
+def _launch(fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
+
+
+def binned_scan(metric, q, table, q_sq, t_sq, penalty, compact: bool = False):
+    """Kernel B1 (csrc/scan.cu `usearch_binned_scan`), or its plain version
+    for CPU tensors. ``t_sq`` may be None for ip."""
+    _check(metric, q, table, q_sq, t_sq, penalty)
+    if q.device.type == "cpu":
+        return binned_scan_plain(metric, q, table, q_sq, t_sq, penalty, compact)
+    from .. import build
+
+    n_q, (n, width) = q.shape[0], table.shape
+    out_v = torch.empty((n_q, n // LANES), dtype=torch.bfloat16 if compact else torch.float32, device=q.device)
+    out_i = torch.empty((n_q, n // LANES), dtype=torch.int8 if compact else torch.int32, device=q.device)
+    if n_q == 0 or n == 0:
+        return out_v, out_i
+    lib = build.load("scan")
+    with torch.cuda.device(q.device):
+        _launch(
+            lib.usearch_binned_scan, _ptr(q), _ptr(table), _ptr(q_sq), _ptr(t_sq), _ptr(penalty),
+            _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
+            int(compact), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    binned_scan.launches += 1
+    return out_v, out_i
+
+
+binned_scan.launches = 0
+
+
+def binned_minima(metric, q, table, q_sq, t_sq, penalty):
+    """Kernel B2 (csrc/scan.cu `usearch_binned_minima`), or its plain
+    version for CPU tensors."""
+    _check(metric, q, table, q_sq, t_sq, penalty)
+    if q.device.type == "cpu":
+        return binned_minima_plain(metric, q, table, q_sq, t_sq, penalty)
+    from .. import build
+
+    n_q, (n, width) = q.shape[0], table.shape
+    out_v = torch.empty((n_q, n // LANES), dtype=torch.float32, device=q.device)
+    if n_q == 0 or n == 0:
+        return out_v
+    lib = build.load("scan")
+    with torch.cuda.device(q.device):
+        _launch(
+            lib.usearch_binned_minima, _ptr(q), _ptr(table), _ptr(q_sq), _ptr(t_sq), _ptr(penalty),
+            _ptr(out_v), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    binned_minima.launches += 1
+    return out_v
+
+
+binned_minima.launches = 0
+
+
+def scan_aux(metric, q, stats, valid):
+    """Query norms, row norms (None for ip) and the deleted-row penalty."""
+    qf = q.float()
+    q_sq = (qf * qf).sum(dim=1)
+    t_sq = None if metric == MetricKind.IP else stats[:, 0].contiguous()
+    penalty = torch.zeros(valid.shape, dtype=torch.float32, device=valid.device)
+    penalty.masked_fill_(~valid, MASKED)
+    return q_sq, t_sq, penalty
+
+
+def _exact_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``[Q, W]`` . ``[Q, R, W]`` -> ``[Q, R]`` at full precision; an
+    elementwise product and sum, so no matmul setting (TF32) can round it."""
+    acc = torch.float64 if q.dtype == torch.int8 and q.shape[-1] > I8_F32_EXACT_WIDTH else torch.float32
+    return (rows.to(acc) * q.to(acc)[:, None, :]).sum(dim=-1).float()
+
+
+def rescore_exact(metric, q, q_sq, table, stats, valid, ids):
+    """Exact f32 distances of ``[Q, m]`` candidate rows, sorted ascending."""
+    dots = _exact_dots(q, table[ids])
+    d = dists_from_dots(metric, dots, q_sq[:, None], stats[:, 0][ids])
+    d = torch.where(valid[ids], d, d + MASKED)
+    return sort_pairs(d, ids)
+
+
+def search_binned(metric, q, table, stats, valid, k: int,
+                  compact: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate top-k: one candidate per 128-row bin (B1), then the best
+    ``k`` bins. ``compact`` rescores ``OVERSAMPLE * k`` bins exactly."""
+    q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
+    vals, rows = binned_scan(metric, q, table, q_sq, t_sq, penalty, compact)
+    n_bins = vals.shape[1]
+    if compact:
+        kk = min(OVERSAMPLE * k, 4 * LANES, n_bins)
+        _, sel = topk_min(vals, kk)
+        ids = sel * LANES + rows.gather(1, sel).long()
+        d, ids = rescore_exact(metric, q, q_sq, table, stats, valid, ids)
+        return finish(d[:, :k], ids[:, :k])
+    d, sel = topk_min(vals, k)
+    return finish(d, rows.gather(1, sel))
+
+
+def search_exact(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k: bin minima (B2), the best ``k + 4`` bins, and every row
+    of them rescored, in query chunks of a fixed memory budget."""
+    q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
+    vals = binned_minima(metric, q, table, q_sq, t_sq, penalty)
+    n_q, n_bins = vals.shape
+    width = table.shape[1]
+    b = min(k + EXACT_BIN_SLACK, n_bins)
+    _, bins = topk_min(vals, b)
+    t_blk = table.view(n_bins, LANES, width)
+    v_blk = valid.view(n_bins, LANES)
+    s_blk = stats[:, 0].reshape(n_bins, LANES)
+    lane = torch.arange(LANES, device=q.device)
+    chunk = max(8, min(512, _RESCORE_BUDGET // (b * LANES * (width * 4 + 8))))
+    out_d, out_i = [], []
+    for lo in range(0, n_q, chunk):
+        bc = bins[lo : lo + chunk]
+        m = bc.shape[0]
+        dots = _exact_dots(q[lo : lo + chunk], t_blk[bc].reshape(m, b * LANES, width))
+        dist = dists_from_dots(metric, dots, q_sq[lo : lo + chunk, None], s_blk[bc].reshape(m, -1))
+        dist = torch.where(v_blk[bc].reshape(m, -1), dist, MASKED)
+        ids = (bc[:, :, None] * LANES + lane).reshape(m, -1)
+        d, sel = topk_min(dist, k)
+        out_d.append(d)
+        out_i.append(ids.gather(1, sel))
+    return finish(torch.cat(out_d), torch.cat(out_i))

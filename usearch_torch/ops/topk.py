@@ -1,0 +1,77 @@
+"""Masked top-k and the plain streaming scan.
+
+Counterpart of `usearch_tpu/ops/topk.py`. `scan_topk` is the path that
+serves when the scan kernels' gate says no (f16 storage, pearson, large k),
+as the XLA scan does in the JAX package. ``torch.topk`` is exact; its order
+among equal values is unspecified, so results are re-sorted by
+(distance, id): ties go to the lower id, as ``lax.top_k`` gives them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .distances import MASKED, tile_dists
+
+
+def topk_min(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row, ascending."""
+    return torch.topk(d, k, dim=-1, largest=False, sorted=True)
+
+
+def sort_pairs(d: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort each row by (distance, id)."""
+    order = torch.argsort(ids, dim=-1, stable=True)
+    d, ids = d.gather(-1, order), ids.gather(-1, order)
+    order = torch.argsort(d, dim=-1, stable=True)
+    return d.gather(-1, order), ids.gather(-1, order)
+
+
+def finish(d: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort by (distance, id) and give masked results the id -1."""
+    d, ids = sort_pairs(d, ids.to(torch.int32))
+    return d, torch.where(d >= MASKED / 2, -1, ids)
+
+
+def masked_topk(dists, valid, k: int, index_offset: int = 0):
+    """Ascending top-k of a full ``[Q, N]`` matrix; rows where ``valid`` is
+    False surface as ``MASKED`` with id -1."""
+    if valid is not None:
+        dists = torch.where(valid[None, :], dists, MASKED)
+    d, idx = topk_min(dists, k)
+    return finish(d, idx + index_offset)
+
+
+def merge_topk(d_a, i_a, d_b, i_b, k: int):
+    """Best ``k`` of two ``[Q, k']`` candidate sets, ascending."""
+    d = torch.cat([d_a, d_b], dim=1)
+    i = torch.cat([i_a, i_b], dim=1)
+    d_sel, sel = topk_min(d, k)
+    return d_sel, i.gather(1, sel)
+
+
+def scan_topk(metric, kind, q, q_stats, table, stats, valid, k: int, tile_rows: int,
+              ndim: int, approx: bool = False):
+    """Tile-by-tile search of ``[Q, W]`` against ``[N, W]``, ``N`` a multiple
+    of ``tile_rows``; only the running ``[Q, k]`` best stays between tiles.
+
+    ``approx`` ranks each tile on bf16-rounded distances, as the JAX scan
+    does; exact searches never set it."""
+    n_rows = table.shape[0]
+    assert n_rows % tile_rows == 0, (n_rows, tile_rows)
+    n_q = q.shape[0]
+    best_d = torch.full((n_q, k), MASKED, dtype=torch.float32, device=q.device)
+    best_i = torch.full((n_q, k), -1, dtype=torch.int64, device=q.device)
+    for off in range(0, n_rows, tile_rows):
+        sl = slice(off, off + tile_rows)
+        d = tile_dists(metric, kind, q, q_stats, table[sl], stats[sl], ndim)
+        d = torch.where(valid[None, sl], d, MASKED)
+        if approx and tile_rows >= 4 * k * 128:
+            d = d.to(torch.bfloat16).float()
+            d, ids = topk_min(d, k)
+        else:
+            d, ids = topk_min(d, min(k, tile_rows))
+        best_d, best_i = merge_topk(best_d, best_i, d, ids + off, k)
+    return finish(best_d, best_i)
