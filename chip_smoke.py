@@ -7,21 +7,30 @@ against their plain versions.
 Phases, each fatal on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built from
-   usearch_torch/csrc;
-2. every kernel against its plain version on the card, at N=65,536 rows,
-   Q=512 and Q=40 queries, width 256, ~10% deleted rows: B1 (binned scan)
-   and B2 (bin minima) on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact
-   on f32;
-3. the main path through the public entry points, at the shape of bench.py:
-   `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added on the
-   card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024 exact
-   queries against a plain ground truth, 1% of the keys removed; then an
-   f32 cos index of 262,144 rows through the compact + rescore path. The
-   kernels' launch counters are zeroed just before each index is driven and
-   read just after, and both kernels must have launched on each path;
+   usearch_torch/csrc (one nvcc per source, all started together);
+2. every kernel against its plain version on the card: B1 (binned scan)
+   and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
+   ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
+   f32; B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
+   and 40 queries at nprobe 8, on the same dtypes and metrics, with and
+   without the penalty row (ip), with 4 and k candidates per bin;
+3. the main paths through the public entry points, at the shape of
+   bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
+   on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
+   exact queries against a plain ground truth, 1% of the keys removed; an
+   f32 cos index of 262,144 rows through the compact + rescore path; and
+   the IVF path: a new i8 ip index of 1M rows, `optimize(n_partitions=1024,
+   reorder=True, spill=0.05)`, `expansion_search = 1024`, 16,384 member
+   queries (recall@1 >= 0.99, recall@10 against the exact answer printed),
+   4,096 rows added after the build and found, 1% of the keys removed and
+   never returned, and the same search through the plain probe, equal to
+   the kernel's apart from ties. The launch counters are zeroed just before
+   each path and read just after: B1 and B2 must have launched on the flat
+   paths, B3 and neither B1 nor B2 on the IVF path;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
-   time and one library call's time as a yardstick.
+   time and one library call's time as a yardstick (none for B3); and a
+   profile of one warm search of each path.
 
 The line before the last is a JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -40,11 +49,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from usearch_torch import Index, build
-from usearch_torch.enums import ScalarKind, normalize_metric
-from usearch_torch.ops import scan
+from usearch_torch import Index, build, ivf
+from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
+from usearch_torch.ops import probe, scan
 from usearch_torch.ops.casts import cast_rows
-from usearch_torch.ops.distances import dot, row_stats, scan_epilogue, tile_dists
+from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.topk import masked_topk
 
 SEED = 0
@@ -53,6 +62,11 @@ CHECK = dict(n=65536, q=512, ragged_q=40, w=256, deleted=0.1)
 #: phase 3/4 shapes: bench.py's headline, and the f32 compact path
 MAIN = dict(n=1_000_000, w=256, q=16384, k=10, exact_q=1024, removed=0.01)
 COMPACT = dict(n=262144, w=256, q=16384, k=10, exact_q=1024)
+#: phase 2 shape of B3: windows, their lengths, queries, probes per query
+PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
+#: phase 3/4: the IVF path of bench.py
+IVF = dict(n=1_000_000, w=256, q=16384, k=10, partitions=1024, spill=0.05, expansion=1024, gt_q=2048,
+           fresh=4096, removed=0.01)
 #: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s
 PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -60,8 +74,10 @@ PEAK_BYTES = 3.35e12
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
 METRICS = ("ip", "cos", "l2sq")
 DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-#: the kernel wrappers of the main path, each with its launch counter
-KERNELS = (scan.binned_scan, scan.binned_minima)
+#: the kernel wrappers of the flat paths and of the IVF path, each with its
+#: launch counter
+FLAT_KERNELS = (scan.binned_scan, scan.binned_minima)
+ALL_KERNELS = FLAT_KERNELS + (probe.grouped_probe,)
 
 
 def log(*args) -> None:
@@ -183,6 +199,67 @@ def hold_b2(tag: str, args, kern, plain) -> float:
     return err
 
 
+def check_probe(dev) -> None:
+    """Phase 2, kernel B3: a dense cluster-major table of windows of
+    200-400 rows with planted ties (rows 5, 6 and 133 equal, row 7 zero),
+    the pairs of random probes, every dtype and metric, with and without the
+    penalty row (ip), 4 and k candidates per bin."""
+    spec = PROBE_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n_win, w, nprobe = spec["windows"], spec["w"], spec["nprobe"]
+    lens = torch.randint(spec["min_len"], spec["max_len"] + 1, (n_win,), generator=gen, device=dev).int()
+    starts = (torch.cumsum(lens, 0) - lens).int()
+    body = int(lens.sum())
+    w_pad = max(-(-int(lens.max()) // 128) * 128 + 128, 256)
+    cap2 = -(-body // 256) * 256 + 256
+    valid = torch.rand(cap2, generator=gen, device=dev) >= spec["deleted"]
+    valid[body:] = False
+    penalty = torch.where(valid, 0.0, MASKED)
+    for name, dtype in DTYPES.items():
+        table = make_rows(cap2, w, dtype, gen, dev)
+        table[body:] = 0
+        table[5] = table[6]
+        table[133] = table[6]
+        table[7] = 0
+        q = make_rows(spec["q"], w, dtype, gen, dev)
+        q[0] = table[6]
+        t_sq = row_stats(table, ScalarKind(name))[:, 0].contiguous()
+        for nq in (spec["q"], spec["ragged_q"]):
+            probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
+            q_g, qid_s, st_c, off, ln, _, _, _ = ivf._binned_pairs(q[:nq], probes, starts, lens, cap2, w_pad, nprobe)
+            q_sq = (q[:nq].float() ** 2).sum(1)[qid_s].contiguous()
+            shapes = [(10, 4), (10, 10)] + ([(128, 16)] if name == "i8" and nq == spec["q"] else [])
+            for metric_name in METRICS:
+                metric = normalize_metric(metric_name)
+                for aux in ((True, False) if metric == MetricKind.IP else (True,)):
+                    for k, bin_m in shapes:
+                        args = (metric, q_g, q_sq, table, None if metric == MetricKind.IP else t_sq,
+                                penalty if aux else None, (st_c + off).contiguous(), ln, k, bin_m)
+                        hold_b3(f"{name}/{metric_name}{'' if aux else ' no aux'} Q={nq} k={k} bin_m={bin_m}",
+                                args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+
+
+def hold_b3(tag: str, args, kern, plain) -> float:
+    """B3's [P, k] results against its plain version's: i8 bit for bit;
+    float distances within FLOAT_RTOL/FLOAT_ATOL, ids equal except where the
+    distances at that place agree within it (near ties). Fails on a
+    mismatch; returns the max abs error of the distances."""
+    (kd, ki), (pd, pi) = kern, plain
+    torch.cuda.synchronize()
+    differ = ki != pi
+    if args[1].dtype == torch.int8:
+        ok, detail = torch.equal(kd, pd) and not bool(differ.any()), "bit for bit"
+    else:
+        ok = torch.allclose(kd, pd, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.allclose(
+            kd[differ], pd[differ], rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+        detail = f"distances within rtol {FLOAT_RTOL}, {int(differ.sum())} ids differ on near ties"
+    err = float((kd - pd).abs().max())
+    log(f"  {tag}: B3 vs plain {'ok' if ok else 'MISMATCH'}, {detail} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"B3 disagrees with its plain version at {tag}")
+    return err
+
+
 def unit_rows(n: int, w: int, gen, dev) -> torch.Tensor:
     x = torch.randn(n, w, generator=gen, device=dev)
     return x / x.norm(dim=1, keepdim=True)
@@ -218,8 +295,7 @@ def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
     n, w, nq, k, eq = spec["n"], spec["w"], spec["q"], spec["k"], spec["exact_q"]
     x = unit_rows(n, w, gen, dev)
     torch.cuda.synchronize()
-    for kern in KERNELS:
-        kern.launches = 0
+    zero_counters()
     index = Index(ndim=w, metric=metric, dtype=dtype, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -259,11 +335,113 @@ def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
         if hits or len(index) != n - len(gone):
             fail(f"{hits} removed keys came back")
         log(f"  removed {len(gone)} keys: none comes back (approximate and exact)")
-    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    launches = counters()
     log(f"  kernel launches on the {dtype} {metric} path: {launches}")
-    if min(launches.values()) == 0:
+    if min(launches[k.__name__] for k in FLAT_KERNELS) == 0:
         fail(f"a kernel of the {dtype} {metric} path never launched: {launches}")
     return dict(index=index, queries=x[member], recall1=recall1, qps=nq / search_s, launches=launches)
+
+
+def zero_counters() -> None:
+    for kern in ALL_KERNELS:
+        kern.launches = 0
+
+
+def counters() -> dict:
+    return {kern.__name__: kern.launches for kern in ALL_KERNELS}
+
+
+def plain_ivf_search(index, queries: torch.Tensor, k: int):
+    """`Index.search` on the IVF with kernel B3's plain version bound in the
+    kernel's place for this one call, so the port's own glue drives it.
+    Returns the matches and the arguments the search gave the probe; fails
+    if the kernel launched."""
+    calls = []
+
+    def plain(*args):
+        calls.append(args)
+        return probe.grouped_probe_plain(*args)
+
+    before = probe.grouped_probe.launches
+    ivf.grouped_probe = plain
+    m = index.search(queries, k)
+    ivf.grouped_probe = probe.grouped_probe
+    if probe.grouped_probe.launches != before or len(calls) != 1:
+        fail(f"the plain-probe search launched B3 or probed {len(calls)} times")
+    return m, calls[0]
+
+
+def drive_ivf(dev) -> dict:
+    """Phase 3, the IVF path: build, search, recall, the plain probe, fresh
+    adds, removals; B3 must launch and the flat kernels must not."""
+    spec = IVF
+    n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = unit_rows(n, w, gen, dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    index = Index(ndim=w, metric="ip", dtype="i8", device=dev)
+    keys = index.add(None, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.optimize(n_partitions=spec["partitions"], reorder=True, spill=spec["spill"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index.expansion_search = spec["expansion"]
+    iv = index._ivf
+    nprobe = iv.nprobe_for(index.expansion_search, index.connectivity)
+    log(f"  i8 ip IVF {n} x {w}: optimize({spec['partitions']} partitions, reorder, spill {spec['spill']}) "
+        f"{build_s:.2f} s: {iv._shape()[0]} chunks, longest {iv.p_win} rows, {iv.shadow_np_pos.size} shadow rows, "
+        f"capacity {index.capacity}")
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = index.search(x[member], k)
+    search_s = time.perf_counter() - t0
+    want = keys[member.cpu().numpy()]
+    recall1 = float(np.mean(m.keys[:, 0] == want))
+    log(f"  IVF search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
+        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"IVF search: recall@1 {recall1:.4f}")
+
+    gq = spec["gt_q"]
+    _, gt_slots = ground_truth(index, x[member[:gq]], k)
+    gt_keys = index._slot_keys[np.clip(gt_slots, 0, None)]
+    recall10 = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys[:gq].tolist(), gt_keys.tolist())]))
+    log(f"  IVF recall@10 against the exact answer, {gq} queries: {recall10:.4f}")
+
+    mp, args = plain_ivf_search(index, x[member], k)
+    differ = mp.keys != m.keys
+    if not np.array_equal(mp.distances, m.distances) or differ.any():
+        fail(f"the plain probe's search differs from the kernel's at {int(differ.sum())} places")
+    log(f"  the same search through B3's plain version: keys and distances equal "
+        f"({args[1].shape[0]} padded pairs, k {args[8]}, {args[9]} per bin)")
+
+    new = unit_rows(spec["fresh"], w, gen, dev)
+    new_keys = index.add(None, new)
+    if index._ivf_dirty or iv.fresh_np.size != spec["fresh"]:
+        fail("rows added after optimize did not join the fresh list")
+    mf = index.search(new, k)
+    found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
+    log(f"  {spec['fresh']} rows added after the build: {found:.4f} found as members, "
+        f"recall@1 {np.mean(mf.keys[:, 0] == new_keys):.4f}")
+    if found < 1.0:
+        fail(f"fresh rows not found: {found:.4f}")
+
+    gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * spec["removed"])].cpu().numpy()]
+    index.remove(gone)
+    hits = int(np.isin(index.search(x[torch.as_tensor(gone[:nq].astype(np.int64), device=dev)], k).keys, gone).sum())
+    if hits or len(index) != n + spec["fresh"] - len(gone):
+        fail(f"{hits} removed keys came back from the IVF")
+    log(f"  removed {len(gone)} keys: none comes back")
+    launches = counters()
+    log(f"  kernel launches on the IVF path: {launches}")
+    if launches["grouped_probe"] == 0 or launches["binned_scan"] or launches["binned_minima"]:
+        fail(f"the IVF searches did not all go through B3: {launches}")
+    return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args)
 
 
 def run_main_path(dev):
@@ -338,7 +516,40 @@ def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, pe
                 bound_by=b_by, library_ms=lib)
 
 
-def profile_search(index, queries, k: int, exact: bool) -> None:
+def b3_row(run) -> dict:
+    """Phase 4 row of B3 at the IVF path's pairs: held against its plain
+    version, timed beside its bound and the plain version's time. No one
+    PyTorch call computes the grouped probe, so there is no library time."""
+    args = run["probe_args"]
+    _, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k, bin_m = args
+    n_pairs, (n_rows, w) = q_g.shape[0], table.shape
+    tag = f"grouped_probe i8 ip IVF P={n_pairs} k={k} bin_m={bin_m}"
+    err = hold_b3(tag, args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+    ms = time_ms(lambda: probe.grouped_probe(*args), 5)
+    plain_ms = time_ms(lambda: probe.grouped_probe_plain(*args), 1)
+    # bytes: every 128-row bin some window touches, read once with its aux
+    # rows, plus the pairs' inputs and the [P, k] outputs; operations: each
+    # window's own rows against its pair's query
+    live = win_len > 0
+    first = win_start[live].long() // probe.LANES
+    last = (win_start[live] + win_len[live] - 1).long() // probe.LANES
+    n_bins = n_rows // probe.LANES
+    edges = torch.bincount(first, minlength=n_bins + 1) - torch.bincount(last + 1, minlength=n_bins + 1)
+    touched = int((torch.cumsum(edges, 0)[:n_bins] > 0).sum()) * probe.LANES
+    row_bytes = w * table.element_size() + 4 * sum(x is not None for x in (t_sq, penalty))
+    in_bytes = q_g.numel() * q_g.element_size() + 4 * (q_sq.numel() + win_start.numel() + win_len.numel())
+    nbytes = touched * row_bytes + in_bytes + n_pairs * k * 8
+    ops = 2.0 * w * float(win_len.sum())
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
+        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations), plain {plain_ms:.1f} ms, library none, "
+        f"launches on its path {run['launches']['grouped_probe']}, max abs err {err:.3g}")
+    return dict(name="grouped_probe[i8 ip IVF]", route="cuda", source="usearch_torch/csrc/probe.cu",
+                replaces="usearch_tpu/ops/pallas_probe.py:265", launches=run["launches"]["grouped_probe"],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
     index.search(queries, k, exact=exact)
@@ -356,7 +567,7 @@ def profile_search(index, queries, k: int, exact: bool) -> None:
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
-    label = f"{'exact' if exact else 'approximate'} search of {queries.shape[0]} queries"
+    label = f"{label or ('exact' if exact else 'approximate')} search of {queries.shape[0]} queries"
     if busy == 0:
         log(f"  profile of {label}: wall {wall_ms:.2f} ms, device time not measured (no device events)")
         return
@@ -386,9 +597,11 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions")
     check_kernels(dev)
+    check_probe(dev)
 
-    log("== phase 3: main path")
+    log("== phase 3: main paths")
     head, comp = run_main_path(dev)
+    ivf_run = drive_ivf(dev)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -399,10 +612,14 @@ def main() -> int:
             ix.search(run["queries"][: spec["exact_q"]] if exact else run["queries"], spec["k"], exact=exact)
             per_search[kern.__name__] = kern.launches - before
         log(f"  launches per search, {ix.dtype.value} {ix.metric.value}: {per_search}")
+    before = probe.grouped_probe.launches
+    ivf_run["index"].search(ivf_run["queries"], IVF["k"])
+    log(f"  launches per search, i8 ip IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
     ix, cx = head["index"], comp["index"]
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
     profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
+    profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
     q8 = ix._cast_device(head["queries"], ScalarKind.F32)
     qf = cx._cast_device(comp["queries"], ScalarKind.F32)
     hl, cl = head["launches"], comp["launches"]
@@ -415,6 +632,7 @@ def main() -> int:
                    cl["binned_scan"], "bf16"),
         kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
+        b3_row(ivf_run),
     ]
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")

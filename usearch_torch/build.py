@@ -41,6 +41,9 @@ SIGNATURES = {
         "usearch_binned_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "usearch_binned_minima": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "probe": {
+        "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
+    },
 }
 
 _lock = threading.Lock()

@@ -2,15 +2,18 @@
 
 The JAX package's index state is a handful of arrays; ``np.asarray`` of its
 attributes gives them as numpy. `index_from_arrays` builds a port `Index`
-holding the same rows, stats, deletions and keys, so both packages answer
-the same queries.
+holding the same rows, stats, deletions and keys, and `install_ivf` gives it
+the same built IVF, so both packages answer the same queries.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from .index import Index
+from .ivf import IVFPartitions
 from .ops.casts import as_tensor
 
 #: the keys `index_from_arrays` reads
@@ -39,3 +42,43 @@ def index_from_arrays(state: dict, device="cuda") -> Index:
         np.asarray(state["free_slots"], dtype=np.int64).tolist(),
     )
     return index
+
+
+#: the keys `install_ivf` reads; the dense layout's are None in the copied
+#: one, and ``part_slots`` is None in the dense one
+IVF_KEYS = ("centroids", "avg_rows", "built_count", "spilled", "fresh", "starts", "lens", "p_win",
+            "shadow_pos", "shadow_src", "part_slots")
+
+
+def install_ivf(index: Index, state: dict) -> None:
+    """Give ``index`` a built IVF from numpy state: ``centroids [C, W]``
+    f32, ``avg_rows``, ``built_count``, ``spilled``, the ``fresh`` slots,
+    and for the dense layout ``starts``/``lens [C]``, ``p_win`` and the
+    spill shadows ``shadow_pos``/``shadow_src``, or for the copied layout
+    ``part_slots [C, P]``, whose rows and stats are read from the index's
+    table. ``index`` must hold the table the IVF was built over (as
+    `index_from_arrays` gives it)."""
+    missing = [k for k in IVF_KEYS if k not in state]
+    if missing:
+        raise KeyError(f"state lacks {missing}")
+    dev = index.device
+    centroids = torch.as_tensor(np.array(state["centroids"], dtype=np.float32), device=dev)
+    avg_rows, built = float(state["avg_rows"]), int(state["built_count"])
+    if state["starts"] is not None:
+        lens = torch.as_tensor(np.array(state["lens"], dtype=np.int32), device=dev)
+        ivf = IVFPartitions(
+            centroids, None, None, None, avg_rows, built, inplace_shape=(int(lens.shape[0]), int(state["p_win"])),
+            starts=torch.as_tensor(np.array(state["starts"], dtype=np.int32), device=dev), lens=lens,
+            p_win=int(state["p_win"]),
+        )
+        pos = np.array(state["shadow_pos"], dtype=np.int32)
+        if pos.size:
+            ivf.set_shadows(pos, np.array(state["shadow_src"], dtype=np.int32))
+    else:
+        slots = torch.as_tensor(np.array(state["part_slots"], dtype=np.int32), device=dev)
+        safe = slots.clamp_min(0).long()
+        ivf = IVFPartitions(centroids, index._table[safe], index._stats[safe], slots, avg_rows, built)
+    ivf.spilled = bool(state["spilled"])
+    ivf.fresh_np = np.array(state["fresh"], dtype=np.int64)
+    index._ivf = ivf
+    index._ivf_dirty = False

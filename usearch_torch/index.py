@@ -1,11 +1,13 @@
-"""`Index`: the flat vector index on a device.
+"""`Index`: the vector index on a device.
 
-Counterpart of the flat (no IVF) path of `usearch_tpu/index.py`. Rows live
-in a capacity-padded table on the device, beside per-row stats and a
-validity mask; deleted rows are masked inside the scan kernels, and their
-slots are reused by later adds. Search pads queries to a power of two and
-goes through `exact.search_kernel`: approximate (one candidate per 128-row
-bin) from 131,072 rows on, exact below that or with ``exact=True``.
+Counterpart of `usearch_tpu/index.py`. Rows live in a capacity-padded table
+on the device, beside per-row stats and a validity mask; deleted rows are
+masked inside the scan kernels, and their slots are reused by later adds.
+Search pads queries to a power of two. Without an IVF it goes through
+`exact.search_kernel`: approximate (one candidate per 128-row bin) from
+131,072 rows on, exact below that or with ``exact=True``. After
+`optimize`, non-exact searches probe the IVF partitions (ivf.py); rows added
+later join its fresh list, scanned exactly, until the next `optimize`.
 """
 
 from __future__ import annotations
@@ -186,6 +188,8 @@ class Index:
         self._free_slots: List[int] = []
         self._next_slot = 0
         self._count = 0
+        self._ivf = None  # ivf.IVFPartitions, built by `optimize`
+        self._ivf_dirty = True
 
     # ------------------------------------------------------------------
     # Introspection
@@ -401,7 +405,22 @@ class Index:
         self._slot_keys[slots] = keys_np
         self._keymap.insert_many(keys_np, slots)
         self._count += n
+        # new rows join the IVF's fresh list while it stays within 25% of
+        # the built rows and _FRESH_MAX; past that the IVF waits for the
+        # next `optimize` and searches scan
+        if (
+            self._ivf is not None
+            and not self._ivf_dirty
+            and (self._ivf.fresh_np.size + n) * 4 <= self._ivf.built_count
+            and self._ivf.fresh_np.size + n <= self._FRESH_MAX
+        ):
+            self._ivf.add_fresh(slots)
+        else:
+            self._ivf_dirty = True
         return int(keys_np[0]) if single else keys_np
+
+    #: fresh-list ceiling: bounds the fresh scan's [Q, F] tile
+    _FRESH_MAX = 131072
 
     # ------------------------------------------------------------------
     # Lookup and mutation
@@ -465,6 +484,9 @@ class Index:
             self._valid[torch.as_tensor(freed, device=self._device)] = False
             self._free_slots.extend(freed)
             self._count -= len(freed)
+            # deletions keep the IVF: its probes read the validity mask
+            if self._ivf is not None and not self._ivf_dirty:
+                self._ivf.remove_fresh(freed)
             if compact:
                 self.compact()
         return int(counts[0]) if single else counts
@@ -502,6 +524,7 @@ class Index:
             self._keymap.insert_many(keys, np.arange(count))
         self._free_slots = []
         self._next_slot = count
+        self._ivf_dirty = True
         return count
 
     @_mutates
@@ -513,6 +536,8 @@ class Index:
         self._free_slots = []
         self._next_slot = 0
         self._count = 0
+        self._ivf = None
+        self._ivf_dirty = True
 
     @_mutates
     def reset(self) -> None:
@@ -563,18 +588,24 @@ class Index:
         self._count = int(count)
         if len(self._keymap) != self._count:
             raise ValueError(f"count {self._count} disagrees with {len(self._keymap)} live rows")
+        self._ivf = None
+        self._ivf_dirty = True
 
     # ------------------------------------------------------------------
     # Search
     # ------------------------------------------------------------------
 
+    def _ivf_serveable(self) -> bool:
+        """A built IVF that no later change outdated."""
+        return self._ivf is not None and not self._ivf_dirty
+
     @_reads
     def search(self, vectors, count: int = 10, radius: float = math.inf, *, threads: int = 0,
                exact: bool = False, log=False, progress: Optional[Callable[[int, int], bool]] = None,
                filter=None) -> Union[Matches, BatchMatches]:
-        """k-NN search; approximate from 131,072 rows on unless ``exact``.
-        ``filter`` is a key predicate (vectorized over a key array, or per
-        key) or an allow-list of keys."""
+        """k-NN search: through the IVF after `optimize`, else approximate
+        from 131,072 rows on, unless ``exact``. ``filter`` is a key predicate
+        (vectorized over a key array, or per key) or an allow-list of keys."""
         dev_rows, kind = self._device_rows(vectors)
         if dev_rows is None:
             vectors = np.asarray(vectors)
@@ -594,23 +625,30 @@ class Index:
             q = prepare_rows(host, kind, self._dtype, self._ndim)
         k = min(int(count), self._count)
         valid = self._valid if filter is None else self._filter_mask(filter)
-        approx = not exact and self._count >= APPROX_MIN_ROWS
-        d, slots = self._search_prepared(q, k, valid, approx)
-        return self._finish_search(d.cpu().numpy(), slots.cpu().numpy(), n_q, single, radius, self._count, progress)
+        use_ivf = not exact and self._ivf_serveable()
+        approx = not exact and not use_ivf and self._count >= APPROX_MIN_ROWS
+        d, slots, scanned = self._search_prepared(q, k, valid, approx, use_ivf)
+        return self._finish_search(d.cpu().numpy(), slots.cpu().numpy(), n_q, single, radius, scanned, progress)
 
-    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool):
+    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):
+        """``(distances, slots, rows scanned per query)`` of prepared queries."""
         n_q = q.shape[0]
         q_pad = pad_queries(n_q)
         if q_pad > n_q:
-            # pads are copies of the first query, as in the JAX package
+            # pads are copies of the first query, as in the JAX package: they
+            # probe the same partitions
             q = torch.cat([q, q[:1].expand(q_pad - n_q, -1)])
         q = q.to(self._device)
+        if use_ivf:
+            d, slots = self._ivf.search(self, q, valid, k, self._expansion_search)
+            return d, slots, self._ivf.scanned_rows(self._expansion_search, self._connectivity)
         tile_rows = pick_tile_rows(self._capacity, self._width * self._table.element_size())
         while self._capacity % tile_rows:
             tile_rows //= 2
-        return search_kernel(
+        d, slots = search_kernel(
             self._metric_kind, self._dtype, q, self._table, self._stats, valid, self._ndim, k, tile_rows, approx
         )
+        return d, slots, self._count
 
     def _finish_search(self, d, slots, n_q, single, radius, scanned, progress):
         """Slots to keys, radius cut, and the result containers."""
@@ -659,11 +697,32 @@ class Index:
         return mask
 
     # ------------------------------------------------------------------
+    # IVF
+    # ------------------------------------------------------------------
+
+    @_mutates
+    def optimize(self, n_partitions: Optional[int] = None, reorder: bool = False, spill: float = 0.0) -> None:
+        """Build the IVF: k-means partitions of the live rows, probed by
+        later non-exact searches (``expansion_search`` sets how many).
+
+        ``reorder=True`` permutes the table itself into cluster-major order
+        (slots change, keys do not) and costs no second copy of the rows;
+        the default keeps a partition-contiguous copy. ``spill`` (0..1):
+        that share of the rows, those nearest a second centroid, is also
+        stored in that centroid's partition (SOAR)."""
+        from .ivf import IVFPartitions
+
+        if self._count == 0:
+            return
+        build = IVFPartitions.build_inplace if reorder else IVFPartitions.build
+        self._ivf = build(self, n_partitions, spill=spill)
+        self._ivf_dirty = False
+
+    # ------------------------------------------------------------------
     # Later slices
     # ------------------------------------------------------------------
 
     search_async = _todo("A.8")
-    optimize = _todo("A.4-A.5")
     cluster = _todo("A.9")
     join = _todo("A.9")
     save = _todo("A.6")

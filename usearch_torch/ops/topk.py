@@ -4,7 +4,9 @@ Counterpart of `usearch_tpu/ops/topk.py`. `scan_topk` is the path that
 serves when the scan kernels' gate says no (f16 storage, pearson, large k),
 as the XLA scan does in the JAX package. ``torch.topk`` is exact; its order
 among equal values is unspecified, so results are re-sorted by
-(distance, id): ties go to the lower id, as ``lax.top_k`` gives them.
+(distance, id): ties go to the lower id, as ``lax.top_k`` gives them. The
+IVF probe merges by position instead (`stable_topk`, `staged_topk`), as
+its JAX counterpart does.
 """
 
 from __future__ import annotations
@@ -50,6 +52,29 @@ def merge_topk(d_a, i_a, d_b, i_b, k: int):
     i = torch.cat([i_a, i_b], dim=1)
     d_sel, sel = topk_min(d, k)
     return d_sel, i.gather(1, sel)
+
+
+def position_order(d: torch.Tensor) -> torch.Tensor:
+    """Indices that sort the last dimension of f32 ``d`` ascending, the
+    earlier position first among equal values (a stable sort). Adding 0.0
+    turns -0.0 into 0.0, so a radix sort ties them as comparisons do."""
+    return torch.sort(d.float() + 0.0, dim=-1, stable=True)[1]
+
+
+def stable_topk(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row, ascending, the earlier
+    position first among equal values (``lax.top_k``'s order)."""
+    sel = position_order(d)[..., :k]
+    return d.gather(-1, sel), sel
+
+
+def staged_topk(dist: torch.Tensor, cand: torch.Tensor, kk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``kk`` of ``[Q, W]`` distances with their ``cand`` ids. The JAX
+    package's `staged_topk` keeps 4 candidates per 128-lane column first and
+    is exact only while no column holds more of the true top-kk; this one is
+    exact always, with ``lax.top_k``'s tie order."""
+    d, sel = stable_topk(dist, kk)
+    return d, cand.gather(-1, sel)
 
 
 def scan_topk(metric, kind, q, q_stats, table, stats, valid, k: int, tile_rows: int,
