@@ -13,7 +13,9 @@ Phases, each fatal on failure:
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
    f32; B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
    and 40 queries at nprobe 8, on the same dtypes and metrics, with and
-   without the penalty row (ip), with 4 and k candidates per bin;
+   without the penalty row (ip), with 4 and k candidates per bin; B3 over
+   packed 1024-bit rows with hamming (4 and k per bin) and B5 (4, 8 and 16
+   per bin) on windows of the same lengths, bit for bit;
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -27,10 +29,20 @@ Phases, each fatal on failure:
    the kernel's apart from ties. The launch counters are zeroed just before
    each path and read just after: B1 and B2 must have launched on the flat
    paths, B3 and neither B1 nor B2 on the IVF path;
+   The binary paths, at the shape of scripts/tpu_binary_ivf_bench.py: 1M
+   packed 1024-bit rows of a clustered corpus (400 template rows, 8% of
+   the bits flipped), 4,096 member queries, k=10; per metric (hamming, then
+   tanimoto) a new b1 index: `add`, `search(exact=True)` as the ground
+   truth, `optimize(n_partitions=976, reorder=True)`, `expansion_search =
+   1024`, the probed search (recall@1 >= 0.99, tie-aware recall@10
+   printed), the same search through the kernels' plain versions (keys and
+   distances equal), 4,096 rows added after the build and found, 1% of the
+   keys removed and never returned. B3 (B4, its b1 instantiation) must
+   launch on hamming, B5 on tanimoto, and neither B1 nor B2 on either;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
-   time and one library call's time as a yardstick (none for B3); and a
-   profile of one warm search of each path.
+   time and one library call's time as a yardstick (none for B3 and B5);
+   and a profile of one warm search of each path.
 
 The line before the last is a JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -54,6 +66,7 @@ from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
 from usearch_torch.ops import probe, scan
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
+from usearch_torch.ops.packbits import pack_bits
 from usearch_torch.ops.topk import masked_topk
 
 SEED = 0
@@ -67,6 +80,9 @@ PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, np
 #: phase 3/4: the IVF path of bench.py
 IVF = dict(n=1_000_000, w=256, q=16384, k=10, partitions=1024, spill=0.05, expansion=1024, gt_q=2048,
            fresh=4096, removed=0.01)
+#: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
+BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
+              fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
 #: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s
 PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -77,7 +93,7 @@ DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 #: the kernel wrappers of the flat paths and of the IVF path, each with its
 #: launch counter
 FLAT_KERNELS = (scan.binned_scan, scan.binned_minima)
-ALL_KERNELS = FLAT_KERNELS + (probe.grouped_probe,)
+ALL_KERNELS = FLAT_KERNELS + (probe.grouped_probe, probe.grouped_probe_nofold)
 
 
 def log(*args) -> None:
@@ -199,6 +215,21 @@ def hold_b2(tag: str, args, kern, plain) -> float:
     return err
 
 
+def probe_windows(gen, dev):
+    """PROBE_CHECK's dense layout: window lengths and starts, the rows they
+    cover, the padded window, the table rows (a 256 multiple past the
+    body), and the deleted-row penalty (~10% deleted, the tail too)."""
+    spec = PROBE_CHECK
+    lens = torch.randint(spec["min_len"], spec["max_len"] + 1, (spec["windows"],), generator=gen, device=dev).int()
+    starts = (torch.cumsum(lens, 0) - lens).int()
+    body = int(lens.sum())
+    w_pad = max(-(-int(lens.max()) // 128) * 128 + 128, 256)
+    cap2 = -(-body // 256) * 256 + 256
+    valid = torch.rand(cap2, generator=gen, device=dev) >= spec["deleted"]
+    valid[body:] = False
+    return lens, starts, body, w_pad, cap2, torch.where(valid, 0.0, MASKED)
+
+
 def check_probe(dev) -> None:
     """Phase 2, kernel B3: a dense cluster-major table of windows of
     200-400 rows with planted ties (rows 5, 6 and 133 equal, row 7 zero),
@@ -207,14 +238,7 @@ def check_probe(dev) -> None:
     spec = PROBE_CHECK
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     n_win, w, nprobe = spec["windows"], spec["w"], spec["nprobe"]
-    lens = torch.randint(spec["min_len"], spec["max_len"] + 1, (n_win,), generator=gen, device=dev).int()
-    starts = (torch.cumsum(lens, 0) - lens).int()
-    body = int(lens.sum())
-    w_pad = max(-(-int(lens.max()) // 128) * 128 + 128, 256)
-    cap2 = -(-body // 256) * 256 + 256
-    valid = torch.rand(cap2, generator=gen, device=dev) >= spec["deleted"]
-    valid[body:] = False
-    penalty = torch.where(valid, 0.0, MASKED)
+    lens, starts, body, w_pad, cap2, penalty = probe_windows(gen, dev)
     for name, dtype in DTYPES.items():
         table = make_rows(cap2, w, dtype, gen, dev)
         table[body:] = 0
@@ -257,6 +281,52 @@ def hold_b3(tag: str, args, kern, plain) -> float:
     log(f"  {tag}: B3 vs plain {'ok' if ok else 'MISMATCH'}, {detail} (max abs err {err:.3g})")
     if not ok:
         fail(f"B3 disagrees with its plain version at {tag}")
+    return err
+
+
+def check_binary_probe(dev) -> None:
+    """Phase 2, B3 over packed bits (B4) and B5: windows as in
+    `check_probe`, 1024-bit rows of bytes drawn from a few values (many
+    equal hamming distances), planted ties (rows 5, 6 and 133 equal), ~10%
+    deleted rows; bit for bit against the plain versions."""
+    spec = PROBE_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n_win, nprobe = spec["windows"], spec["nprobe"]
+    lens, starts, body, w_pad, cap2, penalty = probe_windows(gen, dev)
+    masks = torch.tensor([0x11, 0x81, 0xFF], dtype=torch.uint8, device=dev)
+    table = torch.randint(0, 256, (cap2, 128), generator=gen, device=dev, dtype=torch.uint8)
+    table &= masks[torch.randint(0, 3, (cap2, 128), generator=gen, device=dev)]
+    table[body:] = 0
+    table[5] = table[6]
+    table[133] = table[6]
+    q = table[torch.randint(0, body, (spec["q"],), generator=gen, device=dev)].clone()
+    pop_t = row_stats(table, ScalarKind.B1)[:, 0].contiguous()
+    for nq in (spec["q"], spec["ragged_q"]):
+        probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
+        q_g, qid_s, st_c, off, ln, _, _, _ = ivf._binned_pairs(q[:nq], probes, starts, lens, cap2, w_pad, nprobe)
+        q_sq = row_stats(q_g, ScalarKind.B1)[:, 0].contiguous()
+        start = (st_c + off).contiguous()
+        for k, bin_m in ((10, 4), (10, 10)):
+            args = (MetricKind.Hamming, q_g, q_sq, table, pop_t, penalty, start, ln, k, bin_m)
+            hold_exact(f"b1/hamming Q={nq} k={k} bin_m={bin_m}", "B3", probe.grouped_probe(*args),
+                       probe.grouped_probe_plain(*args))
+        for bin_m in (4, 8, 16):
+            args = (MetricKind.Hamming, q_g, q_sq, table, pop_t, penalty, st_c.contiguous(), start, ln, w_pad, bin_m)
+            hold_exact(f"b1/hamming Q={nq} w_pad={w_pad} bin_m={bin_m}", "B5", probe.grouped_probe_nofold(*args),
+                       probe.grouped_probe_nofold_plain(*args))
+
+
+def hold_exact(tag: str, name: str, kern, plain) -> float:
+    """Integer-valued results (hamming): distances and ids bit for bit.
+    Fails on a mismatch; returns the max abs error (0)."""
+    (kd, ki), (pd, pi) = kern, plain
+    torch.cuda.synchronize()
+    ok = torch.equal(kd, pd) and torch.equal(ki, pi)
+    err = float((kd - pd).abs().max())
+    log(f"  {tag}: {name} vs plain {'ok, bit for bit' if ok else 'MISMATCH'} "
+        f"({int((ki >= 0).sum())} found, max abs err {err:.3g})")
+    if not ok:
+        fail(f"{name} disagrees with its plain version at {tag}")
     return err
 
 
@@ -351,26 +421,6 @@ def counters() -> dict:
     return {kern.__name__: kern.launches for kern in ALL_KERNELS}
 
 
-def plain_ivf_search(index, queries: torch.Tensor, k: int):
-    """`Index.search` on the IVF with kernel B3's plain version bound in the
-    kernel's place for this one call, so the port's own glue drives it.
-    Returns the matches and the arguments the search gave the probe; fails
-    if the kernel launched."""
-    calls = []
-
-    def plain(*args):
-        calls.append(args)
-        return probe.grouped_probe_plain(*args)
-
-    before = probe.grouped_probe.launches
-    ivf.grouped_probe = plain
-    m = index.search(queries, k)
-    ivf.grouped_probe = probe.grouped_probe
-    if probe.grouped_probe.launches != before or len(calls) != 1:
-        fail(f"the plain-probe search launched B3 or probed {len(calls)} times")
-    return m, calls[0]
-
-
 def drive_ivf(dev) -> dict:
     """Phase 3, the IVF path: build, search, recall, the plain probe, fresh
     adds, removals; B3 must launch and the flat kernels must not."""
@@ -412,7 +462,7 @@ def drive_ivf(dev) -> dict:
     recall10 = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys[:gq].tolist(), gt_keys.tolist())]))
     log(f"  IVF recall@10 against the exact answer, {gq} queries: {recall10:.4f}")
 
-    mp, args = plain_ivf_search(index, x[member], k)
+    mp, args = plain_probe_search(index, x[member], k, "grouped_probe")
     differ = mp.keys != m.keys
     if not np.array_equal(mp.distances, m.distances) or differ.any():
         fail(f"the plain probe's search differs from the kernel's at {int(differ.sum())} places")
@@ -438,10 +488,152 @@ def drive_ivf(dev) -> dict:
     log(f"  removed {len(gone)} keys: none comes back")
     launches = counters()
     log(f"  kernel launches on the IVF path: {launches}")
-    if launches["grouped_probe"] == 0 or launches["binned_scan"] or launches["binned_minima"]:
+    if launches["grouped_probe"] == 0 or launches["binned_scan"] or launches["binned_minima"] or (
+            launches["grouped_probe_nofold"]):
         fail(f"the IVF searches did not all go through B3: {launches}")
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
                 nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args)
+
+
+def bit_corpus(n: int, gen, dev, templates: torch.Tensor) -> torch.Tensor:
+    """Packed rows of the clustered bit corpus: a template row each, with
+    BINARY["flip"] of its bits flipped; made in chunks on the card."""
+    out = torch.empty((n, templates.shape[1] // 8), dtype=torch.uint8, device=dev)
+    for lo in range(0, n, 1 << 17):
+        m = min(1 << 17, n - lo)
+        pick = torch.randint(0, templates.shape[0], (m,), generator=gen, device=dev)
+        flips = torch.rand((m, templates.shape[1]), generator=gen, device=dev) < BINARY["flip"]
+        out[lo : lo + m] = pack_bits(templates[pick] ^ flips)
+    return out
+
+
+def tie_recall(got_d: np.ndarray, want_d: np.ndarray) -> float:
+    """Share of the exact top-k distances the probe matched, as multisets
+    per row (scripts/tpu_binary_ivf_bench.py's rule: hamming distances are
+    small integers, and an equal distance is as near as the exact row)."""
+    hits = 0
+    for a, b in zip(np.sort(got_d, axis=1), np.sort(want_d, axis=1)):
+        left = {}
+        for x in a.tolist():
+            left[x] = left.get(x, 0) + 1
+        for x in b.tolist():
+            if left.get(x, 0):
+                left[x] -= 1
+                hits += 1
+    return hits / got_d.size
+
+
+def plain_probe_search(index, queries, k: int, name: str):
+    """`Index.search` with kernel ``name``'s plain version (``grouped_probe``
+    or ``grouped_probe_nofold``) bound in the kernel's place for this one
+    call. Returns the matches and the arguments of the probe; fails if a
+    probe kernel launched or the probe ran other than once."""
+    calls = []
+    kern = getattr(probe, name)
+    plain_fn = getattr(probe, name + "_plain")
+
+    def plain(*args):
+        calls.append(args)
+        return plain_fn(*args)
+
+    before = probe.grouped_probe.launches, probe.grouped_probe_nofold.launches
+    setattr(ivf, name, plain)
+    try:
+        m = index.search(queries, k)
+    finally:
+        setattr(ivf, name, kern)
+    if (probe.grouped_probe.launches, probe.grouped_probe_nofold.launches) != before or len(calls) != 1:
+        fail(f"the plain-probe search launched a probe kernel or probed {len(calls)} times")
+    return m, calls[0]
+
+
+def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen) -> dict:
+    """Phase 3, one binary path: a b1 index of the corpus ``x`` through
+    add, exact search, optimize, probed search, the plain probe, fresh
+    adds and removals; the launch counters are zeroed just before and read
+    just after."""
+    spec = BINARY
+    n, nq, k = x.shape[0], spec["q"], spec["k"]
+    kern_name = "grouped_probe" if metric == "hamming" else "grouped_probe_nofold"
+    torch.cuda.synchronize()
+    zero_counters()
+    index = Index(ndim=spec["bits"], metric=metric, dtype="b1", device=dev)
+    t0 = time.perf_counter()
+    keys = index.add(None, x)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    queries = x[member]
+    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k, exact=True)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt = index.search(queries, k, exact=True)
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index.optimize(n_partitions=spec["partitions"], reorder=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index.expansion_search = spec["expansion"]
+    iv = index._ivf
+    nprobe = iv.nprobe_for(index.expansion_search, index.connectivity)
+    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = index.search(queries, k)
+    search_s = time.perf_counter() - t0
+    want = keys[member.cpu().numpy()]
+    recall1 = float(np.mean(m.keys[:, 0] == want))
+    recall10 = tie_recall(m.distances, gt.distances)
+    id_recall10 = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys.tolist(), gt.keys.tolist())]))
+    log(f"  b1 {metric} IVF {n} x {spec['bits']} bits: add {add_s:.2f} s; exact search of {nq} queries "
+        f"{exact_s * 1e3:.1f} ms = {nq / exact_s:.0f} QPS; optimize({spec['partitions']} partitions, reorder) "
+        f"{build_s:.2f} s: {iv._shape()[0]} chunks, longest {iv.p_win} rows, capacity {index.capacity}")
+    log(f"  probed search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
+        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}, tie-aware recall@10 {recall10:.4f} "
+        f"(on ids {id_recall10:.4f})")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"b1 {metric} IVF search: recall@1 {recall1:.4f}")
+
+    mp, args = plain_probe_search(index, queries, k, kern_name)
+    differ = mp.keys != m.keys
+    if not np.array_equal(mp.distances, m.distances) or differ.any():
+        fail(f"the plain probe's {metric} search differs from the kernel's at {int(differ.sum())} places")
+    log(f"  the same search through {kern_name}'s plain version: keys and distances equal "
+        f"({args[1].shape[0]} padded pairs)")
+
+    new = bit_corpus(spec["fresh"], gen, dev, templates)
+    new_keys = index.add(None, new)
+    if index._ivf_dirty or iv.fresh_np.size != spec["fresh"]:
+        fail("rows added after optimize did not join the fresh list")
+    mf = index.search(new, k)
+    found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
+    log(f"  {spec['fresh']} rows added after the build: {found:.4f} found as members")
+    if found < 1.0:
+        fail(f"fresh rows not found: {found:.4f}")
+
+    gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * spec["removed"])].cpu().numpy()]
+    index.remove(gone)
+    hits = int(np.isin(index.search(x[torch.as_tensor(gone[:nq].astype(np.int64), device=dev)], k).keys,
+                       gone).sum())
+    if hits or len(index) != n + spec["fresh"] - len(gone):
+        fail(f"{hits} removed keys came back from the b1 {metric} IVF")
+    log(f"  removed {len(gone)} keys: none comes back")
+    launches = counters()
+    log(f"  kernel launches on the b1 {metric} IVF path: {launches}")
+    if launches[kern_name] == 0 or launches["binned_scan"] or launches["binned_minima"]:
+        fail(f"the b1 {metric} searches did not go through {kern_name} alone among the kernels: {launches}")
+    return dict(index=index, queries=queries, recall1=recall1, recall10=recall10, qps=nq / search_s,
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, kern=kern_name)
+
+
+def run_binary_paths(dev) -> dict:
+    """Phase 3: the hamming path (B3 over packed rows), then tanimoto (B5),
+    each on its own index of one corpus."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    templates = torch.randint(0, 2, (BINARY["templates"], BINARY["bits"]), generator=gen, device=dev,
+                              dtype=torch.uint8)
+    x = bit_corpus(BINARY["n"], gen, dev, templates)
+    return {metric: drive_binary(dev, metric, x, templates, gen) for metric in BINARY["metrics"]}
 
 
 def run_main_path(dev):
@@ -516,6 +708,16 @@ def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, pe
                 bound_by=b_by, library_ms=lib)
 
 
+def touched_rows(n_rows: int, win_start, win_len) -> int:
+    """Rows of every 128-row bin that some window touches."""
+    live = win_len > 0
+    first = win_start[live].long() // probe.LANES
+    last = (win_start[live] + win_len[live] - 1).long() // probe.LANES
+    n_bins = n_rows // probe.LANES
+    edges = torch.bincount(first, minlength=n_bins + 1) - torch.bincount(last + 1, minlength=n_bins + 1)
+    return int((torch.cumsum(edges, 0)[:n_bins] > 0).sum()) * probe.LANES
+
+
 def b3_row(run) -> dict:
     """Phase 4 row of B3 at the IVF path's pairs: held against its plain
     version, timed beside its bound and the plain version's time. No one
@@ -530,12 +732,7 @@ def b3_row(run) -> dict:
     # bytes: every 128-row bin some window touches, read once with its aux
     # rows, plus the pairs' inputs and the [P, k] outputs; operations: each
     # window's own rows against its pair's query
-    live = win_len > 0
-    first = win_start[live].long() // probe.LANES
-    last = (win_start[live] + win_len[live] - 1).long() // probe.LANES
-    n_bins = n_rows // probe.LANES
-    edges = torch.bincount(first, minlength=n_bins + 1) - torch.bincount(last + 1, minlength=n_bins + 1)
-    touched = int((torch.cumsum(edges, 0)[:n_bins] > 0).sum()) * probe.LANES
+    touched = touched_rows(n_rows, win_start, win_len)
     row_bytes = w * table.element_size() + 4 * sum(x is not None for x in (t_sq, penalty))
     in_bytes = q_g.numel() * q_g.element_size() + 4 * (q_sq.numel() + win_start.numel() + win_len.numel())
     nbytes = touched * row_bytes + in_bytes + n_pairs * k * 8
@@ -546,6 +743,39 @@ def b3_row(run) -> dict:
         f"launches on its path {run['launches']['grouped_probe']}, max abs err {err:.3g}")
     return dict(name="grouped_probe[i8 ip IVF]", route="cuda", source="usearch_torch/csrc/probe.cu",
                 replaces="usearch_tpu/ops/pallas_probe.py:265", launches=run["launches"]["grouped_probe"],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def binary_row(run) -> dict:
+    """Phase 4 row of B3 over packed rows (hamming path) or of B5 (tanimoto
+    path) at the path's pairs: held bit for bit against the plain version,
+    timed beside its bound and the plain version's time. Operations: two
+    per bit pair of each window row and its pair's query (the bit-plane
+    product of the TPU kernel), at the int8 tensor-core rate. No one
+    PyTorch call computes a per-bin selection over gathered windows, so
+    there is no library time."""
+    args, name = run["probe_args"], run["kern"]
+    kern, plain = getattr(probe, name), getattr(probe, name + "_plain")
+    q_g, q_sq, table, win_start, win_len = args[1], args[2], args[3], args[-4], args[-3]
+    n_pairs, (n_rows, w) = q_g.shape[0], table.shape
+    tag = f"{name} b1 {run['index'].metric.value} IVF P={n_pairs}"
+    err = hold_exact(tag, name, kern(*args), plain(*args))
+    ms = time_ms(lambda: kern(*args), 5)
+    plain_ms = time_ms(lambda: plain(*args), 1)
+    out_cols = args[8] if name == "grouped_probe" else probe.nofold_width(args[-1], args[-2])
+    in_bytes = q_g.numel() + 4 * q_sq.numel() + 4 * n_pairs * (2 if name == "grouped_probe" else 3)
+    # bytes: each touched bin's rows with their popcount and penalty, the
+    # pairs' inputs and the outputs
+    nbytes = touched_rows(n_rows, win_start, win_len) * (w + 8) + in_bytes + n_pairs * out_cols * 8
+    ops = 2.0 * 8 * w * float(win_len.sum())
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    per_search = run["launches_per_search"]
+    log(f"  {tag} W={w} bytes: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.4f} GB, "
+        f"{ops / 1e9:.2f} G bit operations), plain {plain_ms:.1f} ms, library none, launches on its path "
+        f"{run['launches'][name]} ({per_search} per search), max abs err {err:.3g}")
+    replaces = "usearch_tpu/ops/pallas_probe.py:" + ("115" if name == "grouped_probe" else "453")
+    return dict(name=f"{name}[b1 {run['index'].metric.value} IVF]", route="cuda",
+                source="usearch_torch/csrc/probe.cu", replaces=replaces, launches=run["launches"][name],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -598,10 +828,12 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     check_kernels(dev)
     check_probe(dev)
+    check_binary_probe(dev)
 
     log("== phase 3: main paths")
     head, comp = run_main_path(dev)
     ivf_run = drive_ivf(dev)
+    binary = run_binary_paths(dev)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -615,11 +847,19 @@ def main() -> int:
     before = probe.grouped_probe.launches
     ivf_run["index"].search(ivf_run["queries"], IVF["k"])
     log(f"  launches per search, i8 ip IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
+    for metric, run in binary.items():
+        kern = getattr(probe, run["kern"])
+        before = kern.launches
+        run["index"].search(run["queries"], BINARY["k"])
+        run["launches_per_search"] = kern.launches - before
+        log(f"  launches per search, b1 {metric} IVF: {{'{run['kern']}': {run['launches_per_search']}}}")
     ix, cx = head["index"], comp["index"]
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
     profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
     profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
+    for metric, run in binary.items():
+        profile_search(run["index"], run["queries"], BINARY["k"], exact=False, label=f"b1 {metric} IVF")
     q8 = ix._cast_device(head["queries"], ScalarKind.F32)
     qf = cx._cast_device(comp["queries"], ScalarKind.F32)
     hl, cl = head["launches"], comp["launches"]
@@ -633,7 +873,7 @@ def main() -> int:
         kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
         b3_row(ivf_run),
-    ]
+    ] + [binary_row(run) for run in binary.values()]
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -43,6 +43,7 @@ SIGNATURES = {
     },
     "probe": {
         "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
+        "usearch_grouped_probe_nofold": [_P] * 10 + [_I] * 7 + [_P],
     },
 }
 

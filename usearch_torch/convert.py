@@ -23,7 +23,8 @@ STATE_KEYS = ("table", "stats", "valid", "slot_keys", "count", "next_slot", "fre
 
 def index_from_arrays(state: dict, device="cuda") -> Index:
     """A port `Index` from numpy state: ``table [capacity, width]`` (i8,
-    bf16, f16 or f32), ``stats [capacity, 2]`` f32, ``valid [capacity]``
+    bf16, f16 or f32; packed uint8 bytes for b1), ``stats [capacity, 2]``
+    f32 (popcount and 0 for b1), ``valid [capacity]``
     bool, ``slot_keys [capacity]`` u64, ``count``, ``next_slot``,
     ``free_slots``, and the configuration ``ndim``, ``metric``, ``dtype``
     (names such as "ip" and "i8") and ``multi``."""
@@ -51,8 +52,9 @@ IVF_KEYS = ("centroids", "avg_rows", "built_count", "spilled", "fresh", "starts"
 
 
 def install_ivf(index: Index, state: dict) -> None:
-    """Give ``index`` a built IVF from numpy state: ``centroids [C, W]``
-    f32, ``avg_rows``, ``built_count``, ``spilled``, the ``fresh`` slots,
+    """Give ``index`` a built IVF from numpy state: ``centroids [C, D]``
+    f32 in the quantizer's space (the unpacked bits, 8 per stored byte, for
+    b1), ``avg_rows``, ``built_count``, ``spilled``, the ``fresh`` slots,
     and for the dense layout ``starts``/``lens [C]``, ``p_win`` and the
     spill shadows ``shadow_pos``/``shadow_src``, or for the copied layout
     ``part_slots [C, P]``, whose rows and stats are read from the index's

@@ -43,6 +43,15 @@ MetricKindBitwise = (MetricKind.Hamming, MetricKind.Tanimoto, MetricKind.Sorense
 #: Metrics scored from one dot product plus per-row stats.
 MetricKindDot = (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq, MetricKind.Pearson)
 
+
+def is_ported(metric: MetricKind, kind: ScalarKind) -> bool:
+    """Whether the port scores ``metric`` over ``kind`` storage: the dot
+    metrics over numeric tables, the binary metrics over packed b1 ones.
+    The rest of the metric tail and the other pairings are ROADMAP A.7b."""
+    if metric in MetricKindBitwise:
+        return kind == ScalarKind.B1
+    return metric in MetricKindDot and kind != ScalarKind.B1
+
 _METRIC_ALIASES = {
     "unknown": MetricKind.Unknown,
     "ip": MetricKind.IP,

@@ -14,7 +14,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .enums import MetricKind, ScalarKind, kind_of_dtype, normalize_dtype, normalize_metric
+from .enums import (
+    MetricKind,
+    ScalarKind,
+    is_ported,
+    kind_of_dtype,
+    normalize_dtype,
+    normalize_metric,
+)
 from .matches import BatchMatches
 from .ops.casts import cast_vectors
 from .ops.distances import row_stats, tile_dists
@@ -45,9 +52,10 @@ def pad_queries(n: int) -> int:
 
 
 def storage_width(kind: ScalarKind, ndim: int) -> int:
-    """Stored row width: dims padded to a multiple of 128."""
+    """Stored row width: dims padded to a multiple of 128; for b1 the
+    packed bytes, ``ceil(ndim / 8)``, padded to a multiple of 128."""
     if kind == ScalarKind.B1:
-        raise NotImplementedError("b1 storage is not ported yet (ROADMAP queue A.7)")
+        return pad_rows((ndim + 7) // 8, 128)
     return pad_rows(ndim, 128)
 
 
@@ -59,9 +67,9 @@ def pick_tile_rows(n_rows: int, row_bytes: int) -> int:
 
 
 def prepare_rows(vectors, input_kind: ScalarKind, kind: ScalarKind, ndim: int) -> torch.Tensor:
-    """Host cast and zero-pad of a ``[B, ndim]`` batch to ``[B, width]``
-    (a CPU tensor of the storage dtype)."""
-    rows = cast_vectors(np.atleast_2d(vectors), input_kind, kind)
+    """Host cast and zero-pad of a ``[B, ndim]`` batch (packed bytes for b1
+    input) to ``[B, width]`` (a CPU tensor of the storage dtype)."""
+    rows = cast_vectors(np.atleast_2d(vectors), input_kind, kind, ndim)
     width = storage_width(kind, ndim)
     return torch.nn.functional.pad(rows, (0, width - rows.shape[-1]))
 
@@ -107,7 +115,8 @@ def search_kernel(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_
 def exact_search(dataset, queries, count: int = 10, metric=MetricKind.IP, dtype=None, *,
                  device="cuda", threads: int = 0, log: bool = False, progress=None) -> BatchMatches:
     """Brute-force search of ``queries`` against the rows of ``dataset``;
-    keys are dataset row numbers. Runs on ``device`` (the card by default)."""
+    keys are dataset row numbers. Runs on ``device`` (the card by default).
+    A uint8 dataset is packed bits (b1), ``8 x`` its columns wide."""
     dev = resolve_device(device)
     metric = normalize_metric(metric)
     dataset = np.atleast_2d(dataset)
@@ -117,12 +126,12 @@ def exact_search(dataset, queries, count: int = 10, metric=MetricKind.IP, dtype=
     count = min(count, n_rows)
     in_kind = kind_of_dtype(dataset.dtype)
     kind = normalize_dtype(dtype, metric=metric) if dtype is not None else in_kind
+    if in_kind == ScalarKind.B1:
+        ndim, kind = ndim * 8, ScalarKind.B1
     if kind == ScalarKind.F64:
         kind = ScalarKind.F32  # device math runs in f32
-    if ScalarKind.B1 in (kind, in_kind) or metric not in (
-        MetricKind.IP, MetricKind.Cos, MetricKind.L2sq, MetricKind.Pearson
-    ):
-        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7)")
+    if not is_ported(metric, kind):
+        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7b)")
 
     if n_rows > 64 * 1024:
         n_pad = 1 << (n_rows - 1).bit_length()

@@ -24,9 +24,9 @@ from .enums import (
     DEFAULT_CONNECTIVITY,
     DEFAULT_EXPANSION_ADD,
     DEFAULT_EXPANSION_SEARCH,
-    MetricKindDot,
     ScalarKind,
     MetricKind,
+    is_ported,
     kind_of_dtype,
     normalize_dtype,
     normalize_metric,
@@ -37,6 +37,7 @@ from .keymap import KeyMap
 from .matches import BatchMatches, Matches
 from .ops.casts import cast_rows
 from .ops.distances import row_stats
+from .ops.packbits import unpack_bits_np
 
 #: capacity quantum in rows
 ROW_TILE = 1024
@@ -44,6 +45,9 @@ ROW_TILE = 1024
 APPROX_MIN_ROWS = 131072
 #: host batches of at least two such chunks are cast and copied chunk by chunk
 INGEST_CHUNK = 131072
+#: the array types `get` returns
+_NUMPY_DTYPES = {ScalarKind.F64: np.float64, ScalarKind.F32: np.float32, ScalarKind.F16: np.float16,
+                 ScalarKind.I8: np.int8}
 
 
 class _RWLock:
@@ -154,12 +158,12 @@ class Index:
         device="cuda",
     ) -> None:
         if callable(metric) and not isinstance(metric, (str, MetricKind)):
-            raise NotImplementedError("user-defined metrics are not ported yet (ROADMAP queue A.7)")
+            raise NotImplementedError("user-defined metrics are not ported yet (ROADMAP queue A.7b)")
         self._metric_kind = normalize_metric(metric)
         self._dtype = normalize_dtype(dtype, ndim=ndim, metric=self._metric_kind)
-        if self._metric_kind not in MetricKindDot or self._dtype in (ScalarKind.B1, ScalarKind.F64):
+        if self._dtype == ScalarKind.F64 or not is_ported(self._metric_kind, self._dtype):
             raise NotImplementedError(
-                f"{self._metric_kind.value}/{self._dtype.value} is not ported yet (ROADMAP queue A.7)"
+                f"{self._metric_kind.value}/{self._dtype.value} is not ported yet (ROADMAP queue A.7b)"
             )
         if path is not None or view:
             raise NotImplementedError("persistence is not ported yet (ROADMAP queue A.6)")
@@ -310,32 +314,33 @@ class Index:
     # Ingestion
     # ------------------------------------------------------------------
 
+    def _columns(self, kind: ScalarKind) -> int:
+        """Input columns of one row: packed bytes for uint8 (b1) input."""
+        return (self._ndim + 7) // 8 if kind == ScalarKind.B1 else self._ndim
+
     def _device_rows(self, vectors):
-        """A tensor argument as ``([B, ndim] rows on the index's device,
+        """A tensor argument as ``([B, columns] rows on the index's device,
         their kind)``, or ``(None, None)`` for host (numpy) input."""
         if not isinstance(vectors, torch.Tensor):
             return None, None
         kind = kind_of_dtype(vectors.dtype)
-        if kind == ScalarKind.B1:
-            raise NotImplementedError("b1 rows are not ported yet (ROADMAP queue A.7)")
         rows = vectors if vectors.dim() == 2 else vectors.reshape(1, -1)
-        if rows.dim() != 2 or rows.shape[1] != self._ndim:
-            raise ValueError(f"Expected {self._ndim} columns, got {tuple(vectors.shape)}")
+        if rows.dim() != 2 or rows.shape[1] != self._columns(kind):
+            raise ValueError(f"Expected {self._columns(kind)} columns for {kind.value} input, "
+                             f"got {tuple(vectors.shape)}")
         return rows.to(self._device), kind
 
     def _host_rows(self, vectors: np.ndarray):
-        """``(rows [B, ndim], kind)`` of a host batch."""
+        """``(rows [B, columns], kind)`` of a host batch."""
         rows = np.atleast_2d(vectors)
         kind = kind_of_dtype(rows.dtype)
-        if kind == ScalarKind.B1:
-            raise NotImplementedError("b1 rows are not ported yet (ROADMAP queue A.7)")
-        if rows.ndim != 2 or rows.shape[1] != self._ndim:
-            raise ValueError(f"Expected {self._ndim} columns for {kind.value} input, got {rows.shape}")
+        if rows.ndim != 2 or rows.shape[1] != self._columns(kind):
+            raise ValueError(f"Expected {self._columns(kind)} columns for {kind.value} input, got {rows.shape}")
         return rows, kind
 
     def _cast_device(self, rows: torch.Tensor, kind: ScalarKind) -> torch.Tensor:
         """Device-side cast and zero-pad to the stored width."""
-        rows = cast_rows(rows, kind, self._dtype)
+        rows = cast_rows(rows, kind, self._dtype, self._ndim)
         return torch.nn.functional.pad(rows, (0, self._width - rows.shape[1]))
 
     def _scatter(self, slots: torch.Tensor, rows: torch.Tensor) -> None:
@@ -442,9 +447,11 @@ class Index:
     @_reads
     def get(self, keys, dtype=None):
         """Stored vectors decoded to ``dtype`` (f32 by default): None for a
-        missing key, a ``[n, ndim]`` matrix per key with ``multi``."""
+        missing key, a ``[n, ndim]`` matrix per key with ``multi``. A b1
+        index gives its packed bytes for ``dtype="b1"`` and unpacks its bits
+        to 0/1 values otherwise."""
         out_kind = ScalarKind.F32 if dtype is None else normalize_dtype(dtype, metric=self._metric_kind)
-        if out_kind not in (ScalarKind.F32, ScalarKind.F16, ScalarKind.F64, ScalarKind.I8):
+        if out_kind not in tuple(_NUMPY_DTYPES) + ((ScalarKind.B1,) if self._dtype == ScalarKind.B1 else ()):
             raise ValueError(f"get() returns f64/f32/f16/i8 arrays, not {out_kind.value}")
         single = np.isscalar(keys)
         slot_lists = [self._keymap.slots_of(k) for k in np.atleast_1d(np.asarray(keys, dtype=np.uint64)).tolist()]
@@ -452,7 +459,12 @@ class Index:
         results = []
         if flat:
             idx = torch.as_tensor(flat, device=self._device)
-            rows = cast_rows(self._table[idx, : self._ndim], self._dtype, out_kind).cpu().numpy()
+            if self._dtype == ScalarKind.B1:
+                packed = self._table[idx, : self._columns(ScalarKind.B1)].cpu().numpy()
+                rows = packed if out_kind == ScalarKind.B1 else (
+                    unpack_bits_np(packed, self._ndim).astype(_NUMPY_DTYPES[out_kind]))
+            else:
+                rows = cast_rows(self._table[idx, : self._ndim], self._dtype, out_kind).cpu().numpy()
             offs = np.cumsum([0] + [len(sl) for sl in slot_lists])
         for i, sl in enumerate(slot_lists):
             if not sl:
@@ -596,8 +608,13 @@ class Index:
     # ------------------------------------------------------------------
 
     def _ivf_serveable(self) -> bool:
-        """A built IVF that no later change outdated."""
-        return self._ivf is not None and not self._ivf_dirty
+        """A built IVF that no later change outdated, of a (metric, dtype)
+        the probes serve: b1 tables only the binary probe metrics."""
+        if self._ivf is None or self._ivf_dirty:
+            return False
+        from .ivf import BINARY_PROBE_METRICS
+
+        return self._dtype != ScalarKind.B1 or self._metric_kind in BINARY_PROBE_METRICS
 
     @_reads
     def search(self, vectors, count: int = 10, radius: float = math.inf, *, threads: int = 0,

@@ -1,16 +1,21 @@
 """IVF partitioned scan: a k-means quantizer over the table, and searches
 that probe the ``nprobe`` partitions nearest each query.
 
-Counterpart of `usearch_tpu/ivf.py` for the numeric tables of the port
-(i8, bf16, f16, f32 storage; ip, cos, l2sq, pearson). Layouts:
+Counterpart of `usearch_tpu/ivf.py` for the tables of the port (i8, bf16,
+f16, f32 storage with ip, cos, l2sq, pearson; packed b1 storage with
+hamming, tanimoto, sorensen). b1 tables are partitioned in the unpacked
+{0, 1} bit space, where hamming is squared L2, and probed by and-counts
+(`packbits.bit_dot`) over popcount stats. Layouts:
 
 - ``optimize()`` (copied): a partition-contiguous copy of the live rows,
   ``[C, P, W]``; a probe gathers whole partitions.
 - ``optimize(reorder=True)`` (dense): the table itself is permuted into
   cluster-major order, partition ``c`` at rows ``[starts[c], starts[c] +
-  lens[c])``. Probes of ip/cos/l2sq over i8/bf16/f32 with ``k <= 128`` go
-  through the grouped probe, kernel B3 (ops/probe.py); the rest through a
-  plain block-gather probe. ``spill`` adds SOAR shadow rows: duplicates of
+  lens[c])``. Probes of ip/cos/l2sq over i8/bf16/f32 and of hamming over
+  b1 with ``k <= 128`` go through the grouped probe, kernel B3
+  (ops/probe.py); tanimoto and sorensen over b1 select by hamming in kernel
+  B5 and re-rank exactly through the popcount identity; the rest go through
+  a plain block-gather probe. ``spill`` adds SOAR shadow rows: duplicates of
   the spilled rows inside their second-nearest partition, invisible to the
   index proper.
 
@@ -35,13 +40,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .enums import MetricKind, ScalarKind
+from .enums import MetricKind, MetricKindBitwise, ScalarKind
 from .keymap import KeyMap
 from .kmeans import assign_flat, kmeans_fit
-from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, row_stats, tile_dists
-from .ops.probe import LANES, MAX_BIN_M, grouped_probe
+from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, binary_dists, row_stats, tile_dists
+from .ops.packbits import bit_dot, unpack_bits
+from .ops.probe import LANES, MAX_BIN_M, grouped_probe, grouped_probe_nofold
 from .ops.scan import supports
 from .ops.topk import masked_topk, stable_topk, staged_topk
+
+#: binary metrics with an IVF probe path over b1 tables: all of them
+BINARY_PROBE_METRICS = MetricKindBitwise
+#: candidates per bin of the tanimoto/sorensen select: hamming distances
+#: are small integers with many ties, which those metrics break otherwise
+BINARY_BIN_M = 8
 
 #: rows per gather block in the dense layout
 DENSE_BLOCK = 256
@@ -114,9 +126,16 @@ def _fresh_topk(metric, kind, q, table, stats, valid, fresh_slots, ndim: int, k:
 # ----------------------------------------------------------------------
 
 
+def _query_f32(kind, q: torch.Tensor) -> torch.Tensor:
+    """Query rows in the quantizer's space: the unpacked bits of b1 rows,
+    else the rows as f32."""
+    return unpack_bits(q).float() if kind == ScalarKind.B1 else q.float()
+
+
 def _centroid_metric(metric):
-    """Partitions rank by ip/cos/l2sq as their metric, pearson by l2sq (its
-    quantizer's space)."""
+    """Partitions rank by ip/cos/l2sq as their metric, pearson and the
+    binary metrics by l2sq (their quantizer's space; hamming is l2sq over
+    bits)."""
     return metric if metric in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq) else MetricKind.L2sq
 
 
@@ -160,7 +179,10 @@ def _probe_select(metric, qf: torch.Tensor, centroids: torch.Tensor, lens, nprob
 
 def _probe_dot(kind, qc: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``[chunk, W] . [chunk, X, W] -> [chunk, X]`` f32 at full precision
-    (i8 in a float type that holds its sums exactly)."""
+    (i8 in a float type that holds its sums exactly; and-counts of packed
+    b1 rows)."""
+    if kind == ScalarKind.B1:
+        return bit_dot(qc[:, None, :], rows)[:, 0]
     if kind == ScalarKind.I8:
         acc = torch.float32 if qc.shape[-1] <= I8_F32_EXACT_WIDTH else torch.float64
     else:
@@ -188,6 +210,8 @@ def _probe_metric_dists(metric, d_, q_sq, t_sq, q_sum=None, t_sum=None, ndim: in
         return torch.where(both_zero, 0.0, torch.where(one_zero, 1.0, base))
     if metric == MetricKind.L2sq:
         return torch.clamp_min(q_sq[:, None] + t_sq - 2.0 * d_, 0.0)
+    if metric in BINARY_PROBE_METRICS:
+        return binary_dists(metric, d_, q_sq[:, None], t_sq)
     raise ValueError(f"probe epilogue: unsupported metric {metric}")
 
 
@@ -208,6 +232,12 @@ def _chunk_rows(row_bytes: int) -> int:
     return int(np.clip(_PROBE_BUDGET // max(row_bytes, 1), 8, _QUERY_CHUNK))
 
 
+def _row_bytes(kind, width: int) -> int:
+    """Bytes a plain probe holds per gathered row: its f32 (or f64) copy and
+    12 bytes of ids, stats and mask; b1 rows unpack to 8 f32 per byte."""
+    return width * (32 if kind == ScalarKind.B1 else 4) + 12
+
+
 def _part_valid_compute(valid: torch.Tensor, part_slots: torch.Tensor) -> torch.Tensor:
     """Partition-aligned validity ``[C, P]``: pads and deleted rows False."""
     return (part_slots >= 0) & valid[part_slots.clamp_min(0).long()]
@@ -219,9 +249,9 @@ def _ivf_probe_search(metric, kind, q, part_valid, centroids, part_table, part_s
     scored in query chunks of a fixed memory budget. Returns slots."""
     n_q, p = q.shape[0], part_table.shape[1]
     q_stats = row_stats(q, kind)
-    probes = _probe_select(_centroid_metric(metric), q.float(), centroids, part_valid.sum(dim=1), nprobe,
-                           groups)
-    chunk = _chunk_rows(nprobe * p * (part_table.shape[-1] * 4 + 12))
+    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q), centroids, part_valid.sum(dim=1),
+                           nprobe, groups)
+    chunk = _chunk_rows(nprobe * p * _row_bytes(kind, part_table.shape[-1]))
     out_d, out_i = [], []
     for lo in range(0, n_q, chunk):
         prc, qc, qsc = probes[lo : lo + chunk], q[lo : lo + chunk], q_stats[lo : lo + chunk]
@@ -265,18 +295,18 @@ def _dense_probe_core(metric, kind, qc, qsc, prc, starts, lens, vblk, tblk, sblk
 def _ivf_probe_search_dense(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim: int,
                             k: int, nprobe: int, p_win: int, block: int, groups=None):
     """Dense layout, plain: each probe gathers the ``block``-row blocks
-    covering its window. Serves what the grouped probe does not: pearson,
+    covering its window. Serves what the grouped probes do not: pearson,
     f16, k > 128, and windows past the grouped probe's guard."""
     n_q = q.shape[0]
     cap2 = table.shape[0]
     nb = cap2 // block
     q_stats = row_stats(q, kind)
-    probes = _probe_select(_centroid_metric(metric), q.float(), centroids, lens, nprobe, groups)
+    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q), centroids, lens, nprobe, groups)
     tblk = table.view(nb, block, -1)
     vblk = valid.view(nb, block)
     sblk = stats.view(nb, block, 2) if metric != MetricKind.IP else None
     nblk = (p_win - 1) // block + 2
-    chunk = _chunk_rows(nprobe * nblk * block * (table.shape[-1] * 4 + 12))
+    chunk = _chunk_rows(nprobe * nblk * block * _row_bytes(kind, table.shape[-1]))
     out_d, out_i = [], []
     for lo in range(0, n_q, chunk):
         d, i = _dense_probe_core(metric, kind, q[lo : lo + chunk], q_stats[lo : lo + chunk],
@@ -327,10 +357,10 @@ def _ivf_probe_search_dense_grouped(metric, kind, q, valid, centroids, table, st
     order through the inverse permutation and merge exactly."""
     n_q = q.shape[0]
     cap2 = table.shape[0]
-    qf = q.float()
+    qf = _query_f32(kind, q)
     probes = _probe_select(_centroid_metric(metric), qf, centroids, lens, nprobe, groups)
     q_g, qid_s, st_c, off, ln, order, p0, _ = _binned_pairs(q, probes, starts, lens, cap2, w_pad, nprobe)
-    q_sq = (qf * qf).sum(dim=1)
+    q_sq = (qf * qf).sum(dim=1)  # popcounts for b1
     # ip over a fully-live table needs no per-row aux
     auxless = all_live and metric == MetricKind.IP
     penalty = None if auxless else torch.where(valid, 0.0, MASKED)
@@ -340,6 +370,37 @@ def _ivf_probe_search_dense_grouped(metric, kind, q, valid, centroids, table, st
     inv = torch.argsort(order)
     r_d = pd[inv[:p0]].reshape(n_q, nprobe * k)
     r_i = pi[inv[:p0]].reshape(n_q, nprobe * k)
+    d_out, ids = staged_topk(r_d, r_i, k)
+    return d_out, torch.where(d_out >= MASKED / 2, -1, ids)
+
+
+def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
+                                   nprobe: int, w_pad: int, groups=None, bin_m: int = BINARY_BIN_M):
+    """tanimoto/sorensen over b1 through kernel B5: each pair's ``bin_m``
+    best rows per bin by hamming, then per window the ``t = min(max(2k,
+    24), out_pad)`` best by hamming (the earlier column first on ties, as
+    ``lax.top_k`` takes them), re-ranked exactly through the popcount
+    identity ``and = (pop_q + pop_t - hamming) / 2`` before the windows
+    merge, so no candidate row is read again."""
+    n_q = q.shape[0]
+    cap2 = table.shape[0]
+    qf = _query_f32(kind, q)
+    probes = _probe_select(MetricKind.L2sq, qf, centroids, lens, nprobe, groups)
+    q_g, qid_s, st_c, off, ln, order, p0, _ = _binned_pairs(q, probes, starts, lens, cap2, w_pad, nprobe)
+    q_sq = (qf * qf).sum(dim=1)  # popcounts
+    pop_q = q_sq[qid_s].contiguous()
+    pd, pi = grouped_probe_nofold(MetricKind.Hamming, q_g.contiguous(), pop_q, table, stats[:, 0].contiguous(),
+                                  torch.where(valid, 0.0, MASKED), st_c.contiguous(), (st_c + off).contiguous(),
+                                  ln.contiguous(), w_pad, bin_m)
+    d_h, sel = stable_topk(pd, min(max(2 * k, 24), pd.shape[1]))
+    wi = pi.gather(1, sel)
+    pop_t = stats[wi.clamp(0, cap2 - 1).long(), 0]
+    inter = torch.clamp_min((pop_q[:, None] + pop_t - d_h) * 0.5, 0.0)
+    dt = binary_dists(metric, inter, pop_q[:, None], pop_t)
+    dt = torch.where((wi >= 0) & (d_h < MASKED / 2), dt, MASKED)
+    inv = torch.argsort(order)
+    r_d = dt[inv[:p0]].reshape(n_q, -1)
+    r_i = wi[inv[:p0]].reshape(n_q, -1)
     d_out, ids = staged_topk(r_d, r_i, k)
     return d_out, torch.where(d_out >= MASKED / 2, -1, ids)
 
@@ -406,6 +467,9 @@ class IVFPartitions:
                 "(ROADMAP queue A.4b)")
         dev = index._device
         rows = index._table[torch.as_tensor(live, device=dev)]
+        if index._dtype == ScalarKind.B1:
+            # the unpacked {0, 1} bits as i8: hamming is l2sq there
+            rows = unpack_bits(rows)
         km_metric = _centroid_metric(index._metric_kind)
         assigns, _, centroids = kmeans_fit(rows, n_partitions, metric=km_metric, max_iterations=25, seed=0)
         c = centroids.shape[0]
@@ -651,14 +715,21 @@ class IVFPartitions:
         # window starts align down to 128 rows: the padded window covers
         # the longest window plus the shift
         w_pad = max(((self.p_win + 127) // 128) * 128 + 128, 256)
-        # the grouped probe takes ip/cos/l2sq over i8/bf16/f32 and k <= 128
-        if w_pad <= int(index._capacity) and k <= 128 and supports(index._metric_kind, index._dtype):
+        metric, kind = index._metric_kind, index._dtype
+        # the grouped probes take ip/cos/l2sq over i8/bf16/f32, the binary
+        # metrics over b1, and k <= 128
+        binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
+        if w_pad <= int(index._capacity) and k <= 128 and (binary or supports(metric, kind)):
+            args = (metric, kind, q, valid, self.centroids, index._table, index._stats, self.starts, self.lens, k,
+                    nprobe, w_pad)
+            if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
+                # hamming-selected (B5), re-ranked exactly; before the guard,
+                # as in the JAX package
+                return _ivf_probe_search_dense_binary(*args, self._groups)
             # the JAX package's guard on the grouped kernel's working set,
             # kept as it is so both packages take the same path
             if (probe_bin_m(k, nprobe, w_pad) + 15) * w_pad * 512 <= 96 * 1024 * 1024:
-                return _ivf_probe_search_dense_grouped(
-                    index._metric_kind, index._dtype, q, valid, self.centroids, index._table, index._stats,
-                    self.starts, self.lens, k, nprobe, w_pad, all_live, self._groups)
-        return _ivf_probe_search_dense(
-            index._metric_kind, index._dtype, q, valid, self.centroids, index._table, index._stats,
-            self.starts, self.lens, index._ndim, k, nprobe, self.p_win, DENSE_BLOCK, self._groups)
+                return _ivf_probe_search_dense_grouped(*args, all_live, self._groups)
+        return _ivf_probe_search_dense(metric, kind, q, valid, self.centroids, index._table, index._stats,
+                                       self.starts, self.lens, index._ndim, k, nprobe, self.p_win, DENSE_BLOCK,
+                                       self._groups)

@@ -5,21 +5,24 @@ Counterpart of `usearch_tpu/ops/casts.py`, with the same semantics:
 - float to float: a plain numeric cast (round to nearest even);
 - float to i8: scale each row to unit L2 norm, then to +-127, clamp and
   truncate toward zero;
-- i8 to float: divide by 127.
+- i8 to float: divide by 127;
+- anything to b1: bit = value > 0, packed MSB-first; uint8 input is
+  already packed (the b1x8 convention);
+- b1 to anything: set bits to 1, clear bits to 0, then as from f32.
 
 One torch function serves host batches (a CPU tensor) and rows already on
-the card, so both ingest paths quantize alike. Packed b1 rows are not part
-of this slice.
+the card, so both ingest paths quantize alike.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..enums import ScalarKind, to_torch_dtype
-
-_B1_TODO = "b1 storage is not ported yet (ROADMAP queue A.7)"
+from .packbits import pack_bits, unpack_bits
 
 
 def _i8_quantize(x: torch.Tensor) -> torch.Tensor:
@@ -52,18 +55,26 @@ def as_tensor(values) -> torch.Tensor:
     return torch.from_numpy(values)
 
 
-def cast_rows(x: torch.Tensor, from_kind: ScalarKind, to_kind: ScalarKind) -> torch.Tensor:
-    """Cast rows on whatever device they lie on."""
-    if ScalarKind.B1 in (from_kind, to_kind):
-        raise NotImplementedError(_B1_TODO)
+def cast_rows(x: torch.Tensor, from_kind: ScalarKind, to_kind: ScalarKind,
+              ndim: Optional[int] = None) -> torch.Tensor:
+    """Cast rows on whatever device they lie on. Packed b1 rows unpack to
+    ``ndim`` columns (all ``8 B`` when None)."""
     if from_kind == to_kind:
         return x.to(to_torch_dtype(to_kind))
-    decoded = decode_i8(x) if from_kind == ScalarKind.I8 else x.float()
+    if from_kind == ScalarKind.B1:
+        decoded = unpack_bits(x.to(torch.uint8))[..., :ndim].float()
+    elif from_kind == ScalarKind.I8:
+        decoded = decode_i8(x)
+    else:
+        decoded = x.float()
+    if to_kind == ScalarKind.B1:
+        return pack_bits(decoded)
     if to_kind == ScalarKind.I8:
         return _i8_quantize(decoded)
     return decoded.to(to_torch_dtype(to_kind))
 
 
-def cast_vectors(values, from_kind: ScalarKind, to_kind: ScalarKind) -> torch.Tensor:
-    """Cast a host ``[*, ndim]`` batch; the result is a CPU tensor."""
-    return cast_rows(as_tensor(values), from_kind, to_kind)
+def cast_vectors(values, from_kind: ScalarKind, to_kind: ScalarKind, ndim: Optional[int] = None) -> torch.Tensor:
+    """Cast a host ``[*, ndim]`` batch (packed bytes for b1); the result is
+    a CPU tensor."""
+    return cast_rows(as_tensor(values), from_kind, to_kind, ndim)

@@ -1,8 +1,10 @@
 """Distances of the dot-product metrics: one product plus a float epilogue.
 
-Counterpart of `usearch_tpu/ops/distances.py` for ip, cos, l2sq and pearson.
-Per-row stats (squared norm, sum) are kept beside the table, so a scan reads
-each stored byte once and the epilogue needs only the product. Formulas and
+Counterpart of `usearch_tpu/ops/distances.py` for ip, cos, l2sq, pearson
+and, over packed b1 rows, hamming, tanimoto and sorensen. Per-row stats
+(squared norm and sum; popcount and 0 for b1) are kept beside the table, so
+a scan reads each stored byte once and the epilogue needs only the product
+(for b1 the and-count). Formulas and
 zero-denominator rules are those of the reference, term for term, so that
 where the product is exact (i8) the distances agree bit for bit.
 """
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from ..enums import MetricKind, ScalarKind
+from ..enums import MetricKind, MetricKindBitwise, ScalarKind, is_ported
+from .packbits import bit_dot, popcount_bytes
 
 #: Large-but-finite f32 sentinel added to deleted rows; ``MASKED + d`` stays
 #: finite in f32 and in bf16 (3e38 rounds to ~3.004e38 < bf16's maximum).
@@ -23,8 +26,11 @@ I8_F32_EXACT_WIDTH = (1 << 24) // (128 * 128)
 
 
 def row_stats(rows: torch.Tensor, kind: ScalarKind) -> torch.Tensor:
-    """Per-row ``(squared L2 norm, sum)`` as f32 ``[N, 2]``; zero padding
-    leaves both unchanged."""
+    """Per-row ``(squared L2 norm, sum)`` as f32 ``[N, 2]``, ``(popcount,
+    0)`` for packed b1 rows; zero padding leaves both unchanged."""
+    if kind == ScalarKind.B1:
+        pop = popcount_bytes(rows).float()
+        return torch.stack([pop, torch.zeros_like(pop)], dim=-1)
     if kind == ScalarKind.I8:
         x = rows.to(torch.int32)
         sq = (x * x).sum(dim=-1).float()
@@ -89,14 +95,31 @@ def dists_from_dots(metric, dots, q_sq, t_sq, shifted: bool = False) -> torch.Te
     raise ValueError(f"expected ip/cos/l2sq, got {metric}")
 
 
+def binary_dists(metric, dots, pop_q, pop_t) -> torch.Tensor:
+    """hamming/tanimoto/sorensen from and-counts and popcounts that
+    broadcast against them; an empty union or sum gives 0."""
+    if metric == MetricKind.Hamming:
+        return pop_q + pop_t - 2.0 * dots
+    if metric == MetricKind.Tanimoto:
+        union = pop_q + pop_t - dots
+        return torch.where(union == 0.0, 0.0, 1.0 - dots / torch.where(union == 0.0, 1.0, union))
+    if metric == MetricKind.Sorensen:
+        denom = pop_q + pop_t
+        return torch.where(denom == 0.0, 0.0, 1.0 - 2.0 * dots / torch.where(denom == 0.0, 1.0, denom))
+    raise ValueError(f"expected hamming/tanimoto/sorensen, got {metric}")
+
+
 def dot_metric_dists(metric, dots, q_stats, t_stats, ndim: int) -> torch.Tensor:
-    """Raw dots ``[Q, T]`` to distances for ip/cos/l2sq/pearson."""
+    """Raw dots ``[Q, T]`` to distances for ip/cos/l2sq/pearson, and for
+    the binary metrics from and-counts and popcount stats."""
     dots = dots.float()
     q_sq, t_sq = q_stats[:, 0, None], t_stats[None, :, 0]
     if metric == MetricKind.Pearson:
         return _pearson(dots, q_sq, q_stats[:, 1, None], t_sq, t_stats[None, :, 1], ndim)
+    if metric in MetricKindBitwise:
+        return binary_dists(metric, dots, q_sq, t_sq)
     if metric not in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq):
-        raise NotImplementedError(f"{metric.value} is not ported yet (ROADMAP queue A.7)")
+        raise NotImplementedError(f"{metric.value} is not ported yet (ROADMAP queue A.7b)")
     return dists_from_dots(metric, dots, q_sq, t_sq)
 
 
@@ -108,9 +131,9 @@ def scan_epilogue(metric, dots, q_sq, t_sq, penalty, shifted: bool = False) -> t
 
 
 def tile_dists(metric, kind, q, q_stats, tile, tile_stats, ndim: int) -> torch.Tensor:
-    """Distances of queries against one table tile, ``[Q, T]`` f32."""
-    if kind == ScalarKind.B1 or metric not in (
-        MetricKind.IP, MetricKind.Cos, MetricKind.L2sq, MetricKind.Pearson
-    ):
-        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7)")
-    return dot_metric_dists(metric, dot(q, tile), q_stats, tile_stats, ndim)
+    """Distances of queries against one table tile, ``[Q, T]`` f32. Packed
+    b1 rows are unpacked and multiplied in one wide product (`bit_dot`)."""
+    if not is_ported(metric, kind):
+        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7b)")
+    dots = bit_dot(q, tile) if kind == ScalarKind.B1 else dot(q, tile)
+    return dot_metric_dists(metric, dots, q_stats, tile_stats, ndim)
