@@ -13,9 +13,14 @@ Phases, each fatal on failure:
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
    f32; B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
    and 40 queries at nprobe 8, on the same dtypes and metrics, with and
-   without the penalty row (ip), with 4 and k candidates per bin; B3 over
-   packed 1024-bit rows with hamming (4 and k per bin) and B5 (4, 8 and 16
-   per bin) on windows of the same lengths, bit for bit;
+   without the penalty row (ip), with 4 and k candidates per bin, and B5 on
+   the same windows and metrics at 4 and 8 per bin; B3 over packed
+   1024-bit rows with hamming (4 and k per bin) and B5 (4, 8 and 16 per
+   bin) on windows of the same lengths, bit for bit; B6 (per-query probe)
+   on such windows for {i8, bf16, f32} x {ip, cos, l2sq} and b1 hamming,
+   with and without the penalty row, k 10 and 128 at 4 and k per bin; B7
+   (packed-key binned probe) over i8 rows, `pack` and `fminarg` at (bw,
+   keep) (32, 4) and (8, 1), bit for bit;
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -24,11 +29,15 @@ Phases, each fatal on failure:
    the IVF path: a new i8 ip index of 1M rows, `optimize(n_partitions=1024,
    reorder=True, spill=0.05)`, `expansion_search = 1024`, 16,384 member
    queries (recall@1 >= 0.99, recall@10 against the exact answer printed),
-   4,096 rows added after the build and found, 1% of the keys removed and
-   never returned, and the same search through the plain probe, equal to
-   the kernel's apart from ties. The launch counters are zeroed just before
-   each path and read just after: B1 and B2 must have launched on the flat
-   paths, B3 and neither B1 nor B2 on the IVF path;
+   the same search through the plain probe, equal to the kernel's; then the
+   same in each probe flavour `ivf.PROBE_MODE` = "pair" (B6), "bin" (B7)
+   and "nofold" (B5 over i8), each through its kernel's plain version too,
+   and the grouped search once more, unchanged; 4,096 rows added after the
+   build and found, 1% of the keys removed and never returned, in every
+   flavour. The launch counters are zeroed just before each path and
+   flavour and read just after: B1 and B2 must have launched on the flat
+   paths, on the IVF path B3 and no other kernel, and in each flavour its
+   own kernel and no other;
    The binary paths, at the shape of scripts/tpu_binary_ivf_bench.py: 1M
    packed 1024-bit rows of a clustered corpus (400 template rows, 8% of
    the bits flipped), 4,096 member queries, k=10; per metric (hamming, then
@@ -41,8 +50,9 @@ Phases, each fatal on failure:
    launch on hamming, B5 on tanimoto, and neither B1 nor B2 on either;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
-   time and one library call's time as a yardstick (none for B3 and B5);
-   and a profile of one warm search of each path.
+   time and one library call's time as a yardstick (none for the probe
+   kernels B3-B7); and a profile of one warm search of each path and
+   flavour.
 
 The line before the last is a JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -93,7 +103,11 @@ DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 #: the kernel wrappers of the flat paths and of the IVF path, each with its
 #: launch counter
 FLAT_KERNELS = (scan.binned_scan, scan.binned_minima)
-ALL_KERNELS = FLAT_KERNELS + (probe.grouped_probe, probe.grouped_probe_nofold)
+PROBE_KERNELS = (probe.grouped_probe, probe.grouped_probe_nofold, probe.pair_probe, probe.binned_probe)
+ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS
+#: phase 3/4: the IVF path's probe flavours besides the default, each with
+#: the wrapper of the kernel it must launch
+MODES = {"pair": "pair_probe", "bin": "binned_probe", "nofold": "grouped_probe_nofold"}
 
 
 def log(*args) -> None:
@@ -255,33 +269,124 @@ def check_probe(dev) -> None:
             shapes = [(10, 4), (10, 10)] + ([(128, 16)] if name == "i8" and nq == spec["q"] else [])
             for metric_name in METRICS:
                 metric = normalize_metric(metric_name)
+                t_m = None if metric == MetricKind.IP else t_sq
                 for aux in ((True, False) if metric == MetricKind.IP else (True,)):
                     for k, bin_m in shapes:
-                        args = (metric, q_g, q_sq, table, None if metric == MetricKind.IP else t_sq,
-                                penalty if aux else None, (st_c + off).contiguous(), ln, k, bin_m)
-                        hold_b3(f"{name}/{metric_name}{'' if aux else ' no aux'} Q={nq} k={k} bin_m={bin_m}",
+                        args = (metric, q_g, q_sq, table, t_m, penalty if aux else None, (st_c + off).contiguous(),
+                                ln, k, bin_m)
+                        hold_probe(f"{name}/{metric_name}{'' if aux else ' no aux'} Q={nq} k={k} bin_m={bin_m}",
                                 args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+                if nq == spec["q"]:
+                    for bin_m in (4, 8):
+                        args = (metric, q_g, q_sq, table, t_m, penalty, st_c.contiguous(), (st_c + off).contiguous(),
+                                ln, w_pad, bin_m)
+                        hold_probe(f"{name}/{metric_name} Q={nq} w_pad={w_pad} bin_m={bin_m}", args,
+                                probe.grouped_probe_nofold(*args), probe.grouped_probe_nofold_plain(*args), "B5")
 
 
-def hold_b3(tag: str, args, kern, plain) -> float:
-    """B3's [P, k] results against its plain version's: i8 bit for bit;
-    float distances within FLOAT_RTOL/FLOAT_ATOL, ids equal except where the
-    distances at that place agree within it (near ties). Fails on a
-    mismatch; returns the max abs error of the distances."""
+def hold_probe(tag: str, args, kern, plain, name: str = "B3") -> float:
+    """A probe kernel's results against its plain version's (B3's [P, k],
+    B5's [P, out_pad], B6's [Q, k]): i8 and b1 bit for bit; float distances
+    within FLOAT_RTOL/FLOAT_ATOL, ids equal except where the distances at
+    that place agree within it (near ties). Fails on a mismatch; returns the
+    max abs error of the distances."""
     (kd, ki), (pd, pi) = kern, plain
     torch.cuda.synchronize()
     differ = ki != pi
-    if args[1].dtype == torch.int8:
+    if args[1].dtype in (torch.int8, torch.uint8):
         ok, detail = torch.equal(kd, pd) and not bool(differ.any()), "bit for bit"
     else:
         ok = torch.allclose(kd, pd, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.allclose(
             kd[differ], pd[differ], rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
         detail = f"distances within rtol {FLOAT_RTOL}, {int(differ.sum())} ids differ on near ties"
     err = float((kd - pd).abs().max())
-    log(f"  {tag}: B3 vs plain {'ok' if ok else 'MISMATCH'}, {detail} (max abs err {err:.3g})")
+    log(f"  {tag}: {name} vs plain {'ok' if ok else 'MISMATCH'}, {detail} ({int((ki >= 0).sum())} found, "
+        f"max abs err {err:.3g})")
     if not ok:
-        fail(f"B3 disagrees with its plain version at {tag}")
+        fail(f"{name} disagrees with its plain version at {tag}")
     return err
+
+
+def pair_windows(starts, lens, probes, cap2: int, w_pad: int):
+    """B6's [Q, nprobe] int32 windows: 128-aligned DMA starts clamped so
+    w_pad rows fit, the windows' offsets inside them, their lengths."""
+    st, ln = starts[probes].int(), lens[probes].int()
+    st_c = torch.clamp_max(st // 128 * 128, cap2 - w_pad)
+    return st_c.contiguous(), (st - st_c).contiguous(), ln.contiguous()
+
+
+def check_pair(dev) -> None:
+    """Phase 2, kernel B6: the windows of `check_probe` (planted ties, ~10%
+    deleted rows), 512 and 40 queries of 8 random probes each, every dtype
+    and metric and b1 hamming, with and without the penalty row, k 10 and
+    128 at 4 and k candidates per bin."""
+    spec = PROBE_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n_win, w, nprobe = spec["windows"], spec["w"], spec["nprobe"]
+    lens, starts, body, w_pad, cap2, penalty = probe_windows(gen, dev)
+    sets = []
+    for name, dtype in DTYPES.items():
+        table = make_rows(cap2, w, dtype, gen, dev)
+        table[body:] = 0
+        table[5] = table[6]
+        table[133] = table[6]
+        q = make_rows(spec["q"], w, dtype, gen, dev)
+        q[0] = table[6]
+        sets.append((name, table, q, row_stats(table, ScalarKind(name))[:, 0].contiguous(),
+                     (q.float() ** 2).sum(1).contiguous(), METRICS))
+    table, q = bit_rows(cap2, body, spec["q"], gen, dev)
+    sets.append(("b1", table, q, row_stats(table, ScalarKind.B1)[:, 0].contiguous(),
+                 row_stats(q, ScalarKind.B1)[:, 0].contiguous(), ("hamming",)))
+    for name, table, q, t_sq, q_sq, metrics in sets:
+        for nq in (spec["q"], spec["ragged_q"]):
+            probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
+            windows = pair_windows(starts, lens, probes, cap2, w_pad)
+            for metric_name in metrics:
+                metric = normalize_metric(metric_name)
+                for aux in (True, False):
+                    for k, bin_m in ((10, 4), (10, 10), (128, 4), (128, 128)):
+                        args = (metric, q[:nq].contiguous(), q_sq[:nq].contiguous(), table,
+                                None if metric == MetricKind.IP else t_sq, penalty if aux else None, *windows, k,
+                                w_pad, bin_m)
+                        hold_probe(f"{name}/{metric_name}{'' if aux else ' no penalty'} Q={nq} k={k} bin_m={bin_m}",
+                                args, probe.pair_probe(*args), probe.pair_probe_plain(*args), "B6")
+
+
+def check_binned(dev) -> None:
+    """Phase 2, kernel B7: the windows of `check_probe` over i8 rows (a
+    duplicate of row 6 at rows 5 and 133), the pairs of 512 and 40 queries
+    at nprobe 8, ``pack`` and ``fminarg`` at (bw, keep) (32, 4) and (8, 1),
+    bit for bit."""
+    spec = PROBE_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n_win, nprobe = spec["windows"], spec["nprobe"]
+    lens, starts, body, w_pad, cap2, _ = probe_windows(gen, dev)
+    table = make_rows(cap2, spec["w"], torch.int8, gen, dev)
+    table[5] = table[6]
+    table[133] = table[6]
+    q = make_rows(spec["q"], spec["w"], torch.int8, gen, dev)
+    q[0] = table[6]
+    for nq in (spec["q"], spec["ragged_q"]):
+        probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
+        q_g, _, st_c, _, _, _, _, _ = ivf._binned_pairs(q[:nq], probes, starts, lens, cap2, w_pad, nprobe)
+        for sel in ("pack", "fminarg"):
+            for bw, keep in ((32, 4), (8, 1)):
+                args = (q_g.contiguous(), table, st_c.contiguous(), w_pad, bw, keep, sel)
+                hold_exact(f"i8 Q={nq} {sel} bw={bw} keep={keep}", "B7", probe.binned_probe(*args),
+                           probe.binned_probe_plain(*args))
+
+
+def bit_rows(cap2: int, body: int, nq: int, gen, dev):
+    """Packed 1024-bit rows of bytes drawn from a few values (many equal
+    hamming distances), zero past ``body``, rows 5 and 133 equal to row 6;
+    and ``nq`` queries drawn from the rows."""
+    masks = torch.tensor([0x11, 0x81, 0xFF], dtype=torch.uint8, device=dev)
+    table = torch.randint(0, 256, (cap2, 128), generator=gen, device=dev, dtype=torch.uint8)
+    table &= masks[torch.randint(0, 3, (cap2, 128), generator=gen, device=dev)]
+    table[body:] = 0
+    table[5] = table[6]
+    table[133] = table[6]
+    return table, table[torch.randint(0, body, (nq,), generator=gen, device=dev)].clone()
 
 
 def check_binary_probe(dev) -> None:
@@ -293,13 +398,7 @@ def check_binary_probe(dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n_win, nprobe = spec["windows"], spec["nprobe"]
     lens, starts, body, w_pad, cap2, penalty = probe_windows(gen, dev)
-    masks = torch.tensor([0x11, 0x81, 0xFF], dtype=torch.uint8, device=dev)
-    table = torch.randint(0, 256, (cap2, 128), generator=gen, device=dev, dtype=torch.uint8)
-    table &= masks[torch.randint(0, 3, (cap2, 128), generator=gen, device=dev)]
-    table[body:] = 0
-    table[5] = table[6]
-    table[133] = table[6]
-    q = table[torch.randint(0, body, (spec["q"],), generator=gen, device=dev)].clone()
+    table, q = bit_rows(cap2, body, spec["q"], gen, dev)
     pop_t = row_stats(table, ScalarKind.B1)[:, 0].contiguous()
     for nq in (spec["q"], spec["ragged_q"]):
         probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
@@ -421,9 +520,85 @@ def counters() -> dict:
     return {kern.__name__: kern.launches for kern in ALL_KERNELS}
 
 
+def search_timed(index, queries, k: int):
+    """One search, synchronised: the matches and the seconds it took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = index.search(queries, k)
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def recall_at(m, want_keys, gt_keys, k: int):
+    """recall@1 of member queries finding themselves, and recall@k of the
+    first ``len(gt_keys)`` rows against the exact answer."""
+    r1 = float(np.mean(m.keys[:, 0] == want_keys))
+    rk = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys[: len(gt_keys)].tolist(), gt_keys.tolist())]))
+    return r1, rk
+
+
+def check_launches(label: str, launches: dict, kern: str) -> None:
+    """``kern`` launched on the path, and no other kernel of ALL_KERNELS
+    did: neither the flat kernels nor another probe kernel."""
+    if launches[kern] == 0 or any(launches[name] for name in set(launches) - {kern}):
+        fail(f"the {label} searches did not go through {kern} alone: {launches}")
+
+
+def drive_mode(index, mode: str, spec, x, member, want, gt_keys, gen, dev) -> dict:
+    """Phase 3, one probe flavour on the built IVF: warm on another batch,
+    the member queries (recall@1 >= 0.99, recall@10 printed, QPS), the same
+    search through the flavour's plain kernel (keys and distances equal),
+    the launch counters zeroed just before and read just after."""
+    kern = MODES[mode]
+    nq, k = spec["q"], spec["k"]
+    zero_counters()
+    ivf.PROBE_MODE = mode
+    index.search(x[torch.randperm(x.shape[0], generator=gen, device=dev)[:nq]], k)  # warm, on another batch
+    m, search_s = search_timed(index, x[member], k)
+    recall1, recall10 = recall_at(m, want, gt_keys, k)
+    log(f"  {mode}: IVF search of {nq} member queries {search_s * 1e3:.1f} ms = {nq / search_s:.0f} QPS, "
+        f"recall@1 {recall1:.4f}, recall@10 {recall10:.4f}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"IVF search in {mode} mode: recall@1 {recall1:.4f}")
+    launches = counters()
+    t0 = time.perf_counter()
+    mp, args = plain_probe_search(index, x[member], k, kern)
+    plain_s = time.perf_counter() - t0
+    differ = mp.keys != m.keys
+    if not np.array_equal(mp.distances, m.distances) or differ.any():
+        fail(f"the plain {kern}'s search differs from the kernel's in {mode} mode at {int(differ.sum())} places")
+    log(f"  {mode}: the same search through {kern}'s plain version ({plain_s:.2f} s): keys and distances equal")
+    check_launches(f"{mode}-mode IVF", launches, kern)
+    log(f"  {mode}: kernel launches: {launches}")
+    ivf.PROBE_MODE = "group"
+    return dict(recall1=recall1, recall10=recall10, qps=nq / search_s, plain_s=plain_s, launches=launches,
+                probe_args=args, kern=kern)
+
+
+def mode_after_updates(index, mode: str, new, new_keys, probe_q, gone, k: int) -> dict:
+    """Phase 3, one flavour after the fresh adds and the removal: every
+    fresh row found among its own results, no removed key returned; the
+    launch counters zeroed just before and read just after."""
+    zero_counters()
+    ivf.PROBE_MODE = mode
+    mf = index.search(new, k)
+    hits = int(np.isin(index.search(probe_q, k).keys, gone).sum())
+    ivf.PROBE_MODE = "group"
+    launches = counters()
+    found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
+    log(f"  {mode}: {found:.4f} of the fresh rows found as members, {hits} removed keys returned; "
+        f"launches {launches}")
+    if found < 1.0 or hits:
+        fail(f"{mode} mode after the updates: fresh rows found {found:.4f}, {hits} removed keys came back")
+    check_launches(f"{mode}-mode IVF", launches, MODES[mode])
+    return launches
+
+
 def drive_ivf(dev) -> dict:
-    """Phase 3, the IVF path: build, search, recall, the plain probe, fresh
-    adds, removals; B3 must launch and the flat kernels must not."""
+    """Phase 3, the IVF path: build, search, recall, the plain probe, then
+    the same in each probe flavour of MODES, fresh adds, removals (and each
+    flavour once more after them); B3 must launch in the default flavour
+    and the flat kernels never."""
     spec = IVF
     n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -445,22 +620,17 @@ def drive_ivf(dev) -> dict:
         f"capacity {index.capacity}")
     member = torch.randperm(n, generator=gen, device=dev)[:nq]
     index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m = index.search(x[member], k)
-    search_s = time.perf_counter() - t0
+    m, search_s = search_timed(index, x[member], k)
     want = keys[member.cpu().numpy()]
-    recall1 = float(np.mean(m.keys[:, 0] == want))
-    log(f"  IVF search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
-        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}")
-    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
-        fail(f"IVF search: recall@1 {recall1:.4f}")
-
     gq = spec["gt_q"]
     _, gt_slots = ground_truth(index, x[member[:gq]], k)
     gt_keys = index._slot_keys[np.clip(gt_slots, 0, None)]
-    recall10 = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys[:gq].tolist(), gt_keys.tolist())]))
-    log(f"  IVF recall@10 against the exact answer, {gq} queries: {recall10:.4f}")
+    recall1, recall10 = recall_at(m, want, gt_keys, k)
+    log(f"  IVF search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
+        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}, recall@10 against the exact answer ({gq} queries) "
+        f"{recall10:.4f}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"IVF search: recall@1 {recall1:.4f}")
 
     mp, args = plain_probe_search(index, x[member], k, "grouped_probe")
     differ = mp.keys != m.keys
@@ -468,7 +638,15 @@ def drive_ivf(dev) -> dict:
         fail(f"the plain probe's search differs from the kernel's at {int(differ.sum())} places")
     log(f"  the same search through B3's plain version: keys and distances equal "
         f"({args[1].shape[0]} padded pairs, k {args[8]}, {args[9]} per bin)")
+    launches = counters()
 
+    modes = {mode: drive_mode(index, mode, spec, x, member, want, gt_keys, gen, dev) for mode in MODES}
+    again = index.search(x[member], k)
+    if not (np.array_equal(again.keys, m.keys) and np.array_equal(again.distances, m.distances)):
+        fail("the grouped search changed after the other flavours ran")
+    log("  back in the group flavour: the same keys and distances as before")
+
+    zero_counters()
     new = unit_rows(spec["fresh"], w, gen, dev)
     new_keys = index.add(None, new)
     if index._ivf_dirty or iv.fresh_np.size != spec["fresh"]:
@@ -482,17 +660,19 @@ def drive_ivf(dev) -> dict:
 
     gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * spec["removed"])].cpu().numpy()]
     index.remove(gone)
-    hits = int(np.isin(index.search(x[torch.as_tensor(gone[:nq].astype(np.int64), device=dev)], k).keys, gone).sum())
+    probe_q = x[torch.as_tensor(gone[:nq].astype(np.int64), device=dev)]
+    hits = int(np.isin(index.search(probe_q, k).keys, gone).sum())
     if hits or len(index) != n + spec["fresh"] - len(gone):
         fail(f"{hits} removed keys came back from the IVF")
     log(f"  removed {len(gone)} keys: none comes back")
-    launches = counters()
-    log(f"  kernel launches on the IVF path: {launches}")
-    if launches["grouped_probe"] == 0 or launches["binned_scan"] or launches["binned_minima"] or (
-            launches["grouped_probe_nofold"]):
-        fail(f"the IVF searches did not all go through B3: {launches}")
+    launches = {name: count + launches[name] for name, count in counters().items()}
+    log(f"  kernel launches on the IVF path (group flavour): {launches}")
+    check_launches("IVF", launches, "grouped_probe")
+    for mode in MODES:
+        after = mode_after_updates(index, mode, new, new_keys, probe_q, gone, k)
+        modes[mode]["launches"] = {name: count + modes[mode]["launches"][name] for name, count in after.items()}
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
-                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args)
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes)
 
 
 def bit_corpus(n: int, gen, dev, templates: torch.Tensor) -> torch.Tensor:
@@ -524,8 +704,8 @@ def tie_recall(got_d: np.ndarray, want_d: np.ndarray) -> float:
 
 
 def plain_probe_search(index, queries, k: int, name: str):
-    """`Index.search` with kernel ``name``'s plain version (``grouped_probe``
-    or ``grouped_probe_nofold``) bound in the kernel's place for this one
+    """`Index.search` with probe kernel ``name``'s plain version (its
+    wrapper in PROBE_KERNELS) bound in the kernel's place for this one
     call. Returns the matches and the arguments of the probe; fails if a
     probe kernel launched or the probe ran other than once."""
     calls = []
@@ -536,13 +716,13 @@ def plain_probe_search(index, queries, k: int, name: str):
         calls.append(args)
         return plain_fn(*args)
 
-    before = probe.grouped_probe.launches, probe.grouped_probe_nofold.launches
+    before = [kern.launches for kern in PROBE_KERNELS]
     setattr(ivf, name, plain)
     try:
         m = index.search(queries, k)
     finally:
         setattr(ivf, name, kern)
-    if (probe.grouped_probe.launches, probe.grouped_probe_nofold.launches) != before or len(calls) != 1:
+    if [kern.launches for kern in PROBE_KERNELS] != before or len(calls) != 1:
         fail(f"the plain-probe search launched a probe kernel or probed {len(calls)} times")
     return m, calls[0]
 
@@ -726,7 +906,7 @@ def b3_row(run) -> dict:
     _, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k, bin_m = args
     n_pairs, (n_rows, w) = q_g.shape[0], table.shape
     tag = f"grouped_probe i8 ip IVF P={n_pairs} k={k} bin_m={bin_m}"
-    err = hold_b3(tag, args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+    err = hold_probe(tag, args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
     ms = time_ms(lambda: probe.grouped_probe(*args), 5)
     plain_ms = time_ms(lambda: probe.grouped_probe_plain(*args), 1)
     # bytes: every 128-row bin some window touches, read once with its aux
@@ -779,6 +959,60 @@ def binary_row(run) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def mode_row(run, mode: str) -> dict:
+    """Phase 4 row of the kernel of one probe flavour (B6 for ``pair``, B7
+    ``pack`` for ``bin``, B5 over i8 for ``nofold``) at the IVF path's
+    arguments, captured in phase 3: held against its plain version, timed
+    beside its bound and the plain version's time. Bytes: the 128-row bins
+    the kernel's windows touch, read once (with the aux rows it takes), its
+    other inputs and its outputs; operations: 2 W per row it multiplies
+    (B6, B5: the rows of each window; B7: every row of each pair's padded
+    window), at the int8 tensor-core rate. No one PyTorch call computes a
+    per-window, per-bin selection, so there is no library time."""
+    res = run["modes"][mode]
+    args, name = res["probe_args"], res["kern"]
+    kern, plain = getattr(probe, name), getattr(probe, name + "_plain")
+    if name == "binned_probe":
+        q, table, win_base, w_pad, bw, keep, sel = args
+        n_rows, w = table.shape
+        n_pairs = q.shape[0]
+        tag = f"{name} i8 ip IVF P={n_pairs} w_pad={w_pad} bw={bw} keep={keep} {sel}"
+        err = hold_exact(tag, "B7", kern(*args), plain(*args))
+        touched = touched_rows(n_rows, win_base, torch.full_like(win_base, w_pad))
+        nbytes = touched * w + q.numel() + 4 * n_pairs + n_pairs * probe.binned_width(keep, w_pad, bw) * 8
+        ops = 2.0 * w * w_pad * n_pairs
+        source, replaces = "usearch_torch/csrc/probe.cu", "usearch_tpu/ops/pallas_probe.py:636"
+    else:
+        q, q_sq, table, t_sq, penalty = args[1:6]
+        n_rows, w = table.shape
+        if name == "pair_probe":
+            starts, offs, lens, k, w_pad, bin_m = args[6:]
+            win_start, win_len = (starts + offs).flatten(), lens.flatten()
+            in_bytes, out_cols = 4 * 3 * starts.numel(), k
+            tag = f"{name} i8 ip IVF Q={q.shape[0]} nprobe={starts.shape[1]} k={k} bin_m={bin_m}"
+            source, replaces = "usearch_torch/csrc/pair.cu", "usearch_tpu/ops/pallas_probe.py:144"
+        else:
+            _, win_start, win_len, w_pad, bin_m = args[6:]
+            in_bytes, out_cols = 4 * 3 * q.shape[0], probe.nofold_width(bin_m, w_pad)
+            tag = f"{name} i8 ip IVF P={q.shape[0]} w_pad={w_pad} bin_m={bin_m}"
+            source, replaces = "usearch_torch/csrc/probe.cu", "usearch_tpu/ops/pallas_probe.py:453"
+        err = hold_probe(tag, args, kern(*args), plain(*args), {"pair_probe": "B6"}.get(name, "B5"))
+        row_bytes = w + 4 * sum(x is not None for x in (t_sq, penalty))
+        touched = touched_rows(n_rows, win_start, win_len)
+        nbytes = touched * row_bytes + q.numel() + 4 * q_sq.numel() + in_bytes + q.shape[0] * out_cols * 8
+        ops = 2.0 * w * float(win_len.sum())
+    ms = time_ms(lambda: kern(*args), 3)
+    plain_ms = time_ms(lambda: plain(*args), 1)
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
+        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations), plain {plain_ms:.1f} ms, library none (no one "
+        f"PyTorch call selects per window and bin), launches on its path {res['launches'][name]} "
+        f"({res['launches_per_search']} per search), max abs err {err:.3g}")
+    return dict(name=f"{name}[i8 ip IVF {mode}]", route="cuda", source=source, replaces=replaces,
+                launches=res["launches"][name], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
@@ -829,6 +1063,8 @@ def main() -> int:
     check_kernels(dev)
     check_probe(dev)
     check_binary_probe(dev)
+    check_pair(dev)
+    check_binned(dev)
 
     log("== phase 3: main paths")
     head, comp = run_main_path(dev)
@@ -847,6 +1083,14 @@ def main() -> int:
     before = probe.grouped_probe.launches
     ivf_run["index"].search(ivf_run["queries"], IVF["k"])
     log(f"  launches per search, i8 ip IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
+    for mode, res in ivf_run["modes"].items():
+        kern = getattr(probe, res["kern"])
+        before = kern.launches
+        ivf.PROBE_MODE = mode
+        ivf_run["index"].search(ivf_run["queries"], IVF["k"])
+        ivf.PROBE_MODE = "group"
+        res["launches_per_search"] = kern.launches - before
+        log(f"  launches per search, i8 ip IVF {mode}: {{'{res['kern']}': {res['launches_per_search']}}}")
     for metric, run in binary.items():
         kern = getattr(probe, run["kern"])
         before = kern.launches
@@ -858,6 +1102,10 @@ def main() -> int:
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
     profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
     profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
+    for mode in MODES:
+        ivf.PROBE_MODE = mode
+        profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label=f"IVF {mode}")
+        ivf.PROBE_MODE = "group"
     for metric, run in binary.items():
         profile_search(run["index"], run["queries"], BINARY["k"], exact=False, label=f"b1 {metric} IVF")
     q8 = ix._cast_device(head["queries"], ScalarKind.F32)
@@ -873,7 +1121,7 @@ def main() -> int:
         kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
         b3_row(ivf_run),
-    ] + [binary_row(run) for run in binary.values()]
+    ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -163,8 +163,9 @@ def test_binary_pairs_match_reference():
 
 def test_probe_wrappers_check_their_arguments():
     """hamming goes with uint8 rows and they with it; B5 takes hamming
-    only and a 128-multiple w_pad within the table; a window outside its
-    padded window finds nothing."""
+    only and a 128-multiple w_pad within the table; a required operand
+    that is None raises before any launch; a window outside its padded
+    window finds nothing."""
     lay = BitLayout(nq=8, seed=5)
     args = list(lay.torch_args())
     with pytest.raises(TypeError):
@@ -177,6 +178,13 @@ def test_probe_wrappers_check_their_arguments():
             probe.grouped_probe_nofold(*args, w_pad, 8)
     with pytest.raises(TypeError):
         probe.grouped_probe_nofold(MetricKind.L2sq, *args[1:], lay.w_pad, 8)
+    for i in (2, 6, 7, 8):  # q_sq, win_base, win_start, win_len
+        wrong = list(args)
+        wrong[i] = None
+        with pytest.raises(ValueError):
+            probe.grouped_probe_nofold(*wrong, lay.w_pad, 8)
+    with pytest.raises(ValueError):
+        probe.grouped_probe(*args[:2], None, *args[3:6], args[7], args[8], 10, 4)
     shifted = list(args)
     shifted[6] = args[6] + 128  # the window now starts before its padded window
     d, i = probe.grouped_probe_nofold(*shifted, lay.w_pad, 8)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. Builds run
 at first use into ``usearch_torch/_build/`` (not tracked by git), named by a
-hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is reused. A missing ``nvcc`` or a failed build raises; there
+hash of the source, the ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. A missing ``nvcc`` or a failed build raises; there
 is no fallback.
 """
 
@@ -44,6 +44,10 @@ SIGNATURES = {
     "probe": {
         "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
         "usearch_grouped_probe_nofold": [_P] * 10 + [_I] * 7 + [_P],
+        "usearch_binned_probe": [_P] * 5 + [_I] * 7 + [_P],
+    },
+    "pair": {
+        "usearch_pair_probe": [_P] * 10 + [_I] * 9 + [_P],
     },
 }
 
@@ -65,6 +69,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):  # the headers a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -29,8 +29,23 @@
 // its 128-aligned win_base, with no fold. It writes the bin_m best of bin b
 // of the padded window, round j at column j * nb_w + b (nb_w = w_pad / 128)
 // of the pair's [out_pad] row, with `_rank_epilogue` applied; MASKED and -1
-// fill every other column. It takes b1 rows with hamming: the select of the
-// tanimoto/sorensen probe, whose exact re-rank runs outside.
+// fill every other column. It takes ip/cos/l2sq over i8/bf16/f32 rows (the
+// `nofold` flavour, at most 8 per bin) and b1 rows with hamming (the select
+// of the tanimoto/sorensen probe, whose exact re-rank runs outside).
+//
+// B7 `usearch_binned_probe` replaces `_make_binned_probe_kernel`
+// (pallas_probe.py:636), launched by `pallas_ivf_probe_binned` (:799), the
+// `bin` flavour: i8 rows only, over each pair's whole padded window with no
+// window mask, stats or penalty, the raw int32 dot of every row, and per
+// bw-row bin the `keep` largest, written round-major (round j of bin b at
+// column j * (w_pad / bw) + b) as f32 -dot beside the global row. The TPU
+// kernel selects by min-reducing the packed key (-dot << 5) | row_in_bin
+// (`pack`) or by f32 min and first argmin (`fminarg`); here each lane keeps
+// a sorted list of `keep` (-dot, row) entries per bin, fed rows in
+// ascending order with a strict '<' on -dot (pack) or on -dot rounded to f32
+// (fminarg), which is the same order. It shares B3's window stream
+// (`find_segments`, `segment_dots`): lanes with one padded window are one
+// segment, and B3's bound holds.
 //
 // Design. One block of 128 threads per cell, one thread per pair (lane).
 // Lanes that share a window are a contiguous run of the cell (a segment);
@@ -58,88 +73,64 @@
 // `wgmma` over [bin, W] x [W, lanes] tiles (or the b1 `mma` with and-popc)
 // and a TMA ring are later work.
 //
-// The entry points launch on the stream they are given, allocate nothing,
-// and return cudaGetLastError() after the launch.
+// The dot products, the rank-form distances and the staging loop are
+// csrc/probe_common.cuh's, shared with B6 (csrc/pair.cu). The entry points
+// launch on the stream they are given, allocate nothing, and return
+// cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "probe_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;          // pairs per cell = threads per block
-constexpr int kBin = 128;            // rows of one bin
-constexpr int kRows = 64;            // rows per pass (half a bin)
-constexpr int kWords = 32;           // 4-byte words of the width per stage
-constexpr int kStride = kWords + 4;  // padded shared row, in words
-constexpr float kMasked = 3.0e38f;   // MASKED of ops/distances.py
+constexpr int kLanes = 128;  // pairs per cell = threads per block
+constexpr int kRows = 64;    // rows per pass (half a bin)
 
-enum Metric { kIP = 0, kCos = 1, kL2sq = 2, kHamming = 3 };
-enum DType { kI8 = 0, kBF16 = 1, kF32 = 2, kB1 = 3 };
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = int; };
-template <> struct Acc<uint8_t> { using type = int; };
-
-// acc += <four words of t, four words of q> in the storage type's arithmetic
-__device__ __forceinline__ void mac4(int& acc, uint4 t, uint4 q, int8_t) {
-  acc = __dp4a(static_cast<int>(t.x), static_cast<int>(q.x), acc);
-  acc = __dp4a(static_cast<int>(t.y), static_cast<int>(q.y), acc);
-  acc = __dp4a(static_cast<int>(t.z), static_cast<int>(q.z), acc);
-  acc = __dp4a(static_cast<int>(t.w), static_cast<int>(q.w), acc);
+// Each lane's window (st, ln, bs) into shared memory, then, from lane 0,
+// the runs of lanes that share one: segment s is lanes [seg_lo[s],
+// seg_lo[s + 1]), *n_seg of them. A lane with nothing to read passes
+// (0, 0, 0).
+__device__ __forceinline__ void find_segments(int lane, int st, int ln, int bs, int* seg_st, int* seg_ln,
+                                              int* seg_bs, int* seg_lo, int* n_seg) {
+  seg_st[lane] = st;
+  seg_ln[lane] = ln;
+  seg_bs[lane] = bs;
+  __syncthreads();
+  if (lane == 0) {
+    int n = 0;
+    for (int l = 0; l < kLanes; ++l)
+      if (l == 0 || seg_st[l] != seg_st[l - 1] || seg_ln[l] != seg_ln[l - 1] || seg_bs[l] != seg_bs[l - 1])
+        seg_lo[n++] = l;
+    seg_lo[n] = kLanes;
+    *n_seg = n;
+  }
+  __syncthreads();
 }
 
-// packed b1: the and-count of 128 bits
-__device__ __forceinline__ void mac4(int& acc, uint4 t, uint4 q, uint8_t) {
-  acc += __popc(t.x & q.x) + __popc(t.y & q.y) + __popc(t.z & q.z) + __popc(t.w & q.w);
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ void mac4(float& acc, uint4 t, uint4 q, __nv_bfloat16) {
-  const uint32_t tw[4] = {t.x, t.y, t.z, t.w};
-  const uint32_t qw[4] = {q.x, q.y, q.z, q.w};
+// acc of lanes [lo, hi): the dots of their query rows (the cell's rows in
+// q_src) with table rows [r0, r0 + kRows). The whole block stages each
+// slice of the width of both through shared memory.
+template <typename T, typename A>
+__device__ __forceinline__ void segment_dots(A (&acc)[kRows], uint32_t* t_s, uint32_t* q_s, const uint32_t* t_src,
+                                             const uint32_t* q_src, int r0, int row_words, int lo, int hi,
+                                             int lane) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc = __fmaf_rn(bf_lo(tw[i]), bf_lo(qw[i]), acc);
-    acc = __fmaf_rn(bf_hi(tw[i]), bf_hi(qw[i]), acc);
+  for (int r = 0; r < kRows; ++r) acc[r] = A(0);
+  for (int w0 = 0; w0 < row_words; w0 += kWords) {
+    __syncthreads();  // the previous stage is consumed
+    stage(t_s, t_src, r0, 0, kRows, row_words, w0, lane, kLanes);
+    stage(q_s, q_src, 0, lo, hi, row_words, w0, lane, kLanes);
+    __syncthreads();
+    if (lane >= lo && lane < hi) {
+      const uint4* qrow = reinterpret_cast<const uint4*>(q_s + lane * kStride);
+#pragma unroll 1
+      for (int c = 0; c < kWords / 4; ++c) {
+        const uint4 qv = qrow[c];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          mac4(acc[r], reinterpret_cast<const uint4*>(t_s + r * kStride)[c], qv, T());
+      }
+    }
   }
-}
-
-__device__ __forceinline__ void mac4(float& acc, uint4 t, uint4 q, float) {
-  acc = __fmaf_rn(__uint_as_float(t.x), __uint_as_float(q.x), acc);
-  acc = __fmaf_rn(__uint_as_float(t.y), __uint_as_float(q.y), acc);
-  acc = __fmaf_rn(__uint_as_float(t.z), __uint_as_float(q.z), acc);
-  acc = __fmaf_rn(__uint_as_float(t.w), __uint_as_float(q.w), acc);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(int x) { return __int2float_rn(x); }
-
-// `_window_dists`, operation for operation (no contraction); hamming is
-// l2sq's expression over popcounts and the and-count.
-__device__ __forceinline__ float window_dist(int metric, float dot, float q_sq, float t_sq,
-                                             const float* penalty, float pen) {
-  float d;
-  if (metric == kIP) {
-    d = __fsub_rn(1.0f, dot);
-  } else if (metric == kCos) {
-    const float rs = t_sq == 0.0f ? 0.0f : __fdiv_rn(1.0f, __fsqrt_rn(t_sq));
-    d = -__fmul_rn(dot, rs);
-    if (t_sq == 0.0f && q_sq == 0.0f) d = -1.0f;
-  } else {
-    d = __fsub_rn(t_sq, __fmul_rn(2.0f, dot));
-  }
-  return penalty != nullptr ? __fadd_rn(d, pen) : d;
-}
-
-// `_rank_epilogue`.
-__device__ __forceinline__ float rank_epilogue(int metric, float acc, float q_sq) {
-  if (metric == kIP || acc >= kMasked * 0.5f) return acc;
-  if (metric == kL2sq || metric == kHamming) return fmaxf(__fadd_rn(acc, q_sq), 0.0f);
-  const float scale = q_sq == 0.0f ? 1.0f : __fdiv_rn(1.0f, __fsqrt_rn(q_sq));
-  return __fadd_rn(1.0f, __fmul_rn(acc, scale));
 }
 
 struct Params {
@@ -178,7 +169,9 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
   const int lane = threadIdx.x;
   const size_t pair = static_cast<size_t>(blockIdx.x) * kLanes + lane;
   const int row_words = p.width * static_cast<int>(sizeof(T)) / 4;
-  const T* table = static_cast<const T*>(p.table);
+  const uint32_t* t_src = static_cast<const uint32_t*>(p.table);
+  const uint32_t* q_src =
+      static_cast<const uint32_t*>(p.q_g) + static_cast<size_t>(blockIdx.x) * kLanes * row_words;
   int st = p.win_start[pair];
   int ln = p.win_len[pair];
   int bs = kFold ? 0 : p.win_base[pair];
@@ -186,9 +179,6 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
   if (!kFold && (bs < 0 || bs % kBin || bs > p.n_rows - p.w_pad || st < bs || st - bs > p.w_pad - ln)) ln = 0;
   if (ln == 0) st = bs = 0;
   const float qs = p.q_sq[pair];
-  seg_st[lane] = st;
-  seg_ln[lane] = ln;
-  seg_bs[lane] = bs;
   if (!kFold) {
     // MASKED/-1 everywhere first, in coalesced stores; the bins of each
     // window overwrite their columns below
@@ -198,16 +188,7 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
       p.out_i[cell0 + e] = -1;
     }
   }
-  __syncthreads();
-  if (lane == 0) {  // runs of lanes that share a window
-    int n = 0;
-    for (int l = 0; l < kLanes; ++l)
-      if (l == 0 || seg_st[l] != seg_st[l - 1] || seg_ln[l] != seg_ln[l - 1] || seg_bs[l] != seg_bs[l - 1])
-        seg_lo[n++] = l;
-    seg_lo[n] = kLanes;
-    *n_seg = n;
-  }
-  __syncthreads();
+  find_segments(lane, st, ln, bs, seg_st, seg_ln, seg_bs, seg_lo, n_seg);
 
   int cnt = 0;  // B3: entries of this lane's list
   const int segs = *n_seg;
@@ -233,37 +214,7 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
         const int r0 = row0 + half * kRows;
         if (r0 + kRows <= w_st || r0 >= w_end) continue;
         A acc[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = A(0);
-        for (int w0 = 0; w0 < row_words; w0 += kWords) {
-          __syncthreads();  // the previous stage is consumed
-          const uint32_t* t_src = reinterpret_cast<const uint32_t*>(table);
-          for (int e = lane; e < kRows * (kWords / 4); e += kLanes) {
-            const int r = e / (kWords / 4), c = e % (kWords / 4);
-            const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-                t_src + static_cast<size_t>(r0 + r) * row_words + w0) + c);
-            reinterpret_cast<uint4*>(t_s + r * kStride)[c] = v;
-          }
-          const uint32_t* q_src = reinterpret_cast<const uint32_t*>(p.q_g) +
-                                  static_cast<size_t>(blockIdx.x) * kLanes * row_words;
-          for (int e = lo * (kWords / 4) + lane; e < hi * (kWords / 4); e += kLanes) {
-            const int l = e / (kWords / 4), c = e % (kWords / 4);
-            const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-                q_src + static_cast<size_t>(l) * row_words + w0) + c);
-            reinterpret_cast<uint4*>(q_s + l * kStride)[c] = v;
-          }
-          __syncthreads();
-          if (owner) {
-            const uint4* qrow = reinterpret_cast<const uint4*>(q_s + lane * kStride);
-#pragma unroll 1
-            for (int c = 0; c < kWords / 4; ++c) {
-              const uint4 qv = qrow[c];
-#pragma unroll
-              for (int r = 0; r < kRows; ++r)
-                mac4(acc[r], reinterpret_cast<const uint4*>(t_s + r * kStride)[c], qv, T());
-            }
-          }
-        }
+        segment_dots<T>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
         if (owner) {
           // this lane's dots, then its rows in ascending order into the
           // bin's sorted list (strict '<': the lower row keeps its place)
@@ -276,7 +227,7 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
             const int rr = half * kRows + r;
             const float ts = p.metric != kIP ? aux_t[rr] : 0.0f;
             const float pen = p.penalty != nullptr ? aux_p[rr] : 0.0f;
-            float v = window_dist(p.metric, dot_s[r * kLanes + lane], qs, ts, p.penalty, pen);
+            float v = window_dist(p.metric, dot_s[r * kLanes + lane], qs, ts, p.penalty != nullptr, pen);
             if (!(v < kMasked * 0.5f) || !(v < bv[kMaxBinM - 1])) continue;
             int id = row;
             bool shift = false;  // past the insertion point every entry moves down one
@@ -369,6 +320,117 @@ int launch_typed(const Params& p, int n_pairs, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// B7: per pair, the whole padded window [win_base, win_base + w_pad), no
+// masks, no stats; per bw-row bin the `keep` rows of largest i8 dot, by
+// (-dot, row) (`pack`, the packed key's order) or by (f32(-dot), row)
+// (`fminarg`), written round-major as f32 -dot beside the global row.
+struct BinnedParams {
+  const int8_t* q_g;      // [P, W]
+  const int8_t* table;    // [n_rows, W]
+  const int* win_base;    // [P]
+  float* out_d;           // [P, out_pad]
+  int* out_i;
+  int n_rows, width, w_pad, bw, keep, fminarg, out_pad;
+};
+
+constexpr int kMaxKeep = 8;
+
+// a before b in a bin's order: (key, row) with the rows met in ascending
+// order, so a strict '<' on the key leaves the lower row first
+__device__ __forceinline__ bool binned_before(int a, int b, int fminarg) {
+  return fminarg ? __int2float_rn(a) < __int2float_rn(b) : a < b;
+}
+
+__global__ void __launch_bounds__(kLanes) binned_probe_kernel(const BinnedParams p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* t_s = smem;                                   // [kRows][kStride]
+  uint32_t* q_s = t_s + kRows * kStride;                  // [kLanes][kStride]
+  int* dot_s = reinterpret_cast<int*>(q_s + kLanes * kStride);  // [kRows][kLanes]
+  int* seg_st = dot_s + kRows * kLanes;                   // [kLanes]
+  int* seg_ln = seg_st + kLanes;                          // [kLanes]
+  int* seg_bs = seg_ln + kLanes;                          // [kLanes]
+  int* seg_lo = seg_bs + kLanes;                          // [kLanes + 1]
+  int* n_seg = seg_lo + kLanes + 1;                       // [1]
+
+  const int lane = threadIdx.x;
+  const size_t pair = static_cast<size_t>(blockIdx.x) * kLanes + lane;
+  const int row_words = p.width / 4;
+  const int nbw = p.w_pad / p.bw;
+  const uint32_t* t_src = reinterpret_cast<const uint32_t*>(p.table);
+  const uint32_t* q_src =
+      reinterpret_cast<const uint32_t*>(p.q_g) + static_cast<size_t>(blockIdx.x) * kLanes * row_words;
+  const int bs = p.win_base[pair];
+  const bool ok = bs >= 0 && bs % kBin == 0 && bs <= p.n_rows - p.w_pad;
+  // MASKED/-1 everywhere first, in coalesced stores; each window's bins
+  // overwrite their columns below
+  const size_t cell0 = static_cast<size_t>(blockIdx.x) * kLanes * p.out_pad;
+  for (int e = lane; e < kLanes * p.out_pad; e += kLanes) {
+    p.out_d[cell0 + e] = kMasked;
+    p.out_i[cell0 + e] = -1;
+  }
+  // a lane reads its whole padded window, or nothing
+  find_segments(lane, ok ? bs : 0, ok ? p.w_pad : 0, ok ? bs : 0, seg_st, seg_ln, seg_bs, seg_lo, n_seg);
+
+  const size_t out0 = pair * p.out_pad;
+  const int segs = *n_seg;
+  for (int s = 0; s < segs; ++s) {
+    const int lo = seg_lo[s], hi = seg_lo[s + 1];
+    if (seg_ln[lo] == 0) continue;
+    const int base = seg_bs[lo];
+    const bool owner = lane >= lo && lane < hi;
+    int lv[kMaxKeep];  // this bin's best keys (-dot), ascending
+    int li[kMaxKeep];
+    for (int r0 = base; r0 < base + p.w_pad; r0 += kRows) {
+      int acc[kRows];
+      segment_dots<int8_t>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
+      if (!owner) continue;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) dot_s[r * kLanes + lane] = acc[r];
+#pragma unroll 1
+      for (int r = 0; r < kRows; ++r) {
+        const int row = r0 + r;
+        const int sub = (row - base) % p.bw;  // bins start at multiples of bw
+        if (sub == 0) {
+#pragma unroll
+          for (int j = 0; j < kMaxKeep; ++j) {
+            lv[j] = 0x7fffffff;
+            li[j] = -1;
+          }
+        }
+        int v = -dot_s[r * kLanes + lane];
+        int id = row;
+        bool shift = false;  // past the insertion point every entry moves down one
+#pragma unroll
+        for (int j = 0; j < kMaxKeep; ++j) {
+          if (j < p.keep && (shift || li[j] < 0 || binned_before(v, lv[j], p.fminarg))) {
+            shift = true;
+            const int tv = lv[j], ti = li[j];
+            lv[j] = v;
+            li[j] = id;
+            v = tv;
+            id = ti;
+          }
+        }
+        if (sub == p.bw - 1) {
+          // round j of this bin at column j * nbw + bin
+          const int bin = (row - base) / p.bw;
+#pragma unroll
+          for (int j = 0; j < kMaxKeep; ++j) {
+            if (j >= p.keep) break;
+            p.out_d[out0 + j * nbw + bin] = __int2float_rn(lv[j]);
+            p.out_i[out0 + j * nbw + bin] = li[j];
+          }
+        }
+      }
+    }
+  }
+}
+
+size_t binned_smem_bytes() {
+  return sizeof(uint32_t) * (kRows + kLanes) * kStride + sizeof(int) * kRows * kLanes +
+         sizeof(int) * (4 * kLanes + 2);
+}
+
 template <typename T>
 int launch_fold(const Params& p, int n_pairs, cudaStream_t stream) {
   if (p.bin_m <= 4) return launch_typed<T, 4, true>(p, n_pairs, stream);
@@ -414,23 +476,56 @@ int usearch_grouped_probe(const void* q_g, const float* q_sq, const void* table,
   }
 }
 
-// B5, b1 rows with hamming. out_d/out_i are [n_pairs, out_pad] with out_pad
-// = ceil(bin_m * w_pad / 128 / 128) * 128.
+// B5: ip/cos/l2sq over i8/bf16/f32 rows with bin_m <= 8, hamming over b1
+// rows with bin_m <= 16. out_d/out_i are [n_pairs, out_pad] with out_pad =
+// ceil(bin_m * w_pad / 128 / 128) * 128. The penalty row is required.
 int usearch_grouped_probe_nofold(const void* q_g, const float* q_sq, const void* table,
                                  const float* t_sq, const float* penalty, const int* win_base,
                                  const int* win_start, const int* win_len, float* out_d, int* out_i,
                                  int n_pairs, int n_rows, int width, int dtype, int metric, int w_pad,
                                  int bin_m, void* stream) {
-  if (bad_common(n_pairs, n_rows, width, dtype, metric, bin_m, t_sq, penalty) || dtype != kB1 ||
-      penalty == nullptr || w_pad <= 0 || w_pad % kBin || w_pad > n_rows)
+  if (bad_common(n_pairs, n_rows, width, dtype, metric, bin_m, t_sq, penalty) || penalty == nullptr ||
+      (dtype != kB1 && bin_m > 8) || w_pad <= 0 || w_pad % kBin || w_pad > n_rows)
     return cudaErrorInvalidValue;
   const int n_cand = bin_m * (w_pad / kBin);
   const int out_pad = (n_cand + kLanes - 1) / kLanes * kLanes;
   const Params p{q_g, q_sq, table, t_sq, penalty, win_base, win_start, win_len, out_d, out_i,
                  n_rows, width, metric, 0, 0, bin_m, w_pad, out_pad};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_m <= 8) return launch_typed<uint8_t, 8, false>(p, n_pairs, s);
-  return launch_typed<uint8_t, 16, false>(p, n_pairs, s);
+  switch (dtype) {
+    case kI8:
+      return launch_typed<int8_t, 8, false>(p, n_pairs, s);
+    case kBF16:
+      return launch_typed<__nv_bfloat16, 8, false>(p, n_pairs, s);
+    case kF32:
+      return launch_typed<float, 8, false>(p, n_pairs, s);
+    case kB1:
+      if (bin_m <= 8) return launch_typed<uint8_t, 8, false>(p, n_pairs, s);
+      return launch_typed<uint8_t, 16, false>(p, n_pairs, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// B7, i8 rows of at most 2048 columns. bw is a power of two with 2 keep <=
+// bw <= 32 (pack) or 128 (fminarg), keep <= 8. out_d/out_i are [n_pairs,
+// out_pad] with out_pad = ceil(keep * w_pad / bw / 128) * 128.
+int usearch_binned_probe(const void* q_g, const void* table, const int* win_base, float* out_d, int* out_i,
+                         int n_pairs, int n_rows, int width, int w_pad, int bw, int keep, int fminarg,
+                         void* stream) {
+  if (n_pairs <= 0 || n_pairs % kLanes || n_rows % kBin || width % 128 || width > 2048 || w_pad <= 0 ||
+      w_pad % kBin || w_pad > n_rows || bw < 2 || (bw & (bw - 1)) || bw > (fminarg ? kBin : 32) ||
+      keep < 1 || keep > kMaxKeep || 2 * keep > bw)
+    return cudaErrorInvalidValue;
+  const int out_pad = (keep * (w_pad / bw) + kLanes - 1) / kLanes * kLanes;
+  const BinnedParams p{static_cast<const int8_t*>(q_g), static_cast<const int8_t*>(table), win_base, out_d,
+                       out_i, n_rows, width, w_pad, bw, keep, fminarg, out_pad};
+  const size_t smem = binned_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(binned_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  binned_probe_kernel<<<n_pairs / kLanes, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -11,13 +11,30 @@ hamming, tanimoto, sorensen). b1 tables are partitioned in the unpacked
   ``[C, P, W]``; a probe gathers whole partitions.
 - ``optimize(reorder=True)`` (dense): the table itself is permuted into
   cluster-major order, partition ``c`` at rows ``[starts[c], starts[c] +
-  lens[c])``. Probes of ip/cos/l2sq over i8/bf16/f32 and of hamming over
-  b1 with ``k <= 128`` go through the grouped probe, kernel B3
-  (ops/probe.py); tanimoto and sorensen over b1 select by hamming in kernel
-  B5 and re-rank exactly through the popcount identity; the rest go through
-  a plain block-gather probe. ``spill`` adds SOAR shadow rows: duplicates of
-  the spilled rows inside their second-nearest partition, invisible to the
-  index proper.
+  lens[c])``. ``spill`` adds SOAR shadow rows: duplicates of the spilled
+  rows inside their second-nearest partition, invisible to the index
+  proper.
+
+Probes of the dense layout over ip/cos/l2sq on i8/bf16/f32 and hamming on
+b1, with ``k <= 128``, go through the probe kernels (ops/probe.py) in one
+of the JAX package's flavours, picked by `PROBE_MODE` at each search:
+
+- tanimoto and sorensen over b1, in every flavour: kernel B5 selects by
+  hamming and the candidates are re-ranked exactly through the popcount
+  identity;
+- ``pair``: kernel B6, each query streams its own windows and keeps its
+  own running top-k (batches of a multiple of 8 queries; others take the
+  plain probe, as in the JAX package);
+- ``bin``: kernel B7 over i8 rows with ip/cos/l2sq, a fully selectable
+  surface (`BIN_KEEP` per `BIN_BW`-row bin) and at least
+  `BIN_LIVE_FLOOR` of the positions live: top rows by raw dot, masked,
+  rescored and de-duplicated outside;
+- ``nofold``, and ``bin`` where B7 does not apply: kernel B5 with 4 per bin
+  and an exact merge outside, for ``k <= 64`` on wide probe surfaces;
+- ``group`` (the default) and ``xla``, and ``nofold``/``bin`` otherwise:
+  the grouped probe, kernel B3, within the JAX package's working-set guard.
+
+The rest go through a plain block-gather probe.
 
 Rows added after a build join a fresh list that every search scans
 exactly, until ``optimize`` runs again. Where the JAX package differs:
@@ -29,7 +46,12 @@ exactly, until ``optimize`` runs again. Where the JAX package differs:
 - the fully-live gate of the aux-free ip probe reads host-side counts: the
   index's own mask, no fresh rows, live rows and shadows filling the
   capacity (JAX: a float32 mean of the mask);
-- the probe flavour is the grouped one, always (JAX: ``USEARCH_TPU_PROBE``).
+- the flavour is a module attribute read at each search, and B7's bin
+  width, keep and selection are constants at the JAX defaults (JAX:
+  environment variables read at import, with an override of the grouped
+  probe's per-bin count that is not ported);
+- ``bin``'s live share is an exact count of the mask, cached by the mask's
+  identity and version (JAX: a float32 mean cached by identity).
 """
 
 from __future__ import annotations
@@ -45,7 +67,8 @@ from .keymap import KeyMap
 from .kmeans import assign_flat, kmeans_fit
 from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, binary_dists, row_stats, tile_dists
 from .ops.packbits import bit_dot, unpack_bits
-from .ops.probe import LANES, MAX_BIN_M, grouped_probe, grouped_probe_nofold
+from .ops.probe import (LANES, MAX_BIN_M, MAX_BINNED_WIDTH, binned_probe, grouped_probe, grouped_probe_nofold,
+                        pair_probe)
 from .ops.scan import supports
 from .ops.topk import masked_topk, stable_topk, staged_topk
 
@@ -69,6 +92,19 @@ COARSE_QCHUNK = 2048
 CHUNK_CAP = 4096
 #: the most partitions the flat k-means fit serves
 MAX_PARTITIONS = 4096
+
+#: the dense probe's flavour, read at each search: "group", "nofold",
+#: "bin", "pair" or "xla" (the grouped probe, as in the JAX package)
+PROBE_MODE = "group"
+PROBE_MODES = ("group", "nofold", "bin", "pair", "xla")
+#: ``bin``: rows per bin of kernel B7, rows kept per bin, and its selection,
+#: fixed at the JAX package's defaults
+BIN_BW = 32
+BIN_KEEP = 4
+BIN_SEL = "pack"
+#: ``bin`` masks deleted and filtered rows after its merge: below this live
+#: share the search takes the in-kernel penalty paths instead
+BIN_LIVE_FLOOR = 0.5
 
 
 # ----------------------------------------------------------------------
@@ -350,12 +386,19 @@ def probe_bin_m(k: int, nprobe: int, w_pad: int) -> int:
     return min(4 if nprobe * (w_pad // 128) >= 8 * k else k, MAX_BIN_M)
 
 
+def _merge_windows(d, ids, order, p0: int, n_q: int, k: int):
+    """Per-pair candidates ``[P, t]`` back to (query, probe) order through
+    the inverse permutation, merged exactly into each query's top-k."""
+    inv = torch.argsort(order)[:p0]
+    d_out, out = staged_topk(d[inv].reshape(n_q, -1), ids[inv].reshape(n_q, -1), k)
+    return d_out, torch.where(d_out >= MASKED / 2, -1, out)
+
+
 def _ivf_probe_search_dense_grouped(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
                                     nprobe: int, w_pad: int, all_live: bool = False, groups=None):
     """Dense layout through kernel B3: pairs sorted by partition share
     their window's reads; each pair's top-k come back to (query, probe)
     order through the inverse permutation and merge exactly."""
-    n_q = q.shape[0]
     cap2 = table.shape[0]
     qf = _query_f32(kind, q)
     probes = _probe_select(_centroid_metric(metric), qf, centroids, lens, nprobe, groups)
@@ -367,11 +410,74 @@ def _ivf_probe_search_dense_grouped(metric, kind, q, valid, centroids, table, st
     t_sq = None if metric == MetricKind.IP else stats[:, 0].contiguous()
     pd, pi = grouped_probe(metric, q_g.contiguous(), q_sq[qid_s].contiguous(), table, t_sq, penalty,
                            (st_c + off).contiguous(), ln.contiguous(), k, probe_bin_m(k, nprobe, w_pad))
-    inv = torch.argsort(order)
-    r_d = pd[inv[:p0]].reshape(n_q, nprobe * k)
-    r_i = pi[inv[:p0]].reshape(n_q, nprobe * k)
-    d_out, ids = staged_topk(r_d, r_i, k)
-    return d_out, torch.where(d_out >= MASKED / 2, -1, ids)
+    return _merge_windows(pd, pi, order, p0, q.shape[0], k)
+
+
+def _ivf_probe_search_dense_nofold(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
+                                   nprobe: int, w_pad: int, groups=None, bin_m: int = 4):
+    """Dense layout through kernel B5 (the ``nofold`` flavour): each pair's
+    ``bin_m`` best per bin with their final distances, then per window the
+    ``t = min(max(k, 16), out_pad)`` best (the earlier column first on
+    ties, as ``lax.top_k`` takes them), merged exactly across windows."""
+    cap2 = table.shape[0]
+    qf = _query_f32(kind, q)
+    probes = _probe_select(_centroid_metric(metric), qf, centroids, lens, nprobe, groups)
+    q_g, qid_s, st_c, off, ln, order, p0, _ = _binned_pairs(q, probes, starts, lens, cap2, w_pad, nprobe)
+    q_sq = (qf * qf).sum(dim=1)  # popcounts for b1
+    t_sq = None if metric == MetricKind.IP else stats[:, 0].contiguous()
+    pd, pi = grouped_probe_nofold(metric, q_g.contiguous(), q_sq[qid_s].contiguous(), table, t_sq,
+                                  torch.where(valid, 0.0, MASKED), st_c.contiguous(), (st_c + off).contiguous(),
+                                  ln.contiguous(), w_pad, bin_m)
+    wd, ws = stable_topk(pd, min(max(k, 16), pd.shape[1]))
+    return _merge_windows(wd, pi.gather(1, ws), order, p0, q.shape[0], k)
+
+
+def _ivf_probe_search_dense_binned(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
+                                   nprobe: int, w_pad: int, groups=None, bw: int = 32, keep: int = 4,
+                                   sel: str = "pack"):
+    """i8 dense layout through kernel B7 (the ``bin`` flavour): each pair's
+    ``keep`` rows of largest raw dot per ``bw``-row bin of its whole padded
+    window, with no masks; per window the ``t`` best keys, merged to the
+    ``k + slack`` best per query; then deleted and filtered rows masked,
+    the metric's distances computed from the stats, repeated rows (padded
+    windows overlap their neighbours) dropped, and the final top-k. cos and
+    l2sq select by raw dot too, over a wider slack: i8 rows are near unit
+    norm, so the dot nearly ranks them."""
+    n_q, cap2 = q.shape[0], table.shape[0]
+    qf = _query_f32(kind, q)
+    probes = _probe_select(_centroid_metric(metric), qf, centroids, lens, nprobe, groups)
+    q_g, _, st_c, _, _, order, p0, _ = _binned_pairs(q, probes, starts, lens, cap2, w_pad, nprobe)
+    pd, pi = binned_probe(q_g.contiguous(), table, st_c.contiguous(), w_pad, bw, keep, sel)
+    slack = 32 if metric == MetricKind.IP else 96
+    t = min(max(k, slack // 2), pd.shape[1])
+    wd, ws = stable_topk(pd, t)
+    d1, i1 = _merge_windows(wd, pi.gather(1, ws), order, p0, n_q, min(k + slack, nprobe * t))
+    safe = i1.clamp(0, cap2 - 1).long()
+    t_sq = None if metric == MetricKind.IP else stats[safe, 0]
+    dt = _probe_metric_dists(metric, -d1, (qf * qf).sum(dim=1), t_sq)
+    dt = torch.where(valid[safe] & (i1 >= 0) & (d1 < MASKED / 2), dt, MASKED)
+    o = torch.argsort(i1, dim=1, stable=True)
+    si, sd = i1.gather(1, o), dt.gather(1, o)
+    repeat = torch.cat([torch.zeros_like(si[:, :1], dtype=torch.bool), si[:, 1:] == si[:, :-1]], dim=1)
+    d_out, pos = stable_topk(torch.where(repeat, MASKED, sd), k)
+    return d_out, torch.where(d_out >= MASKED / 2, -1, si.gather(1, pos))
+
+
+def _ivf_probe_search_dense_pair(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
+                                 nprobe: int, w_pad: int, groups=None):
+    """Dense layout through kernel B6 (the ``pair`` flavour): each query
+    streams its own ``nprobe`` windows and keeps its own running top-k, so
+    no window read is shared; B6's ``[Q, k]`` is the result. The penalty
+    row goes with every metric, ip included, as in the JAX package."""
+    cap2 = table.shape[0]
+    qf = _query_f32(kind, q)
+    probes = _probe_select(_centroid_metric(metric), qf, centroids, lens, nprobe, groups)
+    st, ln = starts[probes].int(), lens[probes].int()
+    st_c = torch.clamp_max(st // 128 * 128, cap2 - w_pad)
+    t_sq = None if metric == MetricKind.IP else stats[:, 0].contiguous()
+    bin_m = 4 if nprobe * (w_pad // 128) >= 8 * k else k
+    return pair_probe(metric, q.contiguous(), (qf * qf).sum(dim=1), table, t_sq, torch.where(valid, 0.0, MASKED),
+                      st_c.contiguous(), (st - st_c).contiguous(), ln.contiguous(), k, w_pad, bin_m)
 
 
 def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, stats, starts, lens, k: int,
@@ -382,7 +488,6 @@ def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, sta
     ``lax.top_k`` takes them), re-ranked exactly through the popcount
     identity ``and = (pop_q + pop_t - hamming) / 2`` before the windows
     merge, so no candidate row is read again."""
-    n_q = q.shape[0]
     cap2 = table.shape[0]
     qf = _query_f32(kind, q)
     probes = _probe_select(MetricKind.L2sq, qf, centroids, lens, nprobe, groups)
@@ -398,11 +503,7 @@ def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, sta
     inter = torch.clamp_min((pop_q[:, None] + pop_t - d_h) * 0.5, 0.0)
     dt = binary_dists(metric, inter, pop_q[:, None], pop_t)
     dt = torch.where((wi >= 0) & (d_h < MASKED / 2), dt, MASKED)
-    inv = torch.argsort(order)
-    r_d = dt[inv[:p0]].reshape(n_q, -1)
-    r_i = wi[inv[:p0]].reshape(n_q, -1)
-    d_out, ids = staged_topk(r_d, r_i, k)
-    return d_out, torch.where(d_out >= MASKED / 2, -1, ids)
+    return _merge_windows(dt, wi, order, p0, q.shape[0], k)
 
 
 # ----------------------------------------------------------------------
@@ -434,6 +535,7 @@ class IVFPartitions:
         self.shadow_np_pos = np.zeros(0, dtype=np.int32)  # ascending
         self.shadow_np_src = np.zeros(0, dtype=np.int32)
         self._groups = centroid_groups(centroids)
+        self._live_cache = None             # (mask, its version, live share)
 
     def set_shadows(self, pos: np.ndarray, src: np.ndarray) -> None:
         o = np.argsort(pos, kind="stable")
@@ -707,7 +809,29 @@ class IVFPartitions:
             return _dedup_trim(d, slots, k)
         return d, slots
 
+    def _live_share(self, valid: torch.Tensor) -> float:
+        """Share of live positions in the composed mask: an exact count,
+        one scalar read per mask, cached by its identity and version (the
+        index updates its own mask in place)."""
+        c = self._live_cache
+        if c is None or c[0] is not valid or c[1] != valid._version:
+            self._live_cache = c = (valid, valid._version, int(valid.sum()) / max(valid.numel(), 1))
+        return c[2]
+
+    def _binned_ok(self, index, valid, k: int, nprobe: int, w_pad: int) -> bool:
+        """Kernel B7's preconditions: i8 rows of at most `MAX_BINNED_WIDTH`,
+        a dot-selectable metric, enough bin winners to cover ``8 k``, and a
+        mostly live mask (B7 masks after its merge, not during selection)."""
+        return (index._dtype == ScalarKind.I8
+                and index._metric_kind in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq)
+                and index._table.shape[1] <= MAX_BINNED_WIDTH
+                and nprobe * BIN_KEEP * (w_pad // BIN_BW) >= 8 * k
+                and self._live_share(valid) >= BIN_LIVE_FLOOR)
+
     def _search_dense(self, index, q, valid, k: int, nprobe: int, all_live: bool):
+        mode = PROBE_MODE
+        if mode not in PROBE_MODES:
+            raise ValueError(f"PROBE_MODE must be one of {PROBE_MODES}, got {mode!r}")
         if q.shape[0] > PROBE_QCHUNK:
             parts = [self._search_dense(index, q[lo : lo + PROBE_QCHUNK], valid, k, nprobe, all_live)
                      for lo in range(0, q.shape[0], PROBE_QCHUNK)]
@@ -716,16 +840,23 @@ class IVFPartitions:
         # the longest window plus the shift
         w_pad = max(((self.p_win + 127) // 128) * 128 + 128, 256)
         metric, kind = index._metric_kind, index._dtype
-        # the grouped probes take ip/cos/l2sq over i8/bf16/f32, the binary
-        # metrics over b1, and k <= 128
+        # the probe kernels take ip/cos/l2sq over i8/bf16/f32, the binary
+        # metrics over b1, and k <= 128; B6 takes batches of 8 queries
         binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
-        if w_pad <= int(index._capacity) and k <= 128 and (binary or supports(metric, kind)):
+        if (w_pad <= int(index._capacity) and k <= 128 and (binary or supports(metric, kind))
+                and (mode != "pair" or q.shape[0] % 8 == 0)):
             args = (metric, kind, q, valid, self.centroids, index._table, index._stats, self.starts, self.lens, k,
                     nprobe, w_pad)
             if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
                 # hamming-selected (B5), re-ranked exactly; before the guard,
                 # as in the JAX package
                 return _ivf_probe_search_dense_binary(*args, self._groups)
+            if mode == "pair":
+                return _ivf_probe_search_dense_pair(*args, self._groups)
+            if mode == "bin" and self._binned_ok(index, valid, k, nprobe, w_pad):
+                return _ivf_probe_search_dense_binned(*args, self._groups, BIN_BW, BIN_KEEP, BIN_SEL)
+            if mode in ("nofold", "bin") and k <= 64 and nprobe * (w_pad // LANES) >= 8 * k:
+                return _ivf_probe_search_dense_nofold(*args, self._groups)
             # the JAX package's guard on the grouped kernel's working set,
             # kept as it is so both packages take the same path
             if (probe_bin_m(k, nprobe, w_pad) + 15) * w_pad * 512 <= 96 * 1024 * 1024:
