@@ -20,7 +20,12 @@ Phases, each fatal on failure:
    on such windows for {i8, bf16, f32} x {ip, cos, l2sq} and b1 hamming,
    with and without the penalty row, k 10 and 128 at 4 and k per bin; B7
    (packed-key binned probe) over i8 rows, `pack` and `fminarg` at (bw,
-   keep) (32, 4) and (8, 1), bit for bit;
+   keep) (32, 4) and (8, 1), bit for bit; the flat-scan flavours at B1's
+   shape with a fully deleted 4,096-row stretch besides: B8 (fused running
+   top-k) and B9 (its streamed form) at k 10 and 128 and B10 (lane-layout
+   surface); the three again on rows too wide for B10 to stage its queries
+   once (f32 W=512, i8 W=2,048) in 509 bins (a partial last merge group
+   for B9); and B8/B9 on an i8 table of 3 live bins at k=10;
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -37,7 +42,13 @@ Phases, each fatal on failure:
    flavour. The launch counters are zeroed just before each path and
    flavour and read just after: B1 and B2 must have launched on the flat
    paths, on the IVF path B3 and no other kernel, and in each flavour its
-   own kernel and no other;
+   own kernel and no other. The flat-scan flavours on the i8 index after its
+   removal: `search_fused` (B8), `search_fused_stream` (B9) and
+   `search_binned_lanes` (B10) on the 16,384 member queries at k=10, each
+   with recall@1 >= 0.99 over the members still live, distances equal bit
+   for bit to `search_binned`'s (B1) and ids equal apart from ties, each
+   launching its own kernel once and no other (and no earlier path any of
+   them).
    The binary paths, at the shape of scripts/tpu_binary_ivf_bench.py: 1M
    packed 1024-bit rows of a clustered corpus (400 template rows, 8% of
    the bits flipped), 4,096 member queries, k=10; per metric (hamming, then
@@ -52,7 +63,7 @@ Phases, each fatal on failure:
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
    kernels B3-B7); and a profile of one warm search of each path and
-   flavour.
+   flavour, the flat-scan flavours included.
 
 The line before the last is a JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -104,7 +115,20 @@ DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 #: launch counter
 FLAT_KERNELS = (scan.binned_scan, scan.binned_minima)
 PROBE_KERNELS = (probe.grouped_probe, probe.grouped_probe_nofold, probe.pair_probe, probe.binned_probe)
-ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS
+#: the flat-scan flavours (phase 3): each search with the wrapper of the one
+#: kernel it must launch, and the TPU kernel that one replaces
+FLAVOURS = {
+    "fused": (scan.search_fused, scan.fused_topk, "B8", "usearch_tpu/ops/pallas_scan.py:113"),
+    "fused_stream": (scan.search_fused_stream, scan.fused_topk_stream, "B9", "usearch_tpu/ops/pallas_scan.py:228"),
+    "binned_lanes": (scan.search_binned_lanes, scan.binned_scan_lanes, "B10", "usearch_tpu/ops/pallas_scan.py:397"),
+}
+FLAVOUR_KERNELS = tuple(f[1] for f in FLAVOURS.values())
+ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS
+#: phase 2 of the flavours: k, a deleted stretch of rows, the live bins of a
+#: table with fewer live bins than k=10, and the rows, by dtype the widths,
+#: of tables whose rows B10 stages slab by slab
+FUSED_CHECK = dict(ks=(10, 128), stretch=(4096, 8192), live_bins=(5, 300, 511), wide_n=509 * 128,
+                   wide_w={"f32": 512, "i8": 2048})
 #: phase 3/4: the IVF path's probe flavours besides the default, each with
 #: the wrapper of the kernel it must launch
 MODES = {"pair": "pair_probe", "bin": "binned_probe", "nofold": "grouped_probe_nofold"}
@@ -187,11 +211,12 @@ def check_one(tag: str, args, compact: bool) -> None:
         hold_b2(tag, args, scan.binned_minima(*args), scan.binned_minima_plain(*args))
 
 
-def hold_b1(tag: str, args, compact: bool, kern, plain) -> float:
-    """B1's surface against its plain version's: i8 bit for bit; compact
-    bf16 minima within 1 ulp; float minima within FLOAT_RTOL/FLOAT_ATOL;
-    argmins equal wherever a bin's two best rows are further apart than
-    that. Fails on a mismatch; returns the max abs error of the minima."""
+def hold_b1(tag: str, args, compact: bool, kern, plain, name: str = "B1") -> float:
+    """B1's [Q, N/128] surface (or B10's, transposed) against its plain
+    version's: i8 bit for bit; compact bf16 minima within 1 ulp; float
+    minima within FLOAT_RTOL/FLOAT_ATOL; argmins equal wherever a bin's two
+    best rows are further apart than that. Fails on a mismatch; returns the
+    max abs error of the minima."""
     (kv, ki), (pv, pi) = kern, plain
     torch.cuda.synchronize()
     if args[1].dtype == torch.int8:
@@ -206,10 +231,10 @@ def hold_b1(tag: str, args, compact: bool, kern, plain) -> float:
         ok = torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.equal(ki[sure], pi[sure])
         detail = f"minima within rtol {FLOAT_RTOL}, argmins equal on {int(sure.sum())} clear bins"
     err = float((kv.float() - pv.float()).abs().max())
-    log(f"  {tag}: B1{' compact' if compact else ''} vs plain {'ok' if ok else 'MISMATCH'}, "
+    log(f"  {tag}: {name}{' compact' if compact else ''} vs plain {'ok' if ok else 'MISMATCH'}, "
         f"{detail} (max abs err {err:.3g})")
     if not ok:
-        fail(f"B1 disagrees with its plain version at {tag}")
+        fail(f"{name} disagrees with its plain version at {tag}")
     return err
 
 
@@ -376,6 +401,59 @@ def check_binned(dev) -> None:
                            probe.binned_probe_plain(*args))
 
 
+def check_flavours(dev) -> None:
+    """Phase 2, kernels B8, B9 and B10 at CHECK's shape: ~10% deleted rows
+    and a fully deleted 4,096-row stretch, zero rows and a zero query, every
+    dtype and metric, 512 and 40 queries; the same on FUSED_CHECK's wide
+    rows; then an i8 table with fewer live bins than k, whose tail must be
+    (MASKED, -1)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    nq = CHECK["q"]
+    lo, hi = FUSED_CHECK["stretch"]
+    shapes = [(name, dtype, CHECK["n"], CHECK["w"]) for name, dtype in DTYPES.items()]
+    shapes += [(name, DTYPES[name], FUSED_CHECK["wide_n"], w) for name, w in FUSED_CHECK["wide_w"].items()]
+    for name, dtype, n, w in shapes:
+        valid = torch.rand(n, generator=gen, device=dev) >= CHECK["deleted"]
+        valid[lo:hi] = False
+        table = make_rows(n, w, dtype, gen, dev)
+        q = make_rows(nq, w, dtype, gen, dev)
+        table[:3] = 0
+        q[0] = 0
+        stats = torch.stack([(table.float() ** 2).sum(1), table.float().sum(1)], 1)
+        for metric_name in METRICS:
+            metric = normalize_metric(metric_name)
+            for qc in (q, q[: CHECK["ragged_q"]]):
+                check_flavour_kernels(f"{name}/{metric_name} N={n} W={w} Q={qc.shape[0]}",
+                                      (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)))
+    n, w = CHECK["n"], CHECK["w"]
+    table = make_rows(n, w, torch.int8, gen, dev)
+    q = make_rows(nq, w, torch.int8, gen, dev)
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    for b in FUSED_CHECK["live_bins"]:
+        live[b * 128 : (b + 1) * 128] = True
+    stats = row_stats(table, ScalarKind.I8)
+    args = (MetricKind.L2sq, q, table, *scan.scan_aux(MetricKind.L2sq, q, stats, live))
+    n_live = len(FUSED_CHECK["live_bins"])
+    plain = scan.fused_topk_plain(*args, 10)
+    for tag, out in (("B8", scan.fused_topk(*args, 10)), ("B9", scan.fused_topk_stream(*args, 10))):
+        d, i = out
+        hold_probe(f"i8/l2sq Q={nq} {n_live} live bins k=10", args, out, plain, tag)
+        if not (bool((i[:, :n_live] >= 0).all()) and bool((i[:, n_live:] == -1).all())
+                and bool((d[:, n_live:] == MASKED).all())):
+            fail(f"{tag} with {n_live} live bins: the slots past them are not (MASKED, -1)")
+
+
+def check_flavour_kernels(tag: str, args) -> None:
+    """B8 and B9 at each k of FUSED_CHECK, and B10, against their plain
+    versions."""
+    for k in FUSED_CHECK["ks"]:
+        plain = scan.fused_topk_plain(*args, k)
+        hold_probe(f"{tag} k={k}", args, scan.fused_topk(*args, k), plain, "B8")
+        hold_probe(f"{tag} k={k}", args, scan.fused_topk_stream(*args, k), plain, "B9")
+    (kv, ki), (pv, pi) = scan.binned_scan_lanes(*args), scan.binned_scan_lanes_plain(*args)
+    hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10")
+
+
 def bit_rows(cap2: int, body: int, nq: int, gen, dev):
     """Packed 1024-bit rows of bytes drawn from a few values (many equal
     hamming distances), zero past ``body``, rows 5 and 133 equal to row 6;
@@ -495,6 +573,7 @@ def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
         fail(f"exact search at {dtype}/{metric} differs from the plain ground truth")
     log(f"  exact search of {eq} queries: keys equal to the plain ground truth apart from ties")
 
+    gone = keys[:0]
     if removed:
         gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * removed)].cpu().numpy()]
         index.remove(gone)
@@ -506,9 +585,49 @@ def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
         log(f"  removed {len(gone)} keys: none comes back (approximate and exact)")
     launches = counters()
     log(f"  kernel launches on the {dtype} {metric} path: {launches}")
-    if min(launches[k.__name__] for k in FLAT_KERNELS) == 0:
-        fail(f"a kernel of the {dtype} {metric} path never launched: {launches}")
-    return dict(index=index, queries=x[member], recall1=recall1, qps=nq / search_s, launches=launches)
+    if min(launches[k.__name__] for k in FLAT_KERNELS) == 0 or any(
+            launches[name] for name in set(launches) - {k.__name__ for k in FLAT_KERNELS}):
+        fail(f"the {dtype} {metric} path did not go through B1 and B2 alone: {launches}")
+    return dict(index=index, queries=x[member], want=want, gone=gone, recall1=recall1, qps=nq / search_s,
+                launches=launches)
+
+
+def drive_flavours(run) -> dict:
+    """Phase 3, the flat-scan flavours on the i8 index of ``run`` after its
+    removal, on its member queries: recall@1 over the members still live,
+    distances equal bit for bit to `search_binned`'s (B1) and ids equal
+    apart from ties; the launch counters are zeroed just before each
+    flavour's search (after a warm one) and read just after: its own kernel
+    once, no other."""
+    ix, k = run["index"], MAIN["k"]
+    q8 = ix._cast_device(run["queries"], ScalarKind.F32)
+    args = (ix.metric, q8, ix._table, ix._stats, ix._valid)
+    ref_d, ref_i = scan.search_binned(*args, k)
+    live = ~np.isin(run["want"], run["gone"])
+    out = {}
+    for name, (search, kern, _, _) in FLAVOURS.items():
+        search(*args, k)  # warm
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        d, i = search(*args, k)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        launches = counters()
+        top = ix._slot_keys[np.clip(i[:, 0].cpu().numpy(), 0, None)]
+        recall1 = float(np.mean(top[live] == run["want"][live]))
+        differ = i != ref_i
+        same_d = torch.equal(d, ref_d)
+        log(f"  {name}: {q8.shape[0]} queries {search_s * 1e3:.1f} ms = {q8.shape[0] / search_s:.0f} QPS, recall@1 "
+            f"{recall1:.4f} over {int(live.sum())} live members; distances {'equal' if same_d else 'UNEQUAL'} to "
+            f"B1's search, {int(differ.sum())} ids differ on ties; launches {launches}")
+        if not bool(torch.isfinite(d).all()) or d.shape != (q8.shape[0], k) or recall1 < 0.99 or not same_d:
+            fail(f"the {name} search: recall@1 {recall1:.4f}, distances equal to B1's search: {same_d}")
+        check_launches(f"{name} flat", launches, kern.__name__)
+        if launches[kern.__name__] != 1:
+            fail(f"the {name} search launched {kern.__name__} {launches[kern.__name__]} times")
+        out[name] = dict(recall1=recall1, qps=q8.shape[0] / search_s, launches=launches[kern.__name__])
+    return out
 
 
 def zero_counters() -> None:
@@ -1013,14 +1132,56 @@ def mode_row(run, mode: str) -> dict:
                 bound_by=b_by, library_ms=None)
 
 
+def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
+    """Phase 4 row of one flat-scan flavour's kernel at the phase-3 shape:
+    held against its plain version as in phase 2, then timed beside its
+    bound and the plain version's time. Its work is B1's product; the bytes
+    are the table, queries and aux read once and its own output written
+    once. No one PyTorch call computes bin minima and a top-k; ``lib_ms`` is
+    B1's yardstick, one library product of the same operands."""
+    _, kern, tag_name, replaces = FLAVOURS[name]
+    ix, k = run["index"], MAIN["k"]
+    q8 = ix._cast_device(run["queries"], ScalarKind.F32)
+    metric, table = ix.metric, ix._table
+    args = (metric, q8, table, *scan.scan_aux(metric, q8, ix._stats, ix._valid))
+    nq, (n, w) = q8.shape[0], table.shape
+    tag = f"{kern.__name__} i8 ip Q={nq} N={n}"
+    if kern is scan.binned_scan_lanes:
+        call, plain = (lambda: kern(*args)), (lambda: scan.binned_scan_lanes_plain(*args))
+        (kv, ki), (pv, pi) = call(), plain()
+        err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name)
+        out_bytes = nq * (n // 128) * 8
+    else:
+        call, plain = (lambda: kern(*args, k)), (lambda: scan.fused_topk_plain(*args, k))
+        err = hold_probe(tag, args, call(), plain(), tag_name)
+        out_bytes = nq * k * 8
+    ms = time_ms(call, 3)
+    plain_ms = time_ms(plain, 1)
+    nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + out_bytes
+    b_ms, b_by = bound_ms(2.0 * nq * n * w, PEAK_OPS["i8"], nbytes)
+    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes alone {nbytes / PEAK_BYTES * 1e3:.3f} ms), "
+        f"plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), launches on its path {launches} "
+        f"(1 per search), max abs err {err:.3g}")
+    return dict(name=f"{kern.__name__}[i8 ip flat]", route="cuda", source="usearch_torch/csrc/fused.cu",
+                replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
 def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
-    index.search(queries, k, exact=exact)
+    label = f"{label or ('exact' if exact else 'approximate')} search of {queries.shape[0]} queries"
+    profile_call(lambda: index.search(queries, k, exact=exact), label)
+
+
+def profile_call(fn, label: str) -> None:
+    """Device time by kernel over one warm call of ``fn``, and the device's
+    idle share of its wall time (torch.profiler)."""
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(queries, k, exact=exact)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -1031,7 +1192,6 @@ def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None
         if us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
-    label = f"{label or ('exact' if exact else 'approximate')} search of {queries.shape[0]} queries"
     if busy == 0:
         log(f"  profile of {label}: wall {wall_ms:.2f} ms, device time not measured (no device events)")
         return
@@ -1065,9 +1225,11 @@ def main() -> int:
     check_binary_probe(dev)
     check_pair(dev)
     check_binned(dev)
+    check_flavours(dev)
 
     log("== phase 3: main paths")
     head, comp = run_main_path(dev)
+    flavours = drive_flavours(head)
     ivf_run = drive_ivf(dev)
     binary = run_binary_paths(dev)
 
@@ -1097,6 +1259,8 @@ def main() -> int:
         run["index"].search(run["queries"], BINARY["k"])
         run["launches_per_search"] = kern.launches - before
         log(f"  launches per search, b1 {metric} IVF: {{'{run['kern']}': {run['launches_per_search']}}}")
+    per_search = {FLAVOURS[name][1].__name__: res["launches"] for name, res in flavours.items()}
+    log(f"  launches per search, the flat-scan flavours: {per_search}")
     ix, cx = head["index"], comp["index"]
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
@@ -1109,6 +1273,9 @@ def main() -> int:
     for metric, run in binary.items():
         profile_search(run["index"], run["queries"], BINARY["k"], exact=False, label=f"b1 {metric} IVF")
     q8 = ix._cast_device(head["queries"], ScalarKind.F32)
+    for name, (search, _, _, _) in FLAVOURS.items():
+        profile_call(lambda: search(ix.metric, q8, ix._table, ix._stats, ix._valid, MAIN["k"]),
+                     f"{name} search of {q8.shape[0]} queries")
     qf = cx._cast_device(comp["queries"], ScalarKind.F32)
     hl, cl = head["launches"], comp["launches"]
     rows = [
@@ -1122,6 +1289,8 @@ def main() -> int:
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
         b3_row(ivf_run),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
+    i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands
+    rows += [flavour_row(name, head, res["launches"], i8_lib_ms) for name, res in flavours.items()]
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
 

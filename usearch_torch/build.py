@@ -49,6 +49,11 @@ SIGNATURES = {
     "pair": {
         "usearch_pair_probe": [_P] * 10 + [_I] * 9 + [_P],
     },
+    "fused": {
+        "usearch_fused_topk": [_P] * 7 + [_I] * 6 + [_P],
+        "usearch_fused_topk_stream": [_P] * 7 + [_I] * 7 + [_P],
+        "usearch_binned_scan_lanes": [_P] * 7 + [_I] * 5 + [_P],
+    },
 }
 
 _lock = threading.Lock()

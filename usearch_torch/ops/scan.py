@@ -1,27 +1,44 @@
-"""The binned scan: kernels B1 and B2, their plain versions, and the search
-around them.
+"""The binned scans: kernels B1, B2, B8, B9 and B10, their plain versions,
+and the searches around them.
 
-Counterpart of the transposed binned path of `usearch_tpu/ops/pallas_scan.py`.
-For every query and every 128-row bin of the table, a kernel computes the
-dots, the metric epilogue plus the deleted-row penalty, and the bin's
-minimum (B1 also its first arg-min row). The ``[Q, N/128]`` surface is 128x
-smaller than the score matrix, which never reaches device memory; a top-k
-over it picks candidates, then plain torch finishes:
+Counterpart of `usearch_tpu/ops/pallas_scan.py`. For every query and every
+128-row bin of the table, a kernel computes the dots, the metric epilogue
+plus the deleted-row penalty, and the bin's minimum (all but B2 also its
+first arg-min row). The surface of bin minima is 128x smaller than the
+score matrix, which never reaches device memory; a top-k over it picks
+candidates, then plain torch finishes:
 
-- `search_binned` (approximate): the best ``k`` bins, one row each; in
-  compact mode (f32 storage) ``OVERSAMPLE * k`` bins rescored exactly.
-- `search_exact`: the best ``k + 4`` bins by minimum, every row of them
+- `search_binned` (approximate, B1 over the transposed path): the best ``k``
+  bins, one row each; in compact mode (f32 storage) ``OVERSAMPLE * k`` bins
+  rescored exactly.
+- `search_exact` (B2): the best ``k + 4`` bins by minimum, every row of them
   rescored exactly. A row closer than the true k-th distance makes its bin's
   minimum smaller than that distance, so no better row is left out.
 
-Surfaces are ``[Q, N/128]`` (the JAX kernels write ``[N/128, Q]``), so the
-top-k reads each query's bins contiguously. The top-k is ``torch.topk``,
-exact everywhere, where the JAX package uses ``lax.approx_min_k``.
+B1's and B2's surfaces are ``[Q, N/128]`` (the JAX kernels write
+``[N/128, Q]``), so the top-k reads each query's bins contiguously. The
+top-k is ``torch.topk``, exact everywhere, where the JAX package uses
+``lax.approx_min_k``.
+
+The flat-scan flavours, which the JAX package reaches only through its
+ops-level functions (no `Index` path), have the same entry points here:
+
+- `search_fused` (B8, `pallas_search`): the scan keeps each query's running
+  top-k of bin minima itself, so the surface never reaches memory;
+- `search_fused_stream` (B9, `pallas_search_dma`): B8's result, the table
+  streamed through a double-buffered asynchronous copy, merged every
+  `MERGE_EVERY` bins;
+- `search_binned_lanes` (B10, `pallas_search_binned(transposed=False)`):
+  B1's surface in the JAX orientation ``[N/128, Q]``.
+
+B8 and B9 return the stable top-k, by (value, bin), of the bin minima,
+padded with ``(MASKED, -1)``. Their TPU kernels' tile sizes and merge
+interval, and B10's ``split_dot``, change no output and are not parameters
+here.
 
 Each kernel wrapper runs the plain version for CPU tensors and the CUDA
-kernel (csrc/scan.cu) for CUDA tensors; there is no fallback between them.
-``binned_scan.launches`` and ``binned_minima.launches`` count kernel
-launches.
+kernel (csrc/scan.cu, csrc/fused.cu) for CUDA tensors; there is no fallback
+between them. Each wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -33,9 +50,13 @@ import torch
 
 from ..enums import MetricKind, ScalarKind
 from .distances import I8_F32_EXACT_WIDTH, MASKED, dists_from_dots, dot, scan_epilogue
-from .topk import finish, sort_pairs, topk_min
+from .topk import finish, sort_pairs, stable_topk, topk_min
 
 LANES = 128
+#: most results the fused scans (B8, B9) keep per query
+KPAD = 128
+#: bins whose minima B9 gathers between merges; no result depends on it
+MERGE_EVERY = 8
 #: bins beyond k rescored by the exact path: absorbs f32 rounding between
 #: the kernel's minima and the rescore (free margin for exact i8 dots)
 EXACT_BIN_SLACK = 4
@@ -178,6 +199,111 @@ def binned_minima(metric, q, table, q_sq, t_sq, penalty):
 binned_minima.launches = 0
 
 
+def _check_k(k: int) -> None:
+    if not 1 <= k <= KPAD:
+        raise ValueError(f"the fused scans keep 1 to {KPAD} results per query, got k={k}")
+
+
+def fused_topk_plain(metric, q, table, q_sq, t_sq, penalty, k: int):
+    """What kernels B8 and B9 compute, in plain torch: ``[Q, k]`` f32 + i32,
+    the first ``k`` of ``[MASKED] * k ++ bin minima`` in a stable sort by
+    value (ties to the earlier bin), ids -1 where the distance is at least
+    ``MASKED / 2``. No ``torch.topk``: its tie order is not the contract."""
+    vals, rows = binned_scan_plain(metric, q, table, q_sq, t_sq, penalty)
+    n_q = q.shape[0]
+    pad_v = torch.full((n_q, k), MASKED, dtype=torch.float32, device=q.device)
+    pad_i = torch.full((n_q, k), -1, dtype=torch.int32, device=q.device)
+    d, sel = stable_topk(torch.cat([pad_v, vals], dim=1), k)
+    ids = torch.cat([pad_i, rows], dim=1).gather(1, sel)
+    return d, torch.where(d >= MASKED / 2, -1, ids)
+
+
+def _launch_fused(wrapper, fn_name: str, metric, q, table, q_sq, t_sq, penalty, k: int, *extra):
+    """B8 or B9 into new ``[Q, k]`` outputs, counted on ``wrapper``; an
+    empty table or batch gives ``(MASKED, -1)`` without a launch."""
+    from .. import build
+
+    n_q, (n, width) = q.shape[0], table.shape
+    out_d = torch.full((n_q, k), MASKED, dtype=torch.float32, device=q.device)
+    out_i = torch.full((n_q, k), -1, dtype=torch.int32, device=q.device)
+    if n_q == 0 or n == 0:
+        return out_d, out_i
+    lib = build.load("fused")
+    with torch.cuda.device(q.device):
+        _launch(
+            getattr(lib, fn_name), _ptr(q), _ptr(table), _ptr(q_sq), _ptr(t_sq), _ptr(penalty), _ptr(out_d),
+            _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric], k, *extra,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    wrapper.launches += 1
+    return out_d, out_i
+
+
+def fused_topk(metric, q, table, q_sq, t_sq, penalty, k: int):
+    """Kernel B8 (csrc/fused.cu `usearch_fused_topk`), or its plain version
+    for CPU tensors: each query's top ``k <= 128`` bin minima and their
+    rows, ``[Q, k]`` f32 + i32."""
+    _check(metric, q, table, q_sq, t_sq, penalty)
+    _check_k(k)
+    if q.device.type == "cpu":
+        return fused_topk_plain(metric, q, table, q_sq, t_sq, penalty, k)
+    return _launch_fused(fused_topk, "usearch_fused_topk", metric, q, table, q_sq, t_sq, penalty, k)
+
+
+fused_topk.launches = 0
+
+
+def fused_topk_stream(metric, q, table, q_sq, t_sq, penalty, k: int):
+    """Kernel B9 (csrc/fused.cu `usearch_fused_topk_stream`), or the plain
+    version of B8 for CPU tensors: B8's result, the table streamed through a
+    two-slot ring of asynchronous copies, the bin minima merged every
+    `MERGE_EVERY` bins."""
+    _check(metric, q, table, q_sq, t_sq, penalty)
+    _check_k(k)
+    if q.device.type == "cpu":
+        return fused_topk_plain(metric, q, table, q_sq, t_sq, penalty, k)
+    return _launch_fused(fused_topk_stream, "usearch_fused_topk_stream", metric, q, table, q_sq, t_sq, penalty, k,
+                         MERGE_EVERY)
+
+
+fused_topk_stream.launches = 0
+
+
+def binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty):
+    """What kernel B10 computes, in plain torch: B1's surface transposed,
+    ``[N/128, Q]`` f32 minima + global i32 rows."""
+    vals, rows = binned_scan_plain(metric, q, table, q_sq, t_sq, penalty)
+    return vals.T.contiguous(), rows.T.contiguous()
+
+
+def binned_scan_lanes(metric, q, table, q_sq, t_sq, penalty):
+    """Kernel B10 (csrc/fused.cu `usearch_binned_scan_lanes`), or its plain
+    version for CPU tensors. The kernel reduces each bin as soon as its
+    product is done, the schedule ``split_dot`` asks the TPU kernel for."""
+    _check(metric, q, table, q_sq, t_sq, penalty)
+    if q.device.type == "cpu":
+        return binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty)
+    from .. import build
+
+    n_q, (n, width) = q.shape[0], table.shape
+    out_v = torch.empty((n // LANES, n_q), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((n // LANES, n_q), dtype=torch.int32, device=q.device)
+    if n_q == 0 or n == 0:
+        return out_v, out_i
+    lib = build.load("fused")
+    with torch.cuda.device(q.device):
+        _launch(
+            lib.usearch_binned_scan_lanes, _ptr(q), _ptr(table), _ptr(q_sq), _ptr(t_sq), _ptr(penalty),
+            _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    binned_scan_lanes.launches += 1
+    return out_v, out_i
+
+
+binned_scan_lanes.launches = 0
+
+
 def scan_aux(metric, q, stats, valid):
     """Query norms, row norms (None for ip) and the deleted-row penalty."""
     qf = q.float()
@@ -246,3 +372,26 @@ def search_exact(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, 
         out_d.append(d)
         out_i.append(ids.gather(1, sel))
     return finish(torch.cat(out_d), torch.cat(out_i))
+
+
+def search_fused(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate top-k, one candidate per 128-row bin, selected inside the
+    scan (B8); `pallas_search`'s results."""
+    q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
+    return finish(*fused_topk(metric, q, table, q_sq, t_sq, penalty, k))
+
+
+def search_fused_stream(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`search_fused`'s results through the streamed kernel (B9);
+    `pallas_search_dma`'s."""
+    q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
+    return finish(*fused_topk_stream(metric, q, table, q_sq, t_sq, penalty, k))
+
+
+def search_binned_lanes(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate top-k over B10's ``[N/128, Q]`` surface: the best ``k``
+    bins, one row each; `pallas_search_binned(transposed=False)`'s."""
+    q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
+    vals, rows = binned_scan_lanes(metric, q, table, q_sq, t_sq, penalty)
+    d, sel = topk_min(vals.T, k)
+    return finish(d, rows.T.gather(1, sel))
