@@ -63,7 +63,21 @@ Phases, each fatal on failure:
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
    kernels B3-B7); and a profile of one warm search of each path and
-   flavour, the flat-scan flavours included.
+   flavour, the flat-scan flavours included;
+5. the TPU micro-benchmarks of scripts/, each a path of its own: the
+   modules `python -m usearch_torch.microbench.i8_matmul_probe`,
+   `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
+   counters zeroed just before each and read just after (its own kernel
+   and no other must launch); then B11 (loop-carried mma.sync products) in
+   its four modes at small shapes, one past 2**24, and at the script's
+   (256 x 256 x 8192, 512 steps), bit for bit; B12 (selection loop) in its
+   eight variants at three shapes, the last the script's, bit for bit (the
+   two f32 sums of group minima within 1e-6 relative), its time per pass
+   (a 1-pass launch's time taken out) at 200 and 400 passes within 10%; B13 (probe-select bisection) in its
+   five variants, and dot_only from 0 as well as from MASKED, on a
+   64-partition table and at the script's shape (10M x 128 i8 rows, 1,024
+   queries x 16 probes), bit for bit; each timed beside its bound, its
+   plain version and, for B11, one library product times the steps.
 
 The line before the last is a JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -84,7 +98,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from usearch_torch import Index, build, ivf
 from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
-from usearch_torch.ops import probe, scan
+from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
+from usearch_torch.ops import microbench, probe, scan
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits
@@ -123,7 +138,36 @@ FLAVOURS = {
     "binned_lanes": (scan.search_binned_lanes, scan.binned_scan_lanes, "B10", "usearch_tpu/ops/pallas_scan.py:397"),
 }
 FLAVOUR_KERNELS = tuple(f[1] for f in FLAVOURS.values())
-ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS
+#: phase 5: the TPU micro-benchmarks of scripts/, each module's `main` with
+#: the wrapper of the one kernel it must launch, its source and the TPU kernel
+#: it replaces
+MICRO = {
+    "i8_matmul_probe": (i8_matmul_probe.main, microbench.loop_matmul, "usearch_torch/csrc/matmul_probe.cu",
+                        "scripts/tpu_i8_matmul_probe.py:50"),
+    "select_microbench": (select_microbench.main, microbench.select_loop, "usearch_torch/csrc/select.cu",
+                          "scripts/tpu_select_microbench.py:19"),
+    "probe_v2_bisect": (probe_v2_bisect.main, microbench.bisect_probe, "usearch_torch/csrc/bisect.cu",
+                        "scripts/tpu_probe_v2_bisect.py:60"),
+}
+MICRO_KERNELS = tuple(m[1] for m in MICRO.values())
+ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS + MICRO_KERNELS
+#: phase 5 checks at small shapes: B11's (M, K, N, REPS), the first past
+#: 2**24; B12's (W, G, IT); B13 on a 64-partition table of 78,080 rows
+LOOP_CHECK = ((32, 64, 128, 512), (64, 128, 256, 40), (256, 256, 1024, 24))
+SELECT_CHECK = ((256, 64, 5), (1536, 32, 3), (1408, 128, 200))
+BISECT_CHECK = dict(n=64 * 1220, c=64, d=128, q=256, nprobe=16)
+#: B12: f32 sums of group minima may follow another order (none does here)
+SELECT_RTOL = 1e-6
+SELECT_F32_SUMS = ("f32_min32", "f32_minarg32")
+#: B12: (rows a pass needs, 32-bit operations an element) by variant, for
+#: the bound: add i; convert; min or compare-and-select; negate, shift, or
+SELECT_OPS = {"astype_only": (lambda w: 8, 3), "i32_min128": (lambda w: w, 2), "i32_min32": (lambda w: w, 2),
+              "f32_min32": (lambda w: w, 3), "pack_only": (lambda w: w // 32, 4), "pack_min32": (lambda w: w, 5),
+              "f32_minarg128": (lambda w: w, 4), "f32_minarg32": (lambda w: w, 4)}
+#: B12's time per pass at IT and at 2 IT agree within this share; a pass's
+#: time is (t(IT) - t(1)) / (IT - 1), the launch and the staging of one
+#: launch taken out
+PASS_STEADY = 0.10
 #: phase 2 of the flavours: k, a deleted stretch of rows, the live bins of a
 #: table with fewer live bins than k=10, and the rows, by dtype the widths,
 #: of tables whose rows B10 stages slab by slab
@@ -1167,6 +1211,192 @@ def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def drive_micro() -> dict:
+    """Phase 5, the paths: the `main` of each `python -m
+    usearch_torch.microbench.<name>` at its script's shape, with the launch
+    counters zeroed just before and read just after; it must launch its own
+    kernel and no other. Returns the launches by module."""
+    launches = {}
+    for name, (main_fn, kern, _, _) in MICRO.items():
+        log(f"  python -m usearch_torch.microbench.{name}:")
+        zero_counters()
+        main_fn()
+        torch.cuda.synchronize()
+        got = counters()
+        check_launches(f"{name} micro-benchmark", got, kern.__name__)
+        launches[name] = got[kern.__name__]
+        log(f"  launches: {{'{kern.__name__}': {launches[name]}}}")
+    return launches
+
+
+def hold_equal(tag: str, name: str, kern, plain) -> float:
+    """A micro-benchmark kernel's output against its plain version's, bit
+    for bit. Fails on a mismatch; returns the max abs error (0)."""
+    torch.cuda.synchronize()
+    ok = kern.dtype == plain.dtype and torch.equal(kern, plain)
+    err = float((kern.double() - plain.double()).abs().max())
+    log(f"  {tag}: {name} vs plain {'ok, bit for bit' if ok else 'MISMATCH'} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"{name} disagrees with its plain version at {tag}")
+    return err
+
+
+def plain_timed(fn):
+    """One synchronised call of a plain version: its output and its ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def loop_rows(dev, launches: int) -> list:
+    """Phase 5, B11: every mode at LOOP_CHECK's shapes, then at the script's,
+    bit for bit against the plain version; timed beside its bound (the
+    products at the tensor cores' i8 or bf16 rate) and one library product
+    of the same operands times REPS (torch._int_mm in i8, torch.matmul in
+    bf16)."""
+    for m, k, n, reps in LOOP_CHECK:
+        a8, b8 = i8_matmul_probe.operands((m, k), (n, k), SEED + m, dev)
+        for _, mode, dtype in i8_matmul_probe.LOOP_LINES:
+            a, b = a8.to(dtype), b8.to(dtype)
+            plain = microbench.loop_matmul_plain(a, b, mode, reps)
+            hold_equal(f"{mode} M={m} K={k} N={n} REPS={reps} (|acc| up to {float(plain.abs().max()):.4g})", "B11",
+                       microbench.loop_matmul(a, b, mode, reps), plain)
+    m, k, n, reps = i8_matmul_probe.M, i8_matmul_probe.K, i8_matmul_probe.N, i8_matmul_probe.REPS
+    a8, b8 = i8_matmul_probe.operands((m, k), (n, k), SEED, dev)
+    ops = 2.0 * m * k * n * reps
+    rows = []
+    for _, mode, dtype in i8_matmul_probe.LOOP_LINES:
+        a, b = a8.to(dtype), b8.to(dtype)
+        tag = f"loop_matmul {mode} M={m} K={k} N={n} REPS={reps}"
+        plain, plain_ms = plain_timed(lambda: microbench.loop_matmul_plain(a, b, mode, reps))
+        err = hold_equal(tag, "B11", microbench.loop_matmul(a, b, mode, reps), plain)
+        ms = time_once(lambda: microbench.loop_matmul(a, b, mode, reps), dev, reps=5) * 1e3
+        peak = "bf16" if mode in ("bf16", "cast") else "i8"
+        nbytes = (m + n) * k * a.element_size() + m * n * 4
+        b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
+        if peak == "i8":
+            lib_name, lib = "torch._int_mm", time_once(lambda: torch._int_mm(a8, b8.t()), dev, reps=20) * 1e3 * reps
+        else:
+            ab, bb = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+            lib_name, lib = "bf16 torch.matmul", time_once(lambda: torch.matmul(ab, bb.t()), dev, reps=20) * 1e3 * reps
+        log(f"  {tag}: {ms:.4f} ms = {ops / ms / 1e9:.1f} T(FL)OPS on mma.sync, bound {b_ms:.4f} ms ({b_by}, "
+            f"{peak} peak), plain {plain_ms:.1f} ms, library {lib:.4f} ms ({lib_name} of one product x {reps} = "
+            f"{ops / lib / 1e9:.1f} T(FL)OPS), launches on its path {launches}, max abs err {err:.3g}")
+        rows.append(dict(name=f"loop_matmul[{mode}]", route="cuda", source=MICRO["i8_matmul_probe"][2],
+                         replaces=MICRO["i8_matmul_probe"][3], launches=launches, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    return rows
+
+
+def hold_select(tag: str, variant: str, kern, plain) -> float:
+    """B12's output against its plain version's: bit for bit, the two f32
+    sums of group minima within SELECT_RTOL relative. Fails on a mismatch;
+    returns the max abs error."""
+    torch.cuda.synchronize()
+    if variant in SELECT_F32_SUMS:
+        ok = torch.allclose(kern, plain, rtol=SELECT_RTOL, atol=0)
+        detail = f"within {SELECT_RTOL} relative"
+    else:
+        ok, detail = torch.equal(kern, plain), "bit for bit"
+    err = float((kern - plain).abs().max())
+    log(f"  {tag}: B12 vs plain {'ok, ' + detail if ok else 'MISMATCH'} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"B12 disagrees with its plain version at {tag}")
+    return err
+
+
+def select_rows(dev, launches: int) -> list:
+    """Phase 5, B12: every variant at SELECT_CHECK's shapes (the last the
+    script's), against the plain version; timed at IT and 2 IT passes,
+    whose times per pass must agree within PASS_STEADY (no pass is dropped
+    or merged), beside the bound of the IT-pass call. A call's time holds
+    the wrapper's zero fill of the output; the time a pass takes it out. No
+    one PyTorch call computes a selection loop."""
+    w, g, it = select_microbench.W, select_microbench.G, select_microbench.IT
+    rows = []
+    for variant in microbench.SELECT_VARIANTS:
+        for cw, cg, cit in SELECT_CHECK:
+            x = select_microbench.buffer(cw, cg, SEED + cw, dev)
+            err = hold_select(f"{variant} W={cw} G={cg} IT={cit}", variant, microbench.select_loop(x, variant, cit),
+                              microbench.select_loop_plain(x, variant, cit))
+        x = select_microbench.buffer(w, g, SEED, dev)
+        ms1, ms, ms2 = (time_once(lambda: microbench.select_loop(x, variant, n), dev, reps=20) * 1e3
+                         for n in (1, it, 2 * it))
+        per_pass, per_pass2 = (ms - ms1) / (it - 1), (ms2 - ms1) / (2 * it - 1)
+        steady = abs(per_pass2 - per_pass) / per_pass
+        _, plain_ms = plain_timed(lambda: microbench.select_loop_plain(x, variant, it))
+        rows_of, per_element = SELECT_OPS[variant]
+        ops = float(it) * rows_of(w) * g * per_element
+        b_ms, b_by = bound_ms(ops, PEAK_OPS["f32"], (w + 8) * g * 4)
+        log(f"  select_loop {variant} W={w} G={g}: {ms:.4f} ms for {it} passes with the wrapper's zero fill of the "
+            f"output ({ms / it * 1e3:.3f} us/pass as the script counts), one pass {per_pass * 1e3:.4f} us at {it} and {per_pass2 * 1e3:.4f} us at {2 * it} "
+            f"({steady:.1%} apart; a 1-pass launch {ms1 * 1e3:.2f} us), bound {b_ms:.5f} ms ({b_by}), plain "
+            f"{plain_ms:.1f} ms, library none, launches on its path {launches}, max abs err {err:.3g}")
+        if not per_pass > 0 or steady > PASS_STEADY:
+            fail(f"B12 {variant}: the time per pass at {it} and {2 * it} passes is {steady:.1%} apart")
+        rows.append(dict(name=f"select_loop[{variant}]", route="cuda", source=MICRO["select_microbench"][2],
+                         replaces=MICRO["select_microbench"][3], launches=launches, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         us_per_pass=per_pass * 1e3, ms_holds="the wrapper's zero fill of the [8, G] output"))
+    return rows
+
+
+def bisect_cases(lay, dev):
+    """A layout's table and its second build's arrays, on the card."""
+    table = lay.table(SEED, dev)
+    rng = np.random.default_rng(SEED)
+    lay.build(1, rng)
+    q_g, qa, meta, windows = lay.build(2, rng)
+    return table, [torch.from_numpy(x).to(dev) for x in (meta, q_g, qa)], windows
+
+
+def bisect_rows(dev, launches: int) -> list:
+    """Phase 5, B13: every variant, and dot_only from init 0 (from MASKED
+    every entry stays MASKED), on BISECT_CHECK's 64-partition table, then at
+    the script's shape, bit for bit against the plain version; timed beside
+    its bound: the table rows the windows touch read once, the queries and
+    aux, the output written once; operations for the dots the output needs
+    (rows 0-7 of every window for every lane in dot_only, each lane's own
+    window otherwise). No one PyTorch call computes it."""
+    small = probe_v2_bisect.Layout(**BISECT_CHECK)
+    table, (meta, q_g, qa), _ = bisect_cases(small, dev)
+    cases = [(v, MASKED) for v in microbench.BISECT_VARIANTS] + [("dot_only", 0.0)]
+    for v, init in cases:
+        args = (meta, q_g, qa, table, v, small.w_pad, small.out_pad, init)
+        hold_equal(f"{v} init={init:g} C={small.c} P={q_g.shape[0]} w_pad={small.w_pad}", "B13",
+                   microbench.bisect_probe(*args), microbench.bisect_probe_plain(*args))
+    lay = probe_v2_bisect.script_layout()
+    table, (meta, q_g, qa), windows = bisect_cases(lay, dev)
+    starts = meta[:, 0][torch.arange(probe_v2_bisect.G, device=dev)[None, :] < meta[:, 3, :1]]
+    edges = torch.zeros(lay.cap2 + 1, dtype=torch.int32, device=dev)
+    edges.index_add_(0, starts.long(), torch.ones_like(starts))
+    edges.index_add_(0, starts.long() + lay.w_pad, -torch.ones_like(starts))
+    touched = int((torch.cumsum(edges, 0)[:-1] > 0).sum())
+    n_pairs, d = q_g.shape
+    nbytes = touched * d + n_pairs * (d + 8 * 4 + lay.out_pad * 4) + meta.numel() * 4
+    rows = []
+    for v, init in cases:
+        args = (meta, q_g, qa, table, v, lay.w_pad, lay.out_pad, init)
+        tag = f"bisect_probe {v} init={init:g} N={lay.cap2} Q={lay.q} NPROBE={lay.nprobe} windows={windows}"
+        plain, plain_ms = plain_timed(lambda: microbench.bisect_probe_plain(*args))
+        err = hold_equal(tag, "B13", microbench.bisect_probe(*args), plain)
+        if init != MASKED:
+            continue  # a check only: the benchmark and the row start from MASKED
+        ms = time_once(lambda: microbench.bisect_probe(*args), dev, reps=3) * 1e3
+        ops = 2.0 * d * (windows * 8 * probe_v2_bisect.G if v == "dot_only" else n_pairs * lay.w_pad)
+        b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+        log(f"  {tag}: {ms:.3f} ms = {ms / windows * 1e3:.3f} us/window, bound {b_ms:.4f} ms ({b_by}; {touched} "
+            f"table rows touched, {nbytes / 1e9:.3f} GB), plain {plain_ms:.1f} ms, library none, launches on its "
+            f"path {launches}, max abs err {err:.3g}")
+        rows.append(dict(name=f"bisect_probe[{v}]", route="cuda", source=MICRO["probe_v2_bisect"][2],
+                         replaces=MICRO["probe_v2_bisect"][3], launches=launches, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         us_per_window=ms / windows * 1e3))
+    return rows
+
+
 def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
@@ -1291,6 +1521,12 @@ def main() -> int:
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
     i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands
     rows += [flavour_row(name, head, res["launches"], i8_lib_ms) for name, res in flavours.items()]
+
+    log("== phase 5: micro-benchmarks, " + card)
+    micro = drive_micro()
+    rows += loop_rows(dev, micro["i8_matmul_probe"])
+    rows += select_rows(dev, micro["select_microbench"])
+    rows += bisect_rows(dev, micro["probe_v2_bisect"])
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -18,10 +18,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from usearch_tpu.enums import MetricKind as JMetric  # noqa: E402
 
-from usearch_torch import kmeans as km  # noqa: E402
 from usearch_torch.enums import MetricKind  # noqa: E402
 
 jkm = importlib.import_module("usearch_tpu.kmeans")  # the package exports a `kmeans` function
+km = importlib.import_module("usearch_torch.kmeans")  # and so does the port
 
 METRICS = ["l2sq", "cos", "ip"]
 

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures of every entry point, by source.
 SIGNATURES = {
     "scan": {
@@ -53,6 +54,15 @@ SIGNATURES = {
         "usearch_fused_topk": [_P] * 7 + [_I] * 6 + [_P],
         "usearch_fused_topk_stream": [_P] * 7 + [_I] * 7 + [_P],
         "usearch_binned_scan_lanes": [_P] * 7 + [_I] * 5 + [_P],
+    },
+    "matmul_probe": {
+        "usearch_loop_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "select": {
+        "usearch_select_loop": [_P] * 2 + [_I] * 4 + [_P],
+    },
+    "bisect": {
+        "usearch_bisect_probe": [_P] * 5 + [_I] * 7 + [_F, _P],
     },
 }
 

@@ -73,65 +73,15 @@
 // `wgmma` over [bin, W] x [W, lanes] tiles (or the b1 `mma` with and-popc)
 // and a TMA ring are later work.
 //
-// The dot products, the rank-form distances and the staging loop are
-// csrc/probe_common.cuh's, shared with B6 (csrc/pair.cu). The entry points
+// The dot products, the rank-form distances, the staging loop and the
+// window stream are csrc/probe_common.cuh's, shared with B6 (csrc/pair.cu)
+// and B13 (csrc/bisect.cu). The entry points
 // launch on the stream they are given, allocate nothing, and return
 // cudaGetLastError() after the launch.
 
 #include "probe_common.cuh"
 
 namespace {
-
-constexpr int kLanes = 128;  // pairs per cell = threads per block
-constexpr int kRows = 64;    // rows per pass (half a bin)
-
-// Each lane's window (st, ln, bs) into shared memory, then, from lane 0,
-// the runs of lanes that share one: segment s is lanes [seg_lo[s],
-// seg_lo[s + 1]), *n_seg of them. A lane with nothing to read passes
-// (0, 0, 0).
-__device__ __forceinline__ void find_segments(int lane, int st, int ln, int bs, int* seg_st, int* seg_ln,
-                                              int* seg_bs, int* seg_lo, int* n_seg) {
-  seg_st[lane] = st;
-  seg_ln[lane] = ln;
-  seg_bs[lane] = bs;
-  __syncthreads();
-  if (lane == 0) {
-    int n = 0;
-    for (int l = 0; l < kLanes; ++l)
-      if (l == 0 || seg_st[l] != seg_st[l - 1] || seg_ln[l] != seg_ln[l - 1] || seg_bs[l] != seg_bs[l - 1])
-        seg_lo[n++] = l;
-    seg_lo[n] = kLanes;
-    *n_seg = n;
-  }
-  __syncthreads();
-}
-
-// acc of lanes [lo, hi): the dots of their query rows (the cell's rows in
-// q_src) with table rows [r0, r0 + kRows). The whole block stages each
-// slice of the width of both through shared memory.
-template <typename T, typename A>
-__device__ __forceinline__ void segment_dots(A (&acc)[kRows], uint32_t* t_s, uint32_t* q_s, const uint32_t* t_src,
-                                             const uint32_t* q_src, int r0, int row_words, int lo, int hi,
-                                             int lane) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = A(0);
-  for (int w0 = 0; w0 < row_words; w0 += kWords) {
-    __syncthreads();  // the previous stage is consumed
-    stage(t_s, t_src, r0, 0, kRows, row_words, w0, lane, kLanes);
-    stage(q_s, q_src, 0, lo, hi, row_words, w0, lane, kLanes);
-    __syncthreads();
-    if (lane >= lo && lane < hi) {
-      const uint4* qrow = reinterpret_cast<const uint4*>(q_s + lane * kStride);
-#pragma unroll 1
-      for (int c = 0; c < kWords / 4; ++c) {
-        const uint4 qv = qrow[c];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          mac4(acc[r], reinterpret_cast<const uint4*>(t_s + r * kStride)[c], qv, T());
-      }
-    }
-  }
-}
 
 struct Params {
   const void* q_g;        // [P, W] the pairs' query rows

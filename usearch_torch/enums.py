@@ -184,3 +184,7 @@ def kind_of_dtype(dt) -> ScalarKind:
 DEFAULT_CONNECTIVITY = 16
 DEFAULT_EXPANSION_ADD = 128
 DEFAULT_EXPANSION_SEARCH = 64
+
+USES_OPENMP = False
+USES_SIMSIMD = False
+USES_FP16LIB = False

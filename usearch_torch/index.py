@@ -127,10 +127,20 @@ def _mutates(fn):
 
 
 def _todo(item: str):
+    """A name of the JAX package not ported yet: calling it raises naming
+    its ROADMAP item (kept on it as ``roadmap``)."""
+
     def method(*args, **kwargs):
         raise NotImplementedError(f"not ported yet (ROADMAP queue {item})")
 
+    method.roadmap = item
     return method
+
+
+def _todo_class(name: str, item: str) -> type:
+    """A class of the JAX package not ported yet: constructing it raises."""
+    return type(name, (), {"__init__": _todo(item), "roadmap": item,
+                           "__doc__": f"Not ported yet (ROADMAP queue {item})."})
 
 
 class Index:
@@ -747,6 +757,20 @@ class Index:
     view = _todo("A.6")
     restore = staticmethod(_todo("A.6"))
     metadata = staticmethod(_todo("A.6"))
+    serialized_length = property(_todo("A.6"))
+    pairwise_distance = _todo("A.3c")
+    distance_between = _todo("A.3c")
+    stats_object = _todo("A.3c")
+    level_stats = _todo("A.3c")
+    levels_stats = property(_todo("A.3c"))
+    specs = property(_todo("A.3c"))
+    stats = property(_todo("A.3c"))
+    vectors = property(_todo("A.3c"))
+    max_level = property(_todo("A.3c"))
+    nlevels = property(_todo("A.3c"))
+    hardware_acceleration = property(_todo("A.3c"))
+    jit = property(_todo("A.3c"))
+    numpy_dtype = property(_todo("A.3c"))
 
 
 class IndexedKeys:

@@ -7,6 +7,9 @@ from typing import List, Optional
 
 import numpy as np
 
+#: the type of a key
+Key = np.uint64
+
 
 @dataclass(frozen=True)
 class Match:
