@@ -7,11 +7,15 @@ against their plain versions.
 Phases, each fatal on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built from
-   usearch_torch/csrc (one nvcc per source, all started together);
+   usearch_torch/csrc (one nvcc per source, all started together), and the
+   SASS of the scan library (cuobjdump -sass): every wgmma instantiation of
+   B1/B2 must hold its tensor-core product, IGMMA for i8 and HGMMA for bf16
+   and compact f32;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
-   f32; B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
+   f32; the same at SCAN_EDGES (ragged query tiles, two fully deleted bins,
+   a half 256-row tile, W=128, rows too wide to stay in shared memory); B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
    and 40 queries at nprobe 8, on the same dtypes and metrics, with and
    without the penalty row (ip), with 4 and k candidates per bin, and B5 on
    the same windows and metrics at 4 and 8 per bin; B3 over packed
@@ -79,7 +83,8 @@ Phases, each fatal on failure:
    queries x 16 probes), bit for bit; each timed beside its bound, its
    plain version and, for B11, one library product times the steps.
 
-The line before the last is a JSON object with a row per kernel; the last
+The line before the last is a JSON object with a row per kernel (B1/B2's
+rows also say whether the tensor cores or SIMT FMAs ran the product); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -87,9 +92,11 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -111,6 +118,17 @@ CHECK = dict(n=65536, q=512, ragged_q=40, w=256, deleted=0.1)
 #: phase 3/4 shapes: bench.py's headline, and the f32 compact path
 MAIN = dict(n=1_000_000, w=256, q=16384, k=10, exact_q=1024, removed=0.01)
 COMPACT = dict(n=262144, w=256, q=16384, k=10, exact_q=1024)
+#: phase 2's ragged and wide B1/B2 cases: rows, width by dtype, query
+#: counts; bins 1 and 2 of each table fully deleted. Two 256-row tiles at
+#: W=128; an odd bin count at the widest rows a block keeps whole (i8 512
+#: bytes, bf16 and f32 compact 512 bytes as bf16); rows streamed through the
+#: ring beside the queries
+SCAN_EDGES = ((512, {"i8": 128, "bf16": 128, "f32": 128}, (100, 1)),
+              (384, {"i8": 512, "bf16": 256, "f32": 256}, (100, 40)),
+              (4096, {"i8": 2048, "bf16": 512, "f32": 512}, (100, 40)))
+#: the product instruction of the wgmma instantiations of csrc/scan.cu, by
+#: the storage type's mangled name (f32: compact mode only)
+SCAN_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "f": "HGMMA"}
 #: phase 2 shape of B3: windows, their lengths, queries, probes per query
 PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
 #: phase 3/4: the IVF path of bench.py
@@ -245,6 +263,53 @@ def check_kernels(dev) -> None:
                 for compact in modes:
                     check_one(f"{name}/{metric_name}{' compact' if compact else ''} Q={qc.shape[0]}",
                               (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
+
+
+def check_scan_edges(dev) -> None:
+    """Phase 2, B1/B2 at SCAN_EDGES: ragged query tiles, fully deleted bins,
+    a half 256-row tile, W=128, and rows too wide for a block to keep."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for n, widths, counts in SCAN_EDGES:
+        for name, dtype in DTYPES.items():
+            w = widths[name]
+            valid = torch.rand(n, generator=gen, device=dev) >= CHECK["deleted"]
+            valid[128:384] = False
+            table = make_rows(n, w, dtype, gen, dev)
+            q = make_rows(max(counts), w, dtype, gen, dev)
+            table[:3] = 0
+            q[0] = 0
+            stats = torch.stack([(table.float() ** 2).sum(1), table.float().sum(1)], 1)
+            for metric_name in METRICS:
+                metric = normalize_metric(metric_name)
+                for nq in counts:
+                    qc = q[:nq]
+                    for compact in ([False, True] if dtype == torch.float32 else [False]):
+                        check_one(f"{name}/{metric_name}{' compact' if compact else ''} N={n} W={w} Q={nq}",
+                                  (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
+
+
+def check_scan_sass() -> dict:
+    """Phase 1: the SASS of the built scan library (cuobjdump -sass) holds a
+    wgmma instantiation of B1/B2 for every storage type and mode, and each
+    instantiation its tensor-core product: IGMMA for i8, HGMMA for bf16 and
+    f32 compact. Returns the count of product instructions by instantiation."""
+    exe = Path(build.nvcc()).with_name("cuobjdump")
+    lib = build.build_all(["scan"])["scan"]
+    sass = subprocess.run([str(exe), "-sass", str(lib)], check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        m = re.search(r"wgmma_scanI(a|13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E", name)
+        if m:
+            kind, mode, metric, small = m.groups()
+            found[f"{kind}/mode {mode}/metric {metric}/small {small}"] = body.count(SCAN_SASS[kind])
+    have = {key.rsplit("/", 2)[0] for key in found}
+    want = {f"{t}/mode {mode}" for t in SCAN_SASS for mode in ((1,) if t == "f" else (0, 1, 2))}
+    log(f"scan.cu SASS, tensor-core products by wgmma instantiation: {found}")
+    if have != want or any(n == 0 for n in found.values()):
+        fail(f"scan.cu's wgmma instantiations lack their tensor-core product: {found}")
+    return found
 
 
 def check_one(tag: str, args, compact: bool) -> None:
@@ -1043,12 +1108,18 @@ def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, pe
     b_ms, b_by = bound_ms(ops, PEAK_OPS[peak_key], nbytes)
     lq, lt = (q, table) if not compact else (q.to(torch.bfloat16), table.to(torch.bfloat16))
     lib = library_ms(lq, lt)
-    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), plain {plain_ms:.1f} ms, "
-        f"library {lib:.3f} ms, launches on its path {launches}, max abs err {err:.3g}")
+    log(f"  {tag} W={w} ({scan_product(table, compact)}): {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+        f"plain {plain_ms:.1f} ms, library {lib:.3f} ms, launches on its path {launches}, max abs err {err:.3g}")
     return dict(name=f"{name}[{path}]", route="cuda", source="usearch_torch/csrc/scan.cu",
                 replaces="usearch_tpu/ops/pallas_scan.py:" + ("446" if name == "binned_scan" else "631"),
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, product=scan_product(table, compact))
+
+
+def scan_product(table: torch.Tensor, compact: bool) -> str:
+    """How csrc/scan.cu multiplies this instantiation: on the tensor cores
+    (wgmma) for i8, bf16 and compact f32, in SIMT f32 FMAs otherwise."""
+    return "simt" if table.dtype == torch.float32 and not compact else "wgmma"
 
 
 def touched_rows(n_rows: int, win_start, win_len) -> int:
@@ -1449,8 +1520,11 @@ def main() -> int:
     for name, entry in build.build_log.items():
         log(f"nvcc {name}.cu:\n{entry['report'].strip()}")
 
+    check_scan_sass()
+
     log("== phase 2: kernels against their plain versions")
     check_kernels(dev)
+    check_scan_edges(dev)
     check_probe(dev)
     check_binary_probe(dev)
     check_pair(dev)

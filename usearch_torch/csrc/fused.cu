@@ -53,6 +53,8 @@
 
 #include <type_traits>
 
+#include "scan_common.cuh"
+
 namespace {
 
 constexpr int kBin = 128;       // rows of one bin
@@ -67,38 +69,6 @@ constexpr int kLanesBins = 16;  // B10: bins per block
 constexpr int kMaxRowWords = 384;  // B10: widest row, in words, whose queries are staged once
 constexpr int kMaxK = 128;
 constexpr int kMaxMerge = 64;
-constexpr float kMasked = 3.0e38f;
-
-enum Metric { kIP = 0, kCos = 1, kL2sq = 2 };
-enum DType { kI8 = 0, kBF16 = 1, kF32 = 2 };
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = int; };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(int x) { return __int2float_rn(x); }
-__device__ __forceinline__ float lo_bf16(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-// The reference's _epilogue, operation for operation (no contraction): B1's
-// unshifted epilogue, copied rather than shared so that scan.cu, and the
-// schedule ptxas gives its dot loop, stay as measured.
-__device__ __forceinline__ float epilogue(int metric, float dot, float q_sq, float t_sq, float penalty) {
-  float d;
-  if (metric == kIP) {
-    d = __fsub_rn(1.0f, dot);
-  } else if (metric == kCos) {
-    const float denom = __fmul_rn(__fsqrt_rn(q_sq), __fsqrt_rn(t_sq));
-    const float safe = denom == 0.0f ? 1.0f : denom;
-    const float base = __fsub_rn(1.0f, __fdiv_rn(dot, safe));
-    const bool qz = q_sq == 0.0f;
-    const bool tz = t_sq == 0.0f;
-    d = (qz && tz) ? 0.0f : (qz != tz ? 1.0f : base);
-  } else {
-    d = fmaxf(__fsub_rn(__fadd_rn(q_sq, t_sq), __fmul_rn(2.0f, dot)), 0.0f);
-  }
-  return __fadd_rn(d, penalty);
-}
 
 // Copies words [w0, w0 + kSW) of rows [0, n_rows) of `src` (row_words words
 // a row) into `dst` (pitch kSP), 8 bytes a copy, asynchronously when kAsync;
@@ -195,7 +165,7 @@ __device__ __forceinline__ void bin_epilogue(A (&acc)[kTM][QJ], const float (&qs
     int arg = ty;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
-      const float d = epilogue(metric, to_float(acc[i][j]), qs[j], ts[i], pen[i]);
+      const float d = epilogue(metric, false, to_float(acc[i][j]), qs[j], ts[i], pen[i]);
       if (d < best) {
         best = d;
         arg = ty + kGroups * i;

@@ -7,6 +7,9 @@
 - `probe_v2_bisect` (scripts/tpu_probe_v2_bisect.py): kernel B13, B3's
   window stream cut to each select.
 
+`scan_breakdown` is the port's own: the flat-scan kernel B1/B2 rebuilt with
+parts of it taken out, to see where its time goes (card only).
+
 Each runs with ``python -m usearch_torch.microbench.<name>`` and prints its
 TPU script's lines. Nothing runs at import. Each ``main`` runs at its
 script's shape (the module's constants), makes its data on the card from the

@@ -1,0 +1,132 @@
+"""Where the time of the tensor-core scan kernel (csrc/scan.cu, B1/B2) goes.
+
+    python -m usearch_torch.microbench.scan_breakdown
+
+Builds csrc/scan.cu again with parts of `wgmma_scan` taken out, each a copy
+of the source with one or more lines replaced (`PARTS`), and times B1 and B2
+through their wrappers at the main paths' shapes (chip_smoke.py's MAIN and
+COMPACT): i8 ip over 2^20 x 256 rows with 16,384 and 1,024 queries, and the
+f32 cos compact path over 262,144 x 256 rows with 16,384 queries. Each
+variant computes garbage where its part is missing; only its time means
+anything. It prints the card's name and power limit and one line per
+variant and shape. Needs a CUDA card and nvcc; the copies are built into
+usearch_torch/_build/.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import time
+
+import torch
+
+from .. import build
+from ..enums import MetricKind, ScalarKind
+from ..ops import scan
+from ..ops.casts import cast_rows
+from ..ops.distances import row_stats
+from . import time_once
+
+SEED = 0
+#: source lines of csrc/scan.cu and what each variant puts in their place
+_EPILOGUE = ("  const int c2 = 2 * (lane % 4);\n  float qs[2], qr[2], iqr[2];\n",
+             "  const int c2 = 2 * (lane % 4);\n"
+             "  if (dot_value<kSmall>(acc[0]) == 12345.0f) static_cast<char*>(out_v)[0] = 1;\n"
+             "  return;\n  float qs[2], qr[2], iqr[2];\n")
+_PRODUCT = ("      for (int k = 0; k < kKB / 32; ++k) mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n",
+            "      (void)da;\n      (void)db;\n")
+_LOADS = [("      mbar_wait(ring_full + slot, (n / L.stages) & 1);\n", ""),
+          ("        if (done + L.stages < steps)\n", "        if (false)\n"),
+          ("    if (last + L.stages < steps)\n", "    if (false)\n")]
+_STORES = ("  if (qi >= n_q) return;\n  const float v0", "  if (qi >= n_q || n_bins != -1) return;\n  const float v0")
+PARTS = {
+    "full": [],
+    "no_stores": [_STORES],
+    "no_epilogue": [_EPILOGUE],
+    "no_product": [_PRODUCT],
+    "no_query_loads": _LOADS,
+    "product_only": _LOADS + [_EPILOGUE],
+    "query_loads_only": [_EPILOGUE, _PRODUCT],
+}
+
+
+def _variant_source(edits) -> str:
+    text = (build._CSRC / "scan.cu").read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"csrc/scan.cu no longer has the line this variant replaces: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants() -> dict:
+    """One library per variant, all nvcc processes started together."""
+    out = build.BUILD_DIR / "scan_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in PARTS.items():
+        src = out / f"{name}.cu"
+        src.write_text(_variant_source(edits))
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC), "-o", str(out / f"lib{name}.so"), str(src)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the {name} variant:\n{report}")
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        for fn, argtypes in build.SIGNATURES["scan"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t8 = cast_rows(torch.randn(1 << 20, 256, generator=gen, device=dev), ScalarKind.F32, ScalarKind.I8)
+    q8 = cast_rows(torch.randn(16384, 256, generator=gen, device=dev), ScalarKind.F32, ScalarKind.I8)
+    v8 = torch.ones(1 << 20, dtype=torch.bool, device=dev)
+    s8 = row_stats(t8, ScalarKind.I8)
+    tf = torch.randn(262144, 256, generator=gen, device=dev)
+    qf = torch.randn(16384, 256, generator=gen, device=dev)
+    vf = torch.ones(262144, dtype=torch.bool, device=dev)
+    sf = row_stats(tf, ScalarKind.F32)
+    ip, cos = MetricKind.IP, MetricKind.Cos
+    a8 = (ip, q8, t8, *scan.scan_aux(ip, q8, s8, v8))
+    q2 = q8[:1024].contiguous()
+    a2 = (ip, q2, t8, *scan.scan_aux(ip, q2, s8, v8))
+    af = (cos, qf, tf, *scan.scan_aux(cos, qf, sf, vf))
+    return {
+        "B1 i8 ip, 2^20 x 256, Q=16,384": lambda: scan.binned_scan(*a8),
+        "B2 i8 ip, 2^20 x 256, Q=1,024": lambda: scan.binned_minima(*a2),
+        "B1 compact f32 cos, 262,144 x 256, Q=16,384": lambda: scan.binned_scan(*af, compact=True),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("scan_breakdown: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    libs = build_variants()
+    print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    runs = cases(dev)
+    try:
+        for name, lib in libs.items():
+            build._libs["scan"] = lib
+            for tag, fn in runs.items():
+                print(f"{name:17s} {tag:45s} {time_once(fn, dev, reps=5) * 1e3:9.3f} ms", flush=True)
+    finally:
+        build._libs.pop("scan", None)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

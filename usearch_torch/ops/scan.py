@@ -159,11 +159,13 @@ def binned_scan(metric, q, table, q_sq, t_sq, penalty, compact: bool = False):
     out_i = torch.empty((n_q, n // LANES), dtype=torch.int8 if compact else torch.int32, device=q.device)
     if n_q == 0 or n == 0:
         return out_v, out_i
+    if compact and q.dtype == torch.float32:
+        q = q.to(torch.bfloat16)  # the kernel rounds the table itself, as the plain version does
     lib = build.load("scan")
     with torch.cuda.device(q.device):
         _launch(
             lib.usearch_binned_scan, _ptr(q), _ptr(table), _ptr(q_sq), _ptr(t_sq), _ptr(penalty),
-            _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
+            _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[table.dtype], _METRIC_CODES[metric],
             int(compact), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     binned_scan.launches += 1
