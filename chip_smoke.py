@@ -8,9 +8,9 @@ Phases, each fatal on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built from
    usearch_torch/csrc (one nvcc per source, all started together), and the
-   SASS of the scan library (cuobjdump -sass): every wgmma instantiation of
-   B1/B2 must hold its tensor-core product, IGMMA for i8 and HGMMA for bf16
-   and compact f32;
+   SASS of the scan and fused libraries (cuobjdump -sass): every wgmma
+   instantiation of B1/B2 and of B8/B9 must hold its tensor-core product,
+   IGMMA for i8 and HGMMA for bf16 and compact f32;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -29,7 +29,11 @@ Phases, each fatal on failure:
    top-k) and B9 (its streamed form) at k 10 and 128 and B10 (lane-layout
    surface); the three again on rows too wide for B10 to stage its queries
    once (f32 W=512, i8 W=2,048) in 509 bins (a partial last merge group
-   for B9); and B8/B9 on an i8 table of 3 live bins at k=10;
+   for B9); B8/B9 on an i8 table of 3 live bins at k=10; and B8/B9 at
+   FUSED_EDGES: i8 and bf16 tables with equal bin minima planted across a
+   256-row tile edge, an 8-bin merge-group edge and in a half last tile,
+   40 and 300 queries, k 1, 10 and 128, ties held to the earlier bin, and
+   a table with fewer live bins than k;
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -84,7 +88,8 @@ Phases, each fatal on failure:
    plain version and, for B11, one library product times the steps.
 
 The line before the last is a JSON object with a row per kernel (B1/B2's
-rows also say whether the tensor cores or SIMT FMAs ran the product); the last
+and B8-B10's rows also say whether the tensor cores or SIMT FMAs ran the
+product); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -129,6 +134,9 @@ SCAN_EDGES = ((512, {"i8": 128, "bf16": 128, "f32": 128}, (100, 1)),
 #: the product instruction of the wgmma instantiations of csrc/scan.cu, by
 #: the storage type's mangled name (f32: compact mode only)
 SCAN_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "f": "HGMMA"}
+#: the wgmma instantiations of B8/B9 in csrc/fused.cu: storage type's
+#: mangled name -> the `kSmall` flags it has (i8 rows of at most 256 bytes)
+FUSED_SASS = {"a": ("0", "1"), "13__nv_bfloat16": ("0",)}
 #: phase 2 shape of B3: windows, their lengths, queries, probes per query
 PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
 #: phase 3/4: the IVF path of bench.py
@@ -191,6 +199,15 @@ PASS_STEADY = 0.10
 #: of tables whose rows B10 stages slab by slab
 FUSED_CHECK = dict(ks=(10, 128), stretch=(4096, 8192), live_bins=(5, 300, 511), wide_n=509 * 128,
                    wide_w={"f32": 512, "i8": 2048})
+#: phase 2's edges of B8/B9's tensor-core design: bin counts (three 8-bin
+#: merge groups; an odd count, so a half last 256-row tile; a larger odd
+#: one), the width, query counts (no full 128-query block; three blocks,
+#: the last partial), k, the bins that copy bin 1
+#: (across a tile edge and a merge-group edge; the last bin too), the noise
+#: of bf16 bin 1 about its queries, and the live bins of a table with fewer
+#: than k
+FUSED_EDGES = dict(bins=(24, 19, 1023), w=256, qs=(40, 300), ks=(1, 10, 128), copies=(2, 7, 8), noise=0.5,
+                   live_bins=(1, 2, 18))
 #: phase 3/4: the IVF path's probe flavours besides the default, each with
 #: the wrapper of the kernel it must launch
 MODES = {"pair": "pair_probe", "bin": "binned_probe", "nofold": "grouped_probe_nofold"}
@@ -288,18 +305,25 @@ def check_scan_edges(dev) -> None:
                                   (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
 
 
-def check_scan_sass() -> dict:
-    """Phase 1: the SASS of the built scan library (cuobjdump -sass) holds a
-    wgmma instantiation of B1/B2 for every storage type and mode, and each
-    instantiation its tensor-core product: IGMMA for i8, HGMMA for bf16 and
-    f32 compact. Returns the count of product instructions by instantiation."""
+def sass_functions(name: str) -> dict:
+    """The SASS of the built library of csrc/<name>.cu (cuobjdump -sass), by
+    function."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
-    lib = build.build_all(["scan"])["scan"]
+    lib = build.build_all([name])[name]
     sass = subprocess.run([str(exe), "-sass", str(lib)], check=True, capture_output=True, text=True,
                           timeout=300).stdout
+    return dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+
+
+def check_scan_sass() -> dict:
+    """Phase 1: the SASS of the built scan library holds a wgmma
+    instantiation of B1/B2 for every storage type and mode, and the fused
+    library one of B8/B9 for every storage type, metric and flavour; each
+    instantiation holds its tensor-core product: IGMMA for i8, HGMMA for bf16
+    and f32 compact. Returns the count of product instructions by
+    instantiation."""
     found = {}
-    for block in sass.split("Function : ")[1:]:
-        name, body = block.split("\n", 1)
+    for name, body in sass_functions("scan").items():
         m = re.search(r"wgmma_scanI(a|13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E", name)
         if m:
             kind, mode, metric, small = m.groups()
@@ -309,7 +333,19 @@ def check_scan_sass() -> dict:
     log(f"scan.cu SASS, tensor-core products by wgmma instantiation: {found}")
     if have != want or any(n == 0 for n in found.values()):
         fail(f"scan.cu's wgmma instantiations lack their tensor-core product: {found}")
-    return found
+    fused = {}
+    for name, body in sass_functions("fused").items():
+        m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16)Li(\d)ELb(\d)ELb(\d)E", name)
+        if m:
+            kind, metric, small, stream = m.groups()
+            fused[f"{kind}/metric {metric}/small {small}/{'B9' if stream == '1' else 'B8'}"] = body.count(
+                SCAN_SASS[kind])
+    want = {f"{t}/metric {m}/small {small}/{b}" for t in FUSED_SASS for m in (0, 1, 2) for small in FUSED_SASS[t]
+            for b in ("B8", "B9")}
+    log(f"fused.cu SASS, tensor-core products by B8/B9 wgmma instantiation: {fused}")
+    if set(fused) != want or any(n == 0 for n in fused.values()):
+        fail(f"fused.cu's B8/B9 wgmma instantiations lack their tensor-core product: {fused}")
+    return {**found, **fused}
 
 
 def check_one(tag: str, args, compact: bool) -> None:
@@ -550,6 +586,84 @@ def check_flavours(dev) -> None:
         if not (bool((i[:, :n_live] >= 0).all()) and bool((i[:, n_live:] == -1).all())
                 and bool((d[:, n_live:] == MASKED).all())):
             fail(f"{tag} with {n_live} live bins: the slots past them are not (MASKED, -1)")
+    check_fused_edges(dev)
+
+
+def planted_table(name: str, n_bins: int, nq: int, gen, dev):
+    """FUSED_EDGES' table of ``n_bins`` bins and ``nq`` queries: bin 1 holds
+    the first 128 queries (bf16: with noise), and the bins of `copies` and
+    the last bin copy it, rows and deleted rows alike (~10% deleted)."""
+    spec, dtype = FUSED_EDGES, DTYPES[name]
+    n, w = n_bins * 128, spec["w"]
+    t = make_rows(n, w, dtype, gen, dev)
+    q = make_rows(nq, w, dtype, gen, dev)
+    m = min(nq, 128)
+    noise = 0.0 if name == "i8" else spec["noise"]
+    t[128 : 128 + m] = (q[:m].float() + noise * torch.randn(m, w, generator=gen, device=dev)).to(dtype)
+    valid = torch.rand(n, generator=gen, device=dev) >= CHECK["deleted"]
+    for b in spec["copies"] + (n_bins - 1,):
+        t[b * 128 : (b + 1) * 128] = t[128:256]
+        valid[b * 128 : (b + 1) * 128] = valid[128:256]
+    return t, q, valid
+
+
+def hold_tie_order(tag: str, name: str, out) -> int:
+    """Within every run of equal distances of B8's or B9's lists the ids
+    increase: the earlier bin first. Fails otherwise; returns the count of
+    equal neighbours."""
+    d, i = out
+    both = (d[:, 1:] == d[:, :-1]) & (i[:, 1:] >= 0) & (i[:, :-1] >= 0)
+    if bool((both & (i[:, 1:] <= i[:, :-1])).any()):
+        fail(f"{name} puts a later bin before an earlier one of equal distance at {tag}")
+    return int(both.sum())
+
+
+def check_fused_edges(dev) -> None:
+    """Phase 2, B8/B9 at FUSED_EDGES: i8 and bf16 tables of `planted_table`
+    (equal bin minima across a 256-row tile edge, an 8-bin merge-group edge
+    and in a half last tile), ragged Q, k 1, 10 and 128, every metric; then
+    an l2sq table with fewer live bins than k=10, whose tail must be
+    (MASKED, -1) after the live bins in bin order. Held against the plain
+    version (i8 bit for bit, bf16 within FLOAT_RTOL/FLOAT_ATOL), and ties to
+    the earlier bin."""
+    spec = FUSED_EDGES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ties = checks = 0
+    for name in ("i8", "bf16"):
+        for n_bins in spec["bins"]:
+            for nq in spec["qs"]:
+                t, q, valid = planted_table(name, n_bins, nq, gen, dev)
+                stats = torch.stack([(t.float() ** 2).sum(1), t.float().sum(1)], 1)
+                for metric_name in METRICS:
+                    metric = normalize_metric(metric_name)
+                    args = (metric, q, t, *scan.scan_aux(metric, q, stats, valid))
+                    for k in spec["ks"]:
+                        plain = scan.fused_topk_plain(*args, k)
+                        for tag, fn in (("B8", scan.fused_topk), ("B9", scan.fused_topk_stream)):
+                            label = f"edges {name}/{metric_name} bins={n_bins} Q={nq} k={k}"
+                            out = fn(*args, k)
+                            hold_probe(label, args, out, plain, tag)
+                            ties += hold_tie_order(label, tag, out)
+                            checks += 1
+        t, q, _ = planted_table(name, 19, spec["qs"][0], gen, dev)
+        live = torch.zeros(t.shape[0], dtype=torch.bool, device=dev)
+        for b in spec["live_bins"]:
+            live[b * 128 : (b + 1) * 128] = True
+        stats = torch.stack([(t.float() ** 2).sum(1), t.float().sum(1)], 1)
+        args = (MetricKind.L2sq, q, t, *scan.scan_aux(MetricKind.L2sq, q, stats, live))
+        plain = scan.fused_topk_plain(*args, 10)
+        n_live = len(spec["live_bins"])
+        for tag, fn in (("B8", scan.fused_topk), ("B9", scan.fused_topk_stream)):
+            d, i = out = fn(*args, 10)
+            hold_probe(f"edges {name}/l2sq {n_live} live bins k=10", args, out, plain, tag)
+            bins = torch.tensor(spec["live_bins"], device=dev).expand(q.shape[0], -1)
+            if not (torch.equal(i[:, :n_live] // 128, bins) and bool((i[:, n_live:] == -1).all())
+                    and bool((d[:, n_live:] == MASKED).all())):
+                fail(f"{tag} with {n_live} live bins: not the live bins in order, then (MASKED, -1)")
+            checks += 1
+    log(f"  FUSED_EDGES: {checks} B8/B9 checks held, {ties} equal neighbours in bin order")
+    if ties == 0:
+        fail("FUSED_EDGES planted no equal bin minima")
 
 
 def check_flavour_kernels(tag: str, args) -> None:
@@ -1253,7 +1367,8 @@ def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
     bound and the plain version's time. Its work is B1's product; the bytes
     are the table, queries and aux read once and its own output written
     once. No one PyTorch call computes bin minima and a top-k; ``lib_ms`` is
-    B1's yardstick, one library product of the same operands."""
+    B1's yardstick, one library product of the same operands. ``product``:
+    the tensor cores (B8/B9 over i8) or SIMT (B10)."""
     _, kern, tag_name, replaces = FLAVOURS[name]
     ix, k = run["index"], MAIN["k"]
     q8 = ix._cast_device(run["queries"], ScalarKind.F32)
@@ -1266,20 +1381,22 @@ def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
         (kv, ki), (pv, pi) = call(), plain()
         err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name)
         out_bytes = nq * (n // 128) * 8
+        product = "simt"
     else:
         call, plain = (lambda: kern(*args, k)), (lambda: scan.fused_topk_plain(*args, k))
         err = hold_probe(tag, args, call(), plain(), tag_name)
         out_bytes = nq * k * 8
+        product = "wgmma"
     ms = time_ms(call, 3)
     plain_ms = time_ms(plain, 1)
     nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + out_bytes
     b_ms, b_by = bound_ms(2.0 * nq * n * w, PEAK_OPS["i8"], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes alone {nbytes / PEAK_BYTES * 1e3:.3f} ms), "
         f"plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), launches on its path {launches} "
-        f"(1 per search), max abs err {err:.3g}")
+        f"(1 per search), product {product}, max abs err {err:.3g}")
     return dict(name=f"{kern.__name__}[i8 ip flat]", route="cuda", source="usearch_torch/csrc/fused.cu",
                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, product=product)
 
 
 def drive_micro() -> dict:

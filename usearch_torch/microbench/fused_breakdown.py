@@ -1,0 +1,83 @@
+"""Where the time of the tensor-core fused running top-k (csrc/fused.cu,
+B8/B9) goes.
+
+    python -m usearch_torch.microbench.fused_breakdown
+
+Builds csrc/fused.cu again with parts of `fused_wgmma` taken out or
+changed, each a copy of the source with one or more lines replaced
+(`PARTS`), as `scan_breakdown` does for B1/B2, and times B8 and B9 through
+their wrappers at the main path's shape (chip_smoke.py's MAIN): i8 ip over
+2^20 x 256 rows, 1% of them deleted, 16,384 queries, k=10. The variants:
+the full kernel; no merges (B8's inserts, B9's gathered merges); no
+epilogue (bin minima and merges); the product alone (no waits for, and no
+refills of, the table ring: the product runs on whatever the slots hold);
+the table stream alone. Each variant computes garbage where its part is
+missing; only its time means anything. It prints the card's name
+and power limit and one line per variant and kernel. Needs a CUDA card and
+nvcc; the copies are built into usearch_torch/_build/.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+
+from ..enums import MetricKind, ScalarKind
+from ..ops import scan
+from ..ops.casts import cast_rows
+from ..ops.distances import row_stats
+from .scan_breakdown import build_variants, card_line, run
+
+SEED = 0
+#: source lines of csrc/fused.cu and what each variant puts in their place
+_MERGES = [("        if (owner) insert(list_d, list_i, k, ls, thr, v, id);\n",
+            "        if (owner && v == 12345.0f) list_d[0] = v + id;\n"),
+           ("          if (owner) merge(list_d, list_i, k, ls, thr, cand_v + col, cand_i + col, n_cand, kQT);\n",
+            "          if (owner && cand_v[col] == 12345.0f) list_d[0] = cand_i[col];\n")]
+_EPILOGUE = ("    bool exact_all[2];\n#pragma unroll\n    for (int h = 0; h < 2; ++h) exact_all[h] = (kMetric",
+             "    if (dot_value<kSmall>(acc[0]) == 12345.0f && flag) out_d[0] = 1.0f;\n    continue;\n"
+             "    bool exact_all[2];\n#pragma unroll\n    for (int h = 0; h < 2; ++h) exact_all[h] = (kMetric")
+_PRODUCT = ("      for (int s = 0; s < kKB / 32; ++s) mma_k(acc, da + 2 * s, db + 2 * s, kb | s);\n",
+            "      (void)da;\n      (void)db;\n")
+_LOADS = [("      mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
+          ("  if (old % kUsers == kUsers - 1 && n + L.stages < steps)", "  if (false)")]
+PARTS = {
+    "full": [],
+    "no_merges": _MERGES,
+    "no_epilogue": [_EPILOGUE],
+    "product_only": _LOADS + [_EPILOGUE],
+    "stream_only": [_EPILOGUE, _PRODUCT],
+}
+
+
+def cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = 1 << 20
+    t8 = cast_rows(torch.randn(n, 256, generator=gen, device=dev), ScalarKind.F32, ScalarKind.I8)
+    q8 = cast_rows(torch.randn(16384, 256, generator=gen, device=dev), ScalarKind.F32, ScalarKind.I8)
+    v8 = torch.rand(n, generator=gen, device=dev) >= 0.01
+    ip = MetricKind.IP
+    a8 = (ip, q8, t8, *scan.scan_aux(ip, q8, row_stats(t8, ScalarKind.I8), v8))
+    return {
+        "B8 i8 ip, 2^20 x 256, Q=16,384, k=10": lambda: scan.fused_topk(*a8, 10),
+        "B9 i8 ip, 2^20 x 256, Q=16,384, k=10": lambda: scan.fused_topk_stream(*a8, 10),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("fused_breakdown: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    t0 = time.perf_counter()
+    libs = build_variants(PARTS, "fused.cu")
+    print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    run(libs, "fused", cases(dev), dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

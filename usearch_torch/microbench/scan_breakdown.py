@@ -52,23 +52,26 @@ PARTS = {
 }
 
 
-def _variant_source(edits) -> str:
-    text = (build._CSRC / "scan.cu").read_text()
+def _variant_source(edits, source: str = "scan.cu") -> str:
+    text = (build._CSRC / source).read_text()
     for old, new in edits:
         if old not in text:
-            raise RuntimeError(f"csrc/scan.cu no longer has the line this variant replaces: {old!r}")
+            raise RuntimeError(f"csrc/{source} no longer has the line this variant replaces: {old!r}")
         text = text.replace(old, new)
     return text
 
 
-def build_variants() -> dict:
-    """One library per variant, all nvcc processes started together."""
-    out = build.BUILD_DIR / "scan_breakdown"
+def build_variants(parts=None, source: str = "scan.cu") -> dict:
+    """One library per variant of ``parts`` (default PARTS) of csrc/<source>,
+    all nvcc processes started together."""
+    parts = PARTS if parts is None else parts
+    lib_name = source.rsplit(".", 1)[0]
+    out = build.BUILD_DIR / f"{lib_name}_breakdown"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in PARTS.items():
+    for name, edits in parts.items():
         src = out / f"{name}.cu"
-        src.write_text(_variant_source(edits))
+        src.write_text(_variant_source(edits, source))
         cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build._CSRC), "-o", str(out / f"lib{name}.so"), str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -77,11 +80,28 @@ def build_variants() -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the {name} variant:\n{report}")
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, argtypes in build.SIGNATURES["scan"].items():
+        for fn, argtypes in build.SIGNATURES[lib_name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run(libs: dict, lib_name: str, runs: dict, dev) -> None:
+    """Times every case of ``runs`` with each variant's library bound in
+    the place of csrc/<lib_name>.cu's, one line per variant and case."""
+    try:
+        for name, lib in libs.items():
+            build._libs[lib_name] = lib
+            for tag, fn in runs.items():
+                print(f"{name:26s} {tag:45s} {time_once(fn, dev, reps=5) * 1e3:9.3f} ms", flush=True)
+    finally:
+        build._libs.pop(lib_name, None)
 
 
 def cases(dev):
@@ -111,20 +131,12 @@ def main() -> int:
         print("scan_breakdown: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     t0 = time.perf_counter()
     libs = build_variants()
     print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    runs = cases(dev)
-    try:
-        for name, lib in libs.items():
-            build._libs["scan"] = lib
-            for tag, fn in runs.items():
-                print(f"{name:17s} {tag:45s} {time_once(fn, dev, reps=5) * 1e3:9.3f} ms", flush=True)
-    finally:
-        build._libs.pop("scan", None)
+    run(libs, "scan", cases(dev), dev)
     return 0
 
 

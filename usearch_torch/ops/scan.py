@@ -25,16 +25,17 @@ ops-level functions (no `Index` path), have the same entry points here:
 
 - `search_fused` (B8, `pallas_search`): the scan keeps each query's running
   top-k of bin minima itself, so the surface never reaches memory;
-- `search_fused_stream` (B9, `pallas_search_dma`): B8's result, the table
-  streamed through a double-buffered asynchronous copy, merged every
-  `MERGE_EVERY` bins;
+- `search_fused_stream` (B9, `pallas_search_dma`): B8's result, the bin
+  minima gathered and merged every `MERGE_EVERY` bins;
 - `search_binned_lanes` (B10, `pallas_search_binned(transposed=False)`):
   B1's surface in the JAX orientation ``[N/128, Q]``.
 
 B8 and B9 return the stable top-k, by (value, bin), of the bin minima,
-padded with ``(MASKED, -1)``. Their TPU kernels' tile sizes and merge
-interval, and B10's ``split_dot``, change no output and are not parameters
-here.
+padded with ``(MASKED, -1)``. For i8 and bf16 their kernels run B1's
+tensor-core product and epilogue (csrc/wgmma_common.cuh), so their
+distances are B1's; f32 keeps a SIMT product. Their TPU kernels' tile
+sizes and merge interval, and B10's ``split_dot``, change no output and are
+not parameters here.
 
 Each kernel wrapper runs the plain version for CPU tensors and the CUDA
 kernel (csrc/scan.cu, csrc/fused.cu) for CUDA tensors; there is no fallback
@@ -257,9 +258,8 @@ fused_topk.launches = 0
 
 def fused_topk_stream(metric, q, table, q_sq, t_sq, penalty, k: int):
     """Kernel B9 (csrc/fused.cu `usearch_fused_topk_stream`), or the plain
-    version of B8 for CPU tensors: B8's result, the table streamed through a
-    two-slot ring of asynchronous copies, the bin minima merged every
-    `MERGE_EVERY` bins."""
+    version of B8 for CPU tensors: B8's result, the bin minima gathered in
+    shared memory and merged every `MERGE_EVERY` bins."""
     _check(metric, q, table, q_sq, t_sq, penalty)
     _check_k(k)
     if q.device.type == "cpu":
