@@ -9,8 +9,10 @@ Phases, each fatal on failure:
 1. setup: the card's name and power limit, TF32 off, the kernels built from
    usearch_torch/csrc (one nvcc per source, all started together), and the
    SASS of the scan and fused libraries (cuobjdump -sass): every wgmma
-   instantiation of B1/B2 and of B8/B9 must hold its tensor-core product,
-   IGMMA for i8 and HGMMA for bf16 and compact f32;
+   instantiation of B1/B2 and of B8/B9/B10 must hold its tensor-core
+   product, IGMMA for i8 and HGMMA for bf16 and compact f32, and B1/B2's
+   SIMT f32 kernel FFMA and no tensor-core product (no TF32 on the exact
+   path);
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -27,13 +29,17 @@ Phases, each fatal on failure:
    keep) (32, 4) and (8, 1), bit for bit; the flat-scan flavours at B1's
    shape with a fully deleted 4,096-row stretch besides: B8 (fused running
    top-k) and B9 (its streamed form) at k 10 and 128 and B10 (lane-layout
-   surface); the three again on rows too wide for B10 to stage its queries
-   once (f32 W=512, i8 W=2,048) in 509 bins (a partial last merge group
-   for B9); B8/B9 on an i8 table of 3 live bins at k=10; and B8/B9 at
-   FUSED_EDGES: i8 and bf16 tables with equal bin minima planted across a
-   256-row tile edge, an 8-bin merge-group edge and in a half last tile,
-   40 and 300 queries, k 1, 10 and 128, ties held to the earlier bin, and
-   a table with fewer live bins than k;
+   surface); the three again on rows too wide to stay in shared memory
+   (f32 W=512, i8 W=2,048) in 509 bins (a partial last merge group for B9);
+   B8/B9 on an i8 table of 3 live bins at k=10; B8/B9 at FUSED_EDGES: i8
+   and bf16 tables with equal bin minima planted across a 256-row tile
+   edge, an 8-bin merge-group edge and in a half last tile, 40 and 300
+   queries, k 1, 10 and 128, ties held to the earlier bin, and a table
+   with fewer live bins than k; and B10 at LANES_EDGES: the same planted
+   tables in i8, bf16 and f32 (24, 19 and 1,023 bins, 40 and 300 queries)
+   and wide planted rows, i8 bit for bit, bf16 and f32 bit for bit against
+   B1's surface (the same product and epilogue) and within the float
+   tolerance of the plain version (bf16's scaled by the squared norms);
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -71,7 +77,7 @@ Phases, each fatal on failure:
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
    kernels B3-B7); and a profile of one warm search of each path and
-   flavour, the flat-scan flavours included;
+   flavour, the flat-scan flavours and both exact paths included;
 5. the TPU micro-benchmarks of scripts/, each a path of its own: the
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
@@ -96,6 +102,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -134,9 +141,14 @@ SCAN_EDGES = ((512, {"i8": 128, "bf16": 128, "f32": 128}, (100, 1)),
 #: the product instruction of the wgmma instantiations of csrc/scan.cu, by
 #: the storage type's mangled name (f32: compact mode only)
 SCAN_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "f": "HGMMA"}
-#: the wgmma instantiations of B8/B9 in csrc/fused.cu: storage type's
-#: mangled name -> the `kSmall` flags it has (i8 rows of at most 256 bytes)
+#: the wgmma instantiations of B8/B9/B10 in csrc/fused.cu: storage type's
+#: mangled name -> the `kSmall` flags it has (i8 rows of at most 256 bytes);
+#: the flavour (`Flavour`) by its code
 FUSED_SASS = {"a": ("0", "1"), "13__nv_bfloat16": ("0",)}
+FUSED_FLAVOURS = {"0": "B8", "1": "B9", "2": "B10"}
+#: B1/B2's SIMT f32 kernel (modes kBinned, kMinima): the FMA it must hold
+#: and the tensor-core products it must not
+SIMT_SASS = ("FFMA", ("HMMA", "HGMMA", "IGMMA", "IMMA"))
 #: phase 2 shape of B3: windows, their lengths, queries, probes per query
 PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
 #: phase 3/4: the IVF path of bench.py
@@ -150,6 +162,11 @@ PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 #: float bin minima: f32 sums of W products in another order
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
+#: B10 bf16 at LANES_EDGES against its plain version: those sums round by
+#: about 2^-24 sqrt(W) times the squared norms, not the distance (l2sq on
+#: the planted copies of the queries cancels to near 0), so an atol of this
+#: times the largest q_sq + t_sq besides, as tests/test_torch_fused_edges.py
+TERMS_ATOL = 1e-6
 METRICS = ("ip", "cos", "l2sq")
 DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 #: the kernel wrappers of the flat paths and of the IVF path, each with its
@@ -208,6 +225,10 @@ FUSED_CHECK = dict(ks=(10, 128), stretch=(4096, 8192), live_bins=(5, 300, 511), 
 #: than k
 FUSED_EDGES = dict(bins=(24, 19, 1023), w=256, qs=(40, 300), ks=(1, 10, 128), copies=(2, 7, 8), noise=0.5,
                    live_bins=(1, 2, 18))
+#: phase 2's edges of B10 on B8's tensor-core kernel: FUSED_EDGES' planted
+#: tables (bins, query counts) in every dtype, and planted rows too wide to
+#: stay in shared memory (i8 and bf16: streamed query K-blocks) in 19 bins
+LANES_EDGES = dict(wide_w={"i8": 2048, "bf16": 1024, "f32": 512}, wide_bins=19)
 #: phase 3/4: the IVF path's probe flavours besides the default, each with
 #: the wrapper of the kernel it must launch
 MODES = {"pair": "pair_probe", "bin": "binned_probe", "nofold": "grouped_probe_nofold"}
@@ -318,10 +339,11 @@ def sass_functions(name: str) -> dict:
 def check_scan_sass() -> dict:
     """Phase 1: the SASS of the built scan library holds a wgmma
     instantiation of B1/B2 for every storage type and mode, and the fused
-    library one of B8/B9 for every storage type, metric and flavour; each
-    instantiation holds its tensor-core product: IGMMA for i8, HGMMA for bf16
-    and f32 compact. Returns the count of product instructions by
-    instantiation."""
+    library one of B8/B9/B10 for every storage type, metric and flavour;
+    each instantiation holds its tensor-core product: IGMMA for i8, HGMMA
+    for bf16 and f32 compact. B1/B2's SIMT f32 kernel, in both its modes,
+    holds FFMA and no tensor-core product. Returns the count of product
+    instructions by wgmma instantiation."""
     found = {}
     for name, body in sass_functions("scan").items():
         m = re.search(r"wgmma_scanI(a|13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E", name)
@@ -333,18 +355,27 @@ def check_scan_sass() -> dict:
     log(f"scan.cu SASS, tensor-core products by wgmma instantiation: {found}")
     if have != want or any(n == 0 for n in found.values()):
         fail(f"scan.cu's wgmma instantiations lack their tensor-core product: {found}")
+    simt = {}
+    for name, body in sass_functions("scan").items():
+        m = re.search(r"simt_scanILi(\d)E", name)
+        if m:
+            simt[f"simt mode {m.group(1)}"] = {op: len(re.findall(rf"\b{op}\b", body))
+                                                for op in (SIMT_SASS[0], *SIMT_SASS[1])}
+    log(f"scan.cu SASS, the SIMT f32 kernel's FMAs and tensor-core products: {simt}")
+    if set(simt) != {"simt mode 0", "simt mode 2"} or any(
+            c[SIMT_SASS[0]] == 0 or any(c[op] for op in SIMT_SASS[1]) for c in simt.values()):
+        fail(f"scan.cu's SIMT f32 kernel lacks FFMA or holds a tensor-core product: {simt}")
     fused = {}
     for name, body in sass_functions("fused").items():
-        m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16)Li(\d)ELb(\d)ELb(\d)E", name)
+        m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16)Li(\d)ELb(\d)ELi(\d)E", name)
         if m:
-            kind, metric, small, stream = m.groups()
-            fused[f"{kind}/metric {metric}/small {small}/{'B9' if stream == '1' else 'B8'}"] = body.count(
-                SCAN_SASS[kind])
+            kind, metric, small, flavour = m.groups()
+            fused[f"{kind}/metric {metric}/small {small}/{FUSED_FLAVOURS[flavour]}"] = body.count(SCAN_SASS[kind])
     want = {f"{t}/metric {m}/small {small}/{b}" for t in FUSED_SASS for m in (0, 1, 2) for small in FUSED_SASS[t]
-            for b in ("B8", "B9")}
-    log(f"fused.cu SASS, tensor-core products by B8/B9 wgmma instantiation: {fused}")
+            for b in FUSED_FLAVOURS.values()}
+    log(f"fused.cu SASS, tensor-core products by B8/B9/B10 wgmma instantiation: {fused}")
     if set(fused) != want or any(n == 0 for n in fused.values()):
-        fail(f"fused.cu's B8/B9 wgmma instantiations lack their tensor-core product: {fused}")
+        fail(f"fused.cu's B8/B9/B10 wgmma instantiations lack their tensor-core product: {fused}")
     return {**found, **fused}
 
 
@@ -356,10 +387,10 @@ def check_one(tag: str, args, compact: bool) -> None:
         hold_b2(tag, args, scan.binned_minima(*args), scan.binned_minima_plain(*args))
 
 
-def hold_b1(tag: str, args, compact: bool, kern, plain, name: str = "B1") -> float:
+def hold_b1(tag: str, args, compact: bool, kern, plain, name: str = "B1", atol: float = FLOAT_ATOL) -> float:
     """B1's [Q, N/128] surface (or B10's, transposed) against its plain
     version's: i8 bit for bit; compact bf16 minima within 1 ulp; float
-    minima within FLOAT_RTOL/FLOAT_ATOL; argmins equal wherever a bin's two
+    minima within FLOAT_RTOL and ``atol``; argmins equal wherever a bin's two
     best rows are further apart than that. Fails on a mismatch; returns the
     max abs error of the minima."""
     (kv, ki), (pv, pi) = kern, plain
@@ -372,9 +403,9 @@ def hold_b1(tag: str, args, compact: bool, kern, plain, name: str = "B1") -> flo
         ok = ulps <= 1 and torch.equal(ki[sure], pi[sure])
         detail = f"bf16 minima within {ulps} ulp, argmins equal on {int(sure.sum())} clear bins"
     else:
-        sure = bin_gaps(*args, shifted=False, round_bf16=False) > FLOAT_ATOL + FLOAT_RTOL * pv.abs()
-        ok = torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.equal(ki[sure], pi[sure])
-        detail = f"minima within rtol {FLOAT_RTOL}, argmins equal on {int(sure.sum())} clear bins"
+        sure = bin_gaps(*args, shifted=False, round_bf16=False) > atol + FLOAT_RTOL * pv.abs()
+        ok = torch.allclose(kv, pv, rtol=FLOAT_RTOL, atol=atol) and torch.equal(ki[sure], pi[sure])
+        detail = f"minima within rtol {FLOAT_RTOL} atol {atol:.3g}, argmins equal on {int(sure.sum())} clear bins"
     err = float((kv.float() - pv.float()).abs().max())
     log(f"  {tag}: {name}{' compact' if compact else ''} vs plain {'ok' if ok else 'MISMATCH'}, "
         f"{detail} (max abs err {err:.3g})")
@@ -587,14 +618,16 @@ def check_flavours(dev) -> None:
                 and bool((d[:, n_live:] == MASKED).all())):
             fail(f"{tag} with {n_live} live bins: the slots past them are not (MASKED, -1)")
     check_fused_edges(dev)
+    check_lanes_edges(dev)
 
 
-def planted_table(name: str, n_bins: int, nq: int, gen, dev):
-    """FUSED_EDGES' table of ``n_bins`` bins and ``nq`` queries: bin 1 holds
-    the first 128 queries (bf16: with noise), and the bins of `copies` and
-    the last bin copy it, rows and deleted rows alike (~10% deleted)."""
+def planted_table(name: str, n_bins: int, nq: int, gen, dev, w: int = FUSED_EDGES["w"]):
+    """FUSED_EDGES' table of ``n_bins`` bins of width ``w`` and ``nq``
+    queries: bin 1 holds the first 128 queries (bf16 and f32: with noise),
+    and the bins of `copies` and the last bin copy it, rows and deleted rows
+    alike (~10% deleted)."""
     spec, dtype = FUSED_EDGES, DTYPES[name]
-    n, w = n_bins * 128, spec["w"]
+    n = n_bins * 128
     t = make_rows(n, w, dtype, gen, dev)
     q = make_rows(nq, w, dtype, gen, dev)
     m = min(nq, 128)
@@ -664,6 +697,64 @@ def check_fused_edges(dev) -> None:
     log(f"  FUSED_EDGES: {checks} B8/B9 checks held, {ties} equal neighbours in bin order")
     if ties == 0:
         fail("FUSED_EDGES planted no equal bin minima")
+
+
+def check_lanes_edges(dev) -> None:
+    """Phase 2, B10 at LANES_EDGES: `planted_table`'s tables (equal bin
+    minima across a 256-row tile edge, at merge-group edges and in a half
+    last tile) in every dtype at FUSED_EDGES' bin and query counts, and
+    planted rows too wide to stay in shared memory, every metric. i8 bit for
+    bit against the plain version; f32 within FLOAT_RTOL/FLOAT_ATOL of it
+    and bf16 within FLOAT_RTOL and FLOAT_ATOL plus TERMS_ATOL times the
+    largest q_sq + t_sq (f32 sums in another order); every dtype bit for
+    bit, rows included, against B1's surface transposed, which has the same
+    product and epilogue (wgmma for i8 and bf16, one FMA chain a dot for
+    f32). At an odd bin count, outputs one bin longer keep their sentinel
+    past the last bin. The planted equal minima must be there."""
+    spec = FUSED_EDGES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    shapes = [(name, n_bins, nq, spec["w"]) for name in DTYPES for n_bins in spec["bins"] for nq in spec["qs"]]
+    shapes += [(name, LANES_EDGES["wide_bins"], nq, w) for name, w in LANES_EDGES["wide_w"].items()
+               for nq in spec["qs"]]
+    checks = ties = 0
+    for name, n_bins, nq, w in shapes:
+        t, q, valid = planted_table(name, n_bins, nq, gen, dev, w)
+        stats = torch.stack([(t.float() ** 2).sum(1), t.float().sum(1)], 1)
+        for metric_name in METRICS:
+            metric = normalize_metric(metric_name)
+            args = (metric, q, t, *scan.scan_aux(metric, q, stats, valid))
+            tag = f"lanes edges {name}/{metric_name} bins={n_bins} W={w} Q={nq}"
+            kv, ki = scan.binned_scan_lanes(*args)
+            pv, pi = scan.binned_scan_lanes_plain(*args)
+            atol = FLOAT_ATOL
+            if name == "bf16":
+                atol += TERMS_ATOL * float((q.float() ** 2).sum(1).max() + stats[:, 0].max())
+            hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10", atol)
+            bv, bi = scan.binned_scan(*args)
+            if not (torch.equal(kv, bv.T) and torch.equal(ki, bi.T)):
+                fail(f"B10 differs from B1's surface at {tag}")
+            if n_bins % 2 and not lanes_guard_kept(args):
+                fail(f"B10 stored past the last bin at {tag}")
+            ties += int((kv[1] == kv[2]).sum())  # bins 1 | 2: a 256-row tile edge
+            checks += 1
+    log(f"  LANES_EDGES: {checks} B10 checks held, {ties} equal minima across a tile edge")
+    if ties == 0:
+        fail("LANES_EDGES planted no equal bin minima")
+
+
+def lanes_guard_kept(args) -> bool:
+    """B10 through its C entry point into outputs one bin longer, filled
+    with a sentinel: the row past the last bin keeps it."""
+    metric, q, table, q_sq, t_sq, penalty = args
+    n_q, (n, w) = q.shape[0], table.shape
+    out_v = torch.full((n // 128 + 1, n_q), 7.0, device=q.device)
+    out_i = torch.full((n // 128 + 1, n_q), 7, dtype=torch.int32, device=q.device)
+    ptr = scan._ptr
+    scan._launch(build.load("fused").usearch_binned_scan_lanes, ptr(q), ptr(table), ptr(q_sq), ptr(t_sq),
+                 ptr(penalty), ptr(out_v), ptr(out_i), n_q, n, w, scan._DTYPE_CODES[q.dtype],
+                 scan._METRIC_CODES[metric], ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    return bool((out_v[-1] == 7.0).all()) and bool((out_i[-1] == 7).all())
 
 
 def check_flavour_kernels(tag: str, args) -> None:
@@ -1368,7 +1459,7 @@ def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
     are the table, queries and aux read once and its own output written
     once. No one PyTorch call computes bin minima and a top-k; ``lib_ms`` is
     B1's yardstick, one library product of the same operands. ``product``:
-    the tensor cores (B8/B9 over i8) or SIMT (B10)."""
+    the tensor cores (B8/B9/B10 over i8 run `fused_wgmma`)."""
     _, kern, tag_name, replaces = FLAVOURS[name]
     ix, k = run["index"], MAIN["k"]
     q8 = ix._cast_device(run["queries"], ScalarKind.F32)
@@ -1381,18 +1472,18 @@ def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
         (kv, ki), (pv, pi) = call(), plain()
         err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name)
         out_bytes = nq * (n // 128) * 8
-        product = "simt"
     else:
         call, plain = (lambda: kern(*args, k)), (lambda: scan.fused_topk_plain(*args, k))
         err = hold_probe(tag, args, call(), plain(), tag_name)
         out_bytes = nq * k * 8
-        product = "wgmma"
+    product = "wgmma"
     ms = time_ms(call, 3)
     plain_ms = time_ms(plain, 1)
     nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + out_bytes
     b_ms, b_by = bound_ms(2.0 * nq * n * w, PEAK_OPS["i8"], nbytes)
-    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes alone {nbytes / PEAK_BYTES * 1e3:.3f} ms), "
-        f"plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), launches on its path {launches} "
+    log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes alone {nbytes / PEAK_BYTES * 1e3:.3f} ms, "
+        f"of them the output's {out_bytes / 1e9:.4f} GB {out_bytes / PEAK_BYTES * 1e3:.3f} ms), plain "
+        f"{plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), launches on its path {launches} "
         f"(1 per search), product {product}, max abs err {err:.3g}")
     return dict(name=f"{kern.__name__}[i8 ip flat]", route="cuda", source="usearch_torch/csrc/fused.cu",
                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1686,6 +1777,7 @@ def main() -> int:
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
     profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
+    profile_search(cx, comp["queries"][: COMPACT["exact_q"]], COMPACT["k"], exact=True)
     profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
     for mode in MODES:
         ivf.PROBE_MODE = mode

@@ -1,8 +1,10 @@
-"""The tensor-core sources of the flat scans: B1/B2 (csrc/scan.cu) and B8/B9
-(csrc/fused.cu) share one copy of the `wgmma` building blocks and the
-register epilogue (csrc/wgmma_common.cuh), and each variant of the fused
-breakdown script still replaces lines the kernel has."""
+"""The tensor-core sources of the flat scans: B1/B2 (csrc/scan.cu) and
+B8/B9/B10 (csrc/fused.cu) share one copy of the `wgmma` building blocks and
+the register epilogue (csrc/wgmma_common.cuh), and each variant of the
+fused breakdown script still replaces lines the kernel has, B10's store
+flavour included."""
 
+import inspect
 import re
 from pathlib import Path
 
@@ -45,6 +47,35 @@ def test_fused_breakdown_variants_apply(part):
     full = (CSRC / "fused.cu").read_text()
     text = scan_breakdown._variant_source(fused_breakdown.PARTS[part], "fused.cu")
     assert text != full and "fused_wgmma" in text
+
+
+def _fused_wgmma_body(text: str) -> str:
+    start = text.index("{", text.index("fused_wgmma(const __grid_constant__"))
+    depth, i = 0, start
+    while True:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start : i + 1]
+        i += 1
+
+
+@pytest.mark.parametrize("part", ["no_stores", "no_epilogue", "product_only", "stream_only"])
+def test_fused_breakdown_b10_variants_reach_the_store_flavour(part):
+    """The variants that time B10 replace lines of `fused_wgmma` (or of a
+    helper it calls) that its store flavour runs: inside the kStore branch,
+    or outside every flavour's branch; and the script times B10."""
+    text = (CSRC / "fused.cu").read_text()
+    body = _fused_wgmma_body(text)
+    store = body.index("if constexpr (kFlavour == kStore) {")
+    merge = body.index("} else if constexpr (kFlavour == kMerge) {", store)
+    insert_end = body.index("if (owner) insert(", merge)
+    for old, _ in fused_breakdown.PARTS[part]:
+        at = body.find(old)
+        assert at >= 0 or old in text.replace(body, ""), old  # in the kernel, or in a helper it calls
+        assert store < at < merge or not merge <= at <= insert_end, old
+    assert '"B10 i8 ip' in inspect.getsource(fused_breakdown.cases)
+    if part == "no_stores":
+        assert all(store < body.index(old) < merge for old, _ in fused_breakdown.PARTS[part])
 
 
 def test_fused_breakdown_needs_a_card(monkeypatch):

@@ -168,6 +168,19 @@ def test_scan_breakdown_variants_apply(part):
     assert text != full and "wgmma_scan" in text
 
 
+@pytest.mark.parametrize("part", ["simt_product_only", "simt_copies_only", "simt_no_epilogue"])
+def test_scan_breakdown_simt_variants_apply(part):
+    """Each variant of the SIMT f32 kernel (B2/B1 f32) replaces lines that
+    `simt_scan` still has."""
+    from usearch_torch.microbench import scan_breakdown
+
+    full = (CSRC / "scan.cu").read_text()
+    body = full[full.index("simt_scan(const float*"):full.index("int launch_simt(")]
+    for old, _ in scan_breakdown.SIMT_PARTS[part]:
+        assert old in body, old
+    assert scan_breakdown._variant_source(scan_breakdown.SIMT_PARTS[part]) != full
+
+
 def test_scan_breakdown_needs_a_card(monkeypatch):
     from usearch_torch.microbench import scan_breakdown
 

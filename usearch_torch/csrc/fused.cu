@@ -27,7 +27,7 @@
 // tensor cores' rate bounds it (8.8e12 operations at N = 2^20, W = 256,
 // Q = 16384: 4.4 ms at the int8 rate).
 //
-// B8/B9 for i8 and bf16 (`fused_wgmma`) run on the tensor cores with B1's
+// B8/B9/B10 for i8 and bf16 (`fused_wgmma`) run on the tensor cores with B1's
 // building blocks (csrc/wgmma_common.cuh): `wgmma` m64n256 s8 or bf16,
 // both operands K-major from 128-byte-swizzled TMA boxes, and B1's register
 // epilogue (`tile_minima`). B1's loop order is flipped, since a running
@@ -55,13 +55,16 @@
 //   the end; longer ones (up to 128: 128 lists of 128 do not fit beside the
 //   ring) live in the output rows.
 // - B8 inserts after every tile; B9 gathers the minima of merge_every bins
-//   in shared memory and merges them at once. A table of an odd bin count
-//   ends on a half tile, whose second bin is skipped.
+//   in shared memory and merges them at once; B10 keeps no list: the owner
+//   stores each bin's (minimum, row) to [n_bins, n_q], 16 consecutive
+//   queries a warp, so two whole 32-byte sectors per array and store. A
+//   table of an odd bin count ends on a half tile, whose second bin is
+//   skipped.
 // The table is read once per 128 queries, 128 times at the serving shape
 // (32 GiB, from L2). What holds it back on the card (PERF.md, Findings):
 // product and stream overlap, and the epilogue and merges add to them.
 //
-// f32 keeps a SIMT product (no TF32 on an f32 table), and B10 too: thread
+// f32 keeps a SIMT product (no TF32 on an f32 table): thread
 // (tx, ty) of 256 owns rows ty + 16 i (i < 8) of the bin and queries
 // tx + 16 j. Rows stay as they lie in memory, 16 words (64 bytes) of each
 // at a time (a slab), with a pitch of 18 words, so 16 neighbouring queries
@@ -71,11 +74,12 @@
 //   s + 1 is in flight (__pipeline_memcpy_async, i.e. cp.async) while slab
 //   s is multiplied and the bins' minima wait in shared memory for the
 //   merge (B9).
-// - B10: one block per 128 queries and 16 bins stages the queries' whole
-//   rows once (rows of at most kMaxRowWords words; wider rows are staged
-//   slab by slab beside the table's), then streams its bins' slabs
-//   and reduces each bin as soon as its product is done (the TPU's split_dot
-//   schedule); the store of a bin's minima is coalesced along queries.
+// - B10 f32 (`lanes_kernel`): one block per 128 queries and 16 bins stages
+//   the queries' whole rows once (rows of at most kMaxRowWords words; wider
+//   rows are staged slab by slab beside the table's), then streams its
+//   bins' slabs and reduces each bin as soon as its product is done (the
+//   TPU's split_dot schedule); the store of a bin's minima is coalesced
+//   along queries.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after its launch.
@@ -98,10 +102,10 @@ constexpr int kGroups = 16;     // row groups = query groups
 constexpr int kTM = 8;          // rows per thread, strided by kGroups
 constexpr int kSW = 16;         // 4-byte words of a row per slab
 constexpr int kSP = kSW + 2;    // slab pitch in words
-constexpr int kFusedQJ = 4;     // B8/B9: queries per thread (64 per block)
-constexpr int kLanesQJ = 8;     // B10: queries per thread (128 per block)
-constexpr int kLanesBins = 16;  // B10: bins per block
-constexpr int kMaxRowWords = 384;  // B10: widest row, in words, whose queries are staged once
+constexpr int kFusedQJ = 4;     // B8/B9 f32: queries per thread (64 per block)
+constexpr int kLanesQJ = 8;     // B10 f32: queries per thread (128 per block)
+constexpr int kLanesBins = 16;  // B10 f32: bins per block
+constexpr int kMaxRowWords = 384;  // B10 f32: widest row, in words, whose queries are staged once
 constexpr int kMaxK = 128;
 constexpr int kMaxMerge = 64;
 
@@ -124,12 +128,12 @@ __device__ __forceinline__ void copy_slab(uint32_t* dst, const uint32_t* __restr
   }
 }
 
-// acc[i][j] += the dots of one slab: rows ty + 16 i of `a` (first row of
-// this thread, pitch pa) with queries tx + 16 j of `b` (pitch pb), words in
-// ascending order.
-template <typename T, int QJ>
-__device__ __forceinline__ void slab_mac(typename Acc<T>::type (&acc)[kTM][QJ], const uint32_t* a, int pa,
-                                         const uint32_t* b, int pb) {
+// acc[i][j] += the f32 dots of one slab: rows ty + 16 i of `a` (first row
+// of this thread, pitch pa) with queries tx + 16 j of `b` (pitch pb), words
+// in ascending order.
+template <int QJ>
+__device__ __forceinline__ void slab_mac(float (&acc)[kTM][QJ], const uint32_t* a, int pa, const uint32_t* b,
+                                         int pb) {
 #pragma unroll
   for (int w = 0; w < kSW; w += 2) {
     uint2 av[kTM], bv[QJ];
@@ -137,43 +141,13 @@ __device__ __forceinline__ void slab_mac(typename Acc<T>::type (&acc)[kTM][QJ], 
     for (int i = 0; i < kTM; ++i) av[i] = *reinterpret_cast<const uint2*>(a + i * kGroups * pa + w);
 #pragma unroll
     for (int j = 0; j < QJ; ++j) bv[j] = *reinterpret_cast<const uint2*>(b + j * kGroups * pb + w);
-    if constexpr (std::is_same<T, int8_t>::value) {
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+    for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          acc[i][j] = __dp4a(static_cast<int>(av[i].x), static_cast<int>(bv[j].x), acc[i][j]);
-          acc[i][j] = __dp4a(static_cast<int>(av[i].y), static_cast<int>(bv[j].y), acc[i][j]);
-        }
-    } else if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          acc[i][j] = __fmaf_rn(__uint_as_float(av[i].x), __uint_as_float(bv[j].x), acc[i][j]);
-          acc[i][j] = __fmaf_rn(__uint_as_float(av[i].y), __uint_as_float(bv[j].y), acc[i][j]);
-        }
-    } else {
-      // bf16: the low half of a word is the earlier element
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        float x[kTM], y[QJ];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const uint32_t word = h < 2 ? av[i].x : av[i].y;
-          x[i] = h % 2 ? hi_bf16(word) : lo_bf16(word);
-        }
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          const uint32_t word = h < 2 ? bv[j].x : bv[j].y;
-          y[j] = h % 2 ? hi_bf16(word) : lo_bf16(word);
-        }
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < QJ; ++j) acc[i][j] = __fmaf_rn(x[i], y[j], acc[i][j]);
+      for (int j = 0; j < QJ; ++j) {
+        acc[i][j] = __fmaf_rn(__uint_as_float(av[i].x), __uint_as_float(bv[j].x), acc[i][j]);
+        acc[i][j] = __fmaf_rn(__uint_as_float(av[i].y), __uint_as_float(bv[j].y), acc[i][j]);
       }
-    }
   }
 }
 
@@ -181,8 +155,8 @@ __device__ __forceinline__ void slab_mac(typename Acc<T>::type (&acc)[kTM][QJ], 
 // for each of its queries the minimum over its rows (ascending, strict '<')
 // and that row within the bin, into red_v/red_i [kGroups][QT]; then zeroes
 // the accumulators.
-template <typename A, int QJ>
-__device__ __forceinline__ void bin_epilogue(A (&acc)[kTM][QJ], const float (&qs)[QJ], int metric,
+template <int QJ>
+__device__ __forceinline__ void bin_epilogue(float (&acc)[kTM][QJ], const float (&qs)[QJ], int metric,
                                              const float* __restrict__ t_sq,
                                              const float* __restrict__ penalty, int row0, float* red_v,
                                              int* red_i, int tx, int ty) {
@@ -200,12 +174,12 @@ __device__ __forceinline__ void bin_epilogue(A (&acc)[kTM][QJ], const float (&qs
     int arg = ty;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
-      const float d = epilogue(metric, false, to_float(acc[i][j]), qs[j], ts[i], pen[i]);
+      const float d = epilogue(metric, false, acc[i][j], qs[j], ts[i], pen[i]);
       if (d < best) {
         best = d;
         arg = ty + kGroups * i;
       }
-      acc[i][j] = A(0);
+      acc[i][j] = 0.0f;
     }
     red_v[ty * QT + tx + kGroups * j] = best;
     red_i[ty * QT + tx + kGroups * j] = arg;
@@ -328,7 +302,7 @@ fused_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
       fetch(s, slot);
     }
     __syncthreads();
-    slab_mac<float, QJ>(acc, slot + ty * kSP, kSP, slot + kBin * kSP + tx * kSP, kSP);
+    slab_mac<QJ>(acc, slot + ty * kSP, kSP, slot + kBin * kSP + tx * kSP, kSP);
     __syncthreads();
     if ((s + 1) % per_bin) continue;
 
@@ -354,7 +328,14 @@ fused_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
-// B8/B9 on the tensor cores: i8 and bf16
+// B8/B9/B10 on the tensor cores: i8 and bf16
+
+// What `fused_wgmma` does with each tile's bin minima.
+enum Flavour {
+  kInsert = 0,  // B8: insert them into the query's list
+  kMerge = 1,   // B9: gather them, merge every merge_every bins
+  kStore = 2,   // B10: store them to [n_bins, n_q]
+};
 
 constexpr int kFQ = 2 * kQT;     // queries of one block: a 64-query tile per warpgroup
 constexpr int kQResidentKB = 4;  // K-blocks of the query tile kept for the block
@@ -367,21 +348,24 @@ constexpr int kSmemK = 16;       // lists of at most this many results live in s
 // candidates [merge_every][64] (values, then rows), for k <= kSmemK each
 // warpgroup's lists [k][64] (values, then rows), and the barriers: a full
 // barrier per slot and one for the query tile, then a counter per slot.
-// Every buffer starts on 1 KB; the ring takes what is left.
+// B10 (kStore) has neither candidates nor lists. Every buffer starts on
+// 1 KB; the ring takes what is left.
 struct FusedLayout {
   int n_kb, stages, stage_bytes, ring_off, aux_off, cand_off, list_off, bar_off, bytes;
   bool resident;
 };
 
+template <int kFlavour>
 __host__ __device__ __forceinline__ FusedLayout fused_layout(int n_kb, int merge_every, int k) {
+  constexpr bool kLists = kFlavour != kStore;
   FusedLayout L;
   L.n_kb = n_kb;
   L.resident = n_kb <= kQResidentKB;
   L.stage_bytes = kTStage + (L.resident ? 0 : 2 * kQStage);
   L.ring_off = L.resident ? 2 * n_kb * kQStage : 0;
   const int aux_bytes = 4 * static_cast<int>(sizeof(Aux));
-  const int cand_bytes = 2 * merge_every * kQT * 8;
-  const int list_bytes = k <= kSmemK ? 2 * kSmemK * kQT * 8 : 0;
+  const int cand_bytes = kLists ? 2 * merge_every * kQT * 8 : 0;
+  const int list_bytes = kLists && k <= kSmemK ? 2 * kSmemK * kQT * 8 : 0;
   const int room = kSmem - 1024 - 256 - aux_bytes - cand_bytes - list_bytes - L.ring_off;
   L.stages = room / L.stage_bytes < kFMaxStages ? room / L.stage_bytes : kFMaxStages;
   L.aux_off = L.ring_off + L.stages * L.stage_bytes;
@@ -446,11 +430,13 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ t_sq, const 
   }
 }
 
-// B8 (kStream false: each tile's two bins inserted as soon as they are
-// reduced) and B9 (kStream true: the bins' minima gathered in shared memory
-// and merged every merge_every bins), on `wgmma`. T: int8_t or bf16; kSmall:
-// i8 rows of at most 256 bytes (B1's exact dot conversion and keyed ip).
-template <typename T, int kMetric, bool kSmall, bool kStream>
+// B8 (kInsert: each tile's two bins inserted as soon as they are reduced),
+// B9 (kMerge: the bins' minima gathered in shared memory and merged every
+// merge_every bins) and B10 (kStore: the bins' minima and rows stored to
+// out_d/out_i [n_bins, n_q]; k and merge_every unused), on `wgmma`. T:
+// int8_t or bf16; kSmall: i8 rows of at most 256 bytes (B1's exact dot
+// conversion and keyed ip).
+template <typename T, int kMetric, bool kSmall, int kFlavour>
 __global__ void __launch_bounds__(kBlock, 1)
 fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map,
             const float* __restrict__ q_sq, const float* __restrict__ t_sq, const float* __restrict__ penalty,
@@ -459,7 +445,7 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   using A = typename Acc<T>::type;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const FusedLayout L = fused_layout(row_bytes / kKB, merge_every, k);
+  const FusedLayout L = fused_layout<kFlavour>(row_bytes / kKB, merge_every, k);
   uint8_t* ring = smem + L.ring_off;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   uint64_t* q_bar = full + L.stages;
@@ -511,7 +497,7 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
                               : out_d + (size_t)qi * k;
   int* list_i = shared_list ? reinterpret_cast<int*>(list_d + kSmemK * kQT) : out_i + (size_t)qi * k;
   float thr = kMasked;
-  if (owner) {
+  if (kFlavour != kStore && owner) {
     for (int j = 0; j < k; ++j) {
       list_d[j * ls] = kMasked;
       list_i[j * ls] = -1;
@@ -575,7 +561,12 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       if (b == 1 && 2 * i + 1 == n_bins) break;  // the half tile at an odd bin count's end
       const float v = own ? best[b][1] : best[b][0];
       const int id = row0 + (own ? arg[b][1] : arg[b][0]);
-      if constexpr (kStream) {
+      if constexpr (kFlavour == kStore) {
+        if (owner) {
+          out_d[(size_t)(2 * i + b) * n_q + qi] = v;
+          out_i[(size_t)(2 * i + b) * n_q + qi] = id;
+        }
+      } else if constexpr (kFlavour == kMerge) {
         if (owner) {
           cand_v[n_cand * kQT + col] = v;
           cand_i[n_cand * kQT + col] = id;
@@ -589,7 +580,7 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
       }
     }
   }
-  if (owner) {
+  if (kFlavour != kStore && owner) {
     for (int j = 0; j < k; ++j) {
       const float d = list_d[j * ls];
       out_d[(size_t)qi * k + j] = d;
@@ -598,18 +589,16 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   }
 }
 
-// B10: one block per 128 queries and kLanesBins bins. The queries' rows are
-// staged once (pitch row_words + 2, so 16 neighbouring queries read 16
+// B10 f32: one block per 128 queries and kLanesBins bins. The queries' rows
+// are staged once (pitch row_words + 2, so 16 neighbouring queries read 16
 // distinct bank pairs), or, for rows wider than kMaxRowWords, slab by slab
 // with the table's; the bins' slabs stream past them, and each bin's minima
 // and rows are written to [n_bins, n_q] as soon as its product is done.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lanes_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
              const float* __restrict__ q_sq, const float* __restrict__ t_sq,
              const float* __restrict__ penalty, float* __restrict__ out_v, int* __restrict__ out_i,
              int n_q, int n_bins, int row_words, int metric) {
-  using A = typename Acc<T>::type;
   constexpr int QJ = kLanesQJ;
   constexpr int QT = kGroups * QJ;
   extern __shared__ __align__(16) uint32_t smem[];
@@ -637,11 +626,11 @@ lanes_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
   float qs[QJ];
   load_q_sq(qs, q_sq, metric, q0, q_rows, tx);
 
-  A acc[kTM][QJ];
+  float acc[kTM][QJ];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int j = 0; j < QJ; ++j) acc[i][j] = A(0);
+    for (int j = 0; j < QJ; ++j) acc[i][j] = 0.0f;
 
   for (int bin = bin0; bin < bin1; ++bin) {
     const uint32_t* t_base = table + (size_t)bin * kBin * row_words;
@@ -649,7 +638,7 @@ lanes_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
       copy_slab<false>(t_s, t_base, row_words, kBin, kBin - 1, w0, tid);
       if (!once) copy_slab<false>(q_s, q_base, row_words, QT, q_rows - 1, w0, tid);
       __syncthreads();
-      slab_mac<T, QJ>(acc, t_s + ty * kSP, kSP, q_s + tx * pq + (once ? w0 : 0), pq);
+      slab_mac<QJ>(acc, t_s + ty * kSP, kSP, q_s + tx * pq + (once ? w0 : 0), pq);
       __syncthreads();
     }
     bin_epilogue(acc, qs, metric, t_sq, penalty, bin * kBin, red_v, red_i, tx, ty);
@@ -685,13 +674,13 @@ int launch_fused(const void* q, const void* table, const float* q_sq, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kMetric, bool kSmall, bool kStream>
+template <typename T, int kMetric, bool kSmall, int kFlavour>
 int run_fused_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const float* q_sq, const float* t_sq,
                     const float* penalty, float* out_d, int* out_i, int n_q, int n_rows, int row_bytes, int k,
                     int merge_every, cudaStream_t s) {
-  const FusedLayout L = fused_layout(row_bytes / kKB, merge_every, k);
+  const FusedLayout L = fused_layout<kFlavour>(row_bytes / kKB, merge_every, k);
   if (L.stages < 2) return cudaErrorInvalidValue;
-  const auto kernel = fused_wgmma<T, kMetric, kSmall, kStream>;
+  const auto kernel = fused_wgmma<T, kMetric, kSmall, kFlavour>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   kernel<<<(n_q + kFQ - 1) / kFQ, kBlock, L.bytes, s>>>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q,
@@ -699,21 +688,21 @@ int run_fused_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kMetric, bool kStream>
+template <typename T, int kMetric, int kFlavour>
 int fused_metric(const CUtensorMap& q_map, const CUtensorMap& t_map, const float* q_sq, const float* t_sq,
                  const float* penalty, float* out_d, int* out_i, int n_q, int n_rows, int row_bytes, int k,
                  int merge_every, cudaStream_t s) {
   if constexpr (std::is_same<T, int8_t>::value) {
     if (row_bytes <= 256)
-      return run_fused_wgmma<T, kMetric, true, kStream>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
-                                                        row_bytes, k, merge_every, s);
+      return run_fused_wgmma<T, kMetric, true, kFlavour>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q,
+                                                         n_rows, row_bytes, k, merge_every, s);
   }
-  return run_fused_wgmma<T, kMetric, false, kStream>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
-                                                     row_bytes, k, merge_every, s);
+  return run_fused_wgmma<T, kMetric, false, kFlavour>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+                                                      row_bytes, k, merge_every, s);
 }
 
-// B8/B9 over i8 or bf16 rows of `row_bytes` bytes, on the tensor cores.
-template <typename T, bool kStream>
+// B8/B9/B10 over i8 or bf16 rows of `row_bytes` bytes, on the tensor cores.
+template <typename T, int kFlavour>
 int launch_fused_wgmma(const void* q, const void* table, const float* q_sq, const float* t_sq, const float* penalty,
                        float* out_d, int* out_i, int n_q, int n_rows, int row_bytes, int metric, int k,
                        int merge_every, cudaStream_t s) {
@@ -723,14 +712,14 @@ int launch_fused_wgmma(const void* q, const void* table, const float* q_sq, cons
     return cudaErrorInvalidValue;
   switch (metric) {
     case kIP:
-      return fused_metric<T, kIP, kStream>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows, row_bytes,
-                                           k, merge_every, s);
+      return fused_metric<T, kIP, kFlavour>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+                                            row_bytes, k, merge_every, s);
     case kCos:
-      return fused_metric<T, kCos, kStream>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows, row_bytes,
-                                            k, merge_every, s);
-    default:
-      return fused_metric<T, kL2sq, kStream>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+      return fused_metric<T, kCos, kFlavour>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
                                              row_bytes, k, merge_every, s);
+    default:
+      return fused_metric<T, kL2sq, kFlavour>(q_map, t_map, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+                                              row_bytes, k, merge_every, s);
   }
 }
 
@@ -743,25 +732,25 @@ int fused(const void* q, const void* table, const float* q_sq, const float* t_sq
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_bins = n_rows / kBin;
+  constexpr int kFlavour = kStream ? kMerge : kInsert;
   switch (dtype) {
     case kI8:
-      return launch_fused_wgmma<int8_t, kStream>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows, width,
-                                                 metric, k, merge_every, s);
+      return launch_fused_wgmma<int8_t, kFlavour>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows, width,
+                                                  metric, k, merge_every, s);
     case kBF16:
-      return launch_fused_wgmma<__nv_bfloat16, kStream>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
-                                                        2 * width, metric, k, merge_every, s);
+      return launch_fused_wgmma<__nv_bfloat16, kFlavour>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+                                                         2 * width, metric, k, merge_every, s);
     default:
       return launch_fused<kStream>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_bins, width, metric, k,
                                    merge_every, s);
   }
 }
 
-template <typename T>
 int launch_lanes(const void* q, const void* table, const float* q_sq, const float* t_sq, const float* penalty,
                  float* out_v, int* out_i, int n_q, int n_bins, int row_words, int metric, cudaStream_t s) {
   constexpr int QT = kGroups * kLanesQJ;
   const size_t smem = 4 * (QT * (row_words <= kMaxRowWords ? row_words + 2 : kSP) + kBin * kSP + 2 * kGroups * QT);
-  auto kern = lanes_kernel<T>;
+  auto kern = lanes_kernel;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   const dim3 grid((n_bins + kLanesBins - 1) / kLanesBins, (n_q + QT - 1) / QT);
   kern<<<grid, kThreads, smem, s>>>(static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(table), q_sq,
@@ -789,22 +778,22 @@ int usearch_fused_topk_stream(const void* q, const void* table, const float* q_s
                      merge_every, stream);
 }
 
-// B10. out_v/out_i are [n_rows / 128, n_q].
+// B10. out_v/out_i are [n_rows / 128, n_q]; i8 and bf16 rows must be a
+// multiple of 128 bytes.
 int usearch_binned_scan_lanes(const void* q, const void* table, const float* q_sq, const float* t_sq,
                               const float* penalty, float* out_v, int* out_i, int n_q, int n_rows, int width,
                               int dtype, int metric, void* stream) {
   if (!valid_shape(n_q, n_rows, width, dtype, metric)) return cudaErrorInvalidValue;
-  const int row_words = width * elem_bytes(dtype) / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_bins = n_rows / kBin;
   switch (dtype) {
     case kI8:
-      return launch_lanes<int8_t>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_bins, row_words, metric, s);
+      return launch_fused_wgmma<int8_t, kStore>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows, width,
+                                                metric, 0, 0, s);
     case kBF16:
-      return launch_lanes<__nv_bfloat16>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_bins, row_words,
-                                         metric, s);
+      return launch_fused_wgmma<__nv_bfloat16, kStore>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows,
+                                                       2 * width, metric, 0, 0, s);
     default:
-      return launch_lanes<float>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_bins, row_words, metric, s);
+      return launch_lanes(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows / kBin, width, metric, s);
   }
 }
 

@@ -62,14 +62,31 @@
 //
 // f32 storage outside compact mode (B1 f32, B2 f32: the exact f32 path)
 // keeps a SIMT f32-FMA product (`simt_scan`), since no exact path may use
-// TF32: a block owns one bin and 128 queries, each of its 256 threads 8
-// rows x 8 queries, the width streamed through shared memory.
+// TF32; its bound is the f32 FMA rate (2.05 ms at Q = 1,024, N = 262,144,
+// W = 256). Every (query, row) dot is one __fmaf_rn chain over the width in
+// ascending order, so its minima and rows do not depend on the tiling:
+// - a block owns one bin and 128 queries, each of its 128 threads 8 rows x
+//   16 queries, 128 accumulators, so 24 float4 reads from shared memory
+//   feed 512 FMAs; two blocks an SM (255 registers a thread), so one's
+//   prologue and epilogue overlap the other's product; the query tiles of
+//   a bin are neighbours in the grid, so the table is read from device
+//   memory about once;
+// - the width streams through a ring of three 32-float slabs of the bin's
+//   rows and the tile's queries, filled by 16-byte cp.async copies two
+//   slabs ahead, one barrier a slab; rows lie as in memory, pitch 36
+//   floats, so the product reads each operand as a float4 without bank
+//   conflicts;
+// - the epilogue goes through shared memory, one thread a query over the
+//   bin's 128 rows in rolled loops: no reduction across threads, little
+//   code, and each row's values (roots, reciprocals) computed once; cos
+//   takes __fdiv_rn only on the row B1's preselection picks.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after its launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -85,51 +102,116 @@ namespace {
 // ---------------------------------------------------------------------------
 // SIMT f32 kernel
 
-constexpr int kBQ = 128;       // queries of one block
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kTM = 8;         // rows per thread
-constexpr int kTN = 8;         // queries per thread
-constexpr int kWords = 8;      // floats of the width per stage
-constexpr int kPad = 4;        // shared-memory row padding, in floats
+constexpr int kThreads = 128;               // threads of a block
+constexpr int kTM = 8;                      // rows per thread, 16 apart
+constexpr int kTN = 16;                     // queries per thread, kQG apart
+constexpr int kQG = kThreads / (kBin / kTM);  // query groups: threads of one row group
+constexpr int kBQ = kQG * kTN;              // queries of one block
+constexpr int kMinBlocks = 2;               // blocks an SM, each with 255 registers a thread
+constexpr int kSK = 32;                     // floats of the width per slab
+constexpr int kSP = kSK + 4;  // slab pitch in floats: 8 neighbouring rows' float4s on distinct banks
+constexpr int kStages = 3;    // slabs of the ring
+constexpr int kSlab = (kBin + kBQ) * kSP;       // floats of one slot: the bin's rows, then the queries'
+constexpr int kDP = kBQ + kQG;  // pitch of the dots [kBin][kBQ] in the ring after the product: no conflicts
+constexpr int kSimtSmem = kStages * kSlab * 4;  // 110,592 bytes: two blocks an SM
 
-__device__ __forceinline__ void lds8(float (&r)[8], const float* p) {
-  const float4 x = reinterpret_cast<const float4*>(p)[0];
-  const float4 y = reinterpret_cast<const float4*>(p)[1];
-  r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w;
-  r[4] = y.x; r[5] = y.y; r[6] = y.z; r[7] = y.w;
+constexpr int kChunks = kSK / 4;              // 16-byte chunks of a row's slab
+constexpr int kRowStep = kThreads / kChunks;  // rows that one pass of the block's copies covers
+static_assert(kBin % kRowStep == 0 && kBQ % kRowStep == 0 && kBQ == kThreads && kBin <= kThreads &&
+                  kBin * kDP + 5 * kBin <= kStages * kSlab,
+              "the copies cover whole rows; a thread a query; the dots and row values fit in the ring");
+
+// One thread's 16-byte copies of a slab: chunk c = tid % kChunks of rows
+// r + kRowStep p (r = tid / kChunks) of the bin and of the query tile.
+struct SlabCopies {
+  const float* t;  // the thread's first chunk of slab 0 in the table
+  const float* q;  // and in the queries
+  int skip;        // floats from one of its rows to the next
+  int dst;         // the first chunk's offset in a slot, in floats
+  int col;         // the chunk's first float in the slab
+  int q_left;      // query rows from its first one to the tile's end
+};
+
+__device__ __forceinline__ SlabCopies slab_copies(const float* __restrict__ t_base, const float* __restrict__ q_base,
+                                                  int width, int q_rows, int tid) {
+  SlabCopies c;
+  const int r = tid / kChunks;
+  c.col = tid % kChunks * 4;
+  c.t = t_base + (size_t)r * width + c.col;
+  c.q = q_base + (size_t)r * width + c.col;
+  c.skip = kRowStep * width;
+  c.dst = r * kSP + c.col;
+  c.q_left = q_rows - r;
+  return c;
 }
 
-// Copies floats [w0, w0 + kWords) of `n_rows` rows into S[k][row] (k-major,
-// so a thread's 8 rows are one 32-byte read); rows past n_rows read as 0.
-__device__ __forceinline__ void load_stage(float (*S)[kBin + kPad], const float* __restrict__ base, int width,
-                                           int n_rows, int w0, int tid) {
+// Slab s (floats [kSK s, kSK s + kSK) of every row) of the bin's rows and
+// the tile's queries into `slot`, row-major with pitch kSP: the bin's 128
+// rows, then the 128 queries. Chunks past the width and query rows past
+// q_rows are zero-filled (read from a valid address, 0 bytes).
+__device__ __forceinline__ void fetch_slab(float* slot, const SlabCopies& c, int width, int s) {
+  const int w = s * kSK;
+  const bool in = w + c.col < width;
 #pragma unroll
-  for (int e = tid; e < kBin * kWords; e += kThreads) {
-    const int r = e / kWords;
-    const int w = e % kWords;
-    S[w][r] = r < n_rows ? __ldg(base + (size_t)r * width + w0 + w) : 0.0f;
+  for (int p = 0; p < kBin / kRowStep; ++p)
+    __pipeline_memcpy_async(slot + c.dst + kRowStep * p * kSP, in ? c.t + w + p * c.skip : c.t, 16, in ? 0 : 16);
+#pragma unroll
+  for (int p = 0; p < kBQ / kRowStep; ++p) {
+    const bool q_in = in && kRowStep * p < c.q_left;
+    __pipeline_memcpy_async(slot + c.dst + (kBin + kRowStep * p) * kSP, q_in ? c.q + w + p * c.skip : c.t, 16,
+                            q_in ? 0 : 16);
   }
 }
 
+// acc[i][j] += the dots of one slab: rows ty + 16 i (from `a`, this
+// thread's first row) with queries tx + kQG j (from `b`), one __fmaf_rn a
+// float in ascending order, each float4 read once: per 4 floats the rows'
+// float4s are held and the queries' streamed past them. Unrolled by two
+// only: unrolled whole, the slab's 4,096 FMAs made the cos kernel 22%
+// slower (PERF.md, PR 10).
+__device__ __forceinline__ void slab_fma(float (&acc)[kTM][kTN], const float* a, const float* b) {
+#pragma unroll 2
+  for (int c = 0; c < kSK; c += 4) {
+    float4 av[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) av[i] = *reinterpret_cast<const float4*>(a + i * 16 * kSP + c);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + j * kQG * kSP + c);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        acc[i][j] = __fmaf_rn(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = __fmaf_rn(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = __fmaf_rn(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = __fmaf_rn(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// One block per (bin, query tile), the query tiles of a bin neighbours in
+// the grid, so each bin's rows come from device memory once and from L2
+// for the other tiles. The width streams through a ring of kStages slabs:
+// each thread waits for a slab, passes one barrier (after which the slot
+// read a slab ago is free) and refills that slot before its product.
 template <int kMode>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 simt_scan(const float* __restrict__ q, const float* __restrict__ table, const float* __restrict__ q_sq,
           const float* __restrict__ t_sq, const float* __restrict__ penalty, void* __restrict__ out_v,
           void* __restrict__ out_i, int n_q, int n_bins, int width, int metric) {
-  __shared__ __align__(16) float t_s[kWords][kBin + kPad];
-  __shared__ __align__(16) float q_s[kWords][kBQ + kPad];
-  __shared__ float red_v[kBin / kTM][kBQ];
-  __shared__ int red_i[kBin / kTM][kBQ];
+  extern __shared__ __align__(16) float ring[];
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // query group
-  const int ty = tid / 16;  // row group
-  const int bin = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+  const int tx = tid % kQG;  // queries tx + kQG j
+  const int ty = tid / kQG;  // rows ty + 16 i
+  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int bin = blockIdx.x / n_qt;
+  const int q0 = blockIdx.x % n_qt * kBQ;
   const int row0 = bin * kBin;
   const int q_rows = min(kBQ, n_q - q0);
   const float* t_base = table + (size_t)row0 * width;
   const float* q_base = q + (size_t)q0 * width;
+  const int n_slabs = (width + kSK - 1) / kSK;
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -137,71 +219,115 @@ simt_scan(const float* __restrict__ q, const float* __restrict__ table, const fl
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  for (int w0 = 0; w0 < width; w0 += kWords) {
-    load_stage(t_s, t_base, width, kBin, w0, tid);
-    load_stage(q_s, q_base, width, q_rows, w0, tid);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      float a[kTM], b[kTN];
-      lds8(a, &t_s[k][ty * kTM]);
-      lds8(b, &q_s[k][tx * kTN]);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  const SlabCopies copies = slab_copies(t_base, q_base, width, q_rows, tid);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_slabs) fetch_slab(ring + s * kSlab, copies, width, s);
+    __pipeline_commit();
   }
+  for (int s = 0; s < n_slabs; ++s) {
+    __pipeline_wait_prior(kStages - 2);  // this thread's copies of slab s have landed
+    __syncthreads();                     // everyone's have, and slab s - 1's slot is read
+    const int next = s + kStages - 1;
+    if (next < n_slabs) fetch_slab(ring + next % kStages * kSlab, copies, width, next);
+    __pipeline_commit();
+    const float* slot = ring + s % kStages * kSlab;
+    slab_fma(acc, slot + ty * kSP, slot + (kBin + tx) * kSP);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // every slab is read: the ring holds the dots and the rows' values now
 
-  // Epilogue and this thread's part of the bin reduction: rows ascending,
-  // strict '<', so the first row reaching the minimum wins (jnp.argmin).
-  float t_sq_r[kTM], pen_r[kTM];
+  // The epilogue, one thread a query over the bin's rows in ascending
+  // order, strict '<', so the first row reaching the minimum wins
+  // (jnp.argmin): the dots go to shared memory, and each row's values are
+  // computed once (the roots: the epilogue's own bits).
+  float* dots = ring;  // [kBin][kDP]
+  float* r_pen = ring + kBin * kDP;
+  float* r_tsq = r_pen + kBin;
+  float* r_trt = r_tsq + kBin;
+  float* r_itr = r_trt + kBin;
+  float* r_cpen = r_itr + kBin;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty * kTM + i;
-    pen_r[i] = penalty[r];
-    t_sq_r[i] = metric == kIP ? 0.0f : t_sq[r];
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) dots[(ty + 16 * i) * kDP + tx + kQG * j] = acc[i][j];
+  bool irregular = false;
+  if (tid < kBin) {
+    const float pen = __ldg(penalty + row0 + tid);
+    const float ts = metric == kIP ? 0.0f : __ldg(t_sq + row0 + tid);
+    const float tr = __fsqrt_rn(ts);
+    r_pen[tid] = pen;
+    r_tsq[tid] = ts;
+    r_trt[tid] = tr;
+    r_itr[tid] = tr == 0.0f ? 0.0f : __frcp_rn(tr);
+    r_cpen[tid] = __fadd_rn(1.0f, pen);
+    irregular = !regular_root(tr);
   }
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int c = tx * kTN + j;
-    const float qs = (metric != kIP && c < q_rows) ? q_sq[q0 + c] : 0.0f;
-    float best = __int_as_float(0x7f800000);  // +inf
-    int arg = 0;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const float d = epilogue(metric, false, acc[i][j], qs, t_sq_r[i], pen_r[i]);
+  irregular = __syncthreads_or(irregular);
+  if (tid >= q_rows) return;
+
+  const float qs = metric == kIP ? 0.0f : __ldg(q_sq + q0 + tid);
+  const float qr = __fsqrt_rn(qs);
+  const float* col = dots + tid;
+  float best = __int_as_float(0x7f800000);  // +inf
+  int arg = 0;
+  bool every = true;
+  if (metric == kCos && qr != 0.0f && regular_root(qr) && !irregular) {
+    // cos preselects as B1's `bin_min` does (csrc/wgmma_common.cuh): d' =
+    // cpen - (dot / trt) / qrt, the quotients taken as products by the
+    // reciprocals, is within 2^-19 (1 + |quotient| + |distance|) of the
+    // exact distance where both roots are regular, so every row reaching
+    // the exact minimum lies within twice that of the smallest d'. When the
+    // second smallest d' lies beyond, the smallest one's row is the answer
+    // and takes the one exact epilogue (one __fdiv_rn); otherwise every row
+    // does.
+    const float iqr = __frcp_rn(qr);
+    float m1 = best, m2 = best, top = 0.0f;
+    int pick = 0;
+#pragma unroll 4
+    for (int r = 0; r < kBin; ++r) {
+      const float x = __fmul_rn(col[r * kDP], r_itr[r]);
+      const float d = __fmaf_rn(-x, iqr, r_cpen[r]);
+      top = fmaxf(top, fabsf(x));
+      const bool lower = d < m1;
+      m2 = lower ? m1 : fminf(m2, d);
+      pick = lower ? r : pick;
+      m1 = lower ? d : m1;
+    }
+    if (m2 > m1 + 0x1p-17f * (1.0f + __fmul_rn(top, iqr) + fabsf(m1))) {
+      best = epilogue<true>(kCos, false, col[pick * kDP], qs, r_tsq[pick], r_pen[pick], qr, r_trt[pick]);
+      arg = pick;
+      every = false;
+    }
+  }
+  if (every) {
+#pragma unroll 4
+    for (int r = 0; r < kBin; ++r) {
+      const float d = epilogue<true>(metric, false, col[r * kDP], qs, r_tsq[r], r_pen[r], qr, r_trt[r]);
       if (d < best) {
         best = d;
-        arg = ty * kTM + i;
+        arg = r;
       }
     }
-    red_v[ty][c] = best;
-    red_i[ty][c] = arg;
   }
-  __syncthreads();
+  const size_t o = (size_t)(q0 + tid) * n_bins + bin;
+  static_cast<float*>(out_v)[o] = best;
+  if constexpr (kMode == kBinned) static_cast<int32_t*>(out_i)[o] = row0 + arg;
+}
 
-  // Across the 16 row groups, again in ascending row order.
-  if (tid < q_rows) {
-    float best = red_v[0][tid];
-    int arg = red_i[0][tid];
-#pragma unroll
-    for (int s = 1; s < kBin / kTM; ++s) {
-      const float v = red_v[s][tid];
-      if (v < best) {
-        best = v;
-        arg = red_i[s][tid];
-      }
-    }
-    const size_t o = (size_t)(q0 + tid) * n_bins + bin;
-    if constexpr (kMode == kBinned) {
-      static_cast<float*>(out_v)[o] = best;
-      static_cast<int32_t*>(out_i)[o] = row0 + arg;
-    } else {
-      static_cast<float*>(out_v)[o] = best;
-    }
-  }
+template <int kMode>
+int launch_simt(const float* q, const float* table, const float* q_sq, const float* t_sq, const float* penalty,
+                void* out_v, void* out_i, int n_q, int n_rows, int width, int metric, cudaStream_t s) {
+  if (width % 4 || reinterpret_cast<uintptr_t>(q) % 16 || reinterpret_cast<uintptr_t>(table) % 16)
+    return cudaErrorInvalidValue;
+  const auto kernel = simt_scan<kMode>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSimtSmem);
+  if (err != cudaSuccess) return err;
+  const int n_bins = n_rows / kBin;
+  const long long blocks = (long long)n_bins * ((n_q + kBQ - 1) / kBQ);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, kSimtSmem, s>>>(q, table, q_sq, t_sq, penalty, out_v, out_i,
+                                                                    n_q, n_bins, width, metric);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -528,12 +654,8 @@ int launch(const void* q, const void* table, const float* q_sq, const float* t_s
         return launch_wgmma<float, kMode>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows, 2 * width,
                                           metric, s);
       } else {
-        if (width % kWords) return cudaErrorInvalidValue;
-        const int n_bins = n_rows / kBin;
-        const dim3 grid(n_bins, (n_q + kBQ - 1) / kBQ);
-        simt_scan<kMode><<<grid, kThreads, 0, s>>>(static_cast<const float*>(q), static_cast<const float*>(table),
-                                                   q_sq, t_sq, penalty, out_v, out_i, n_q, n_bins, width, metric);
-        return static_cast<int>(cudaGetLastError());
+        return launch_simt<kMode>(static_cast<const float*>(q), static_cast<const float*>(table), q_sq, t_sq,
+                                  penalty, out_v, out_i, n_q, n_rows, width, metric, s);
       }
     default:
       return cudaErrorInvalidValue;

@@ -1,7 +1,7 @@
 // Device arithmetic shared by the flat-scan kernels of usearch_torch
 // (csrc/scan.cu: B1, B2; csrc/fused.cu: B8, B9, B10), one copy for all of
 // them: the scan kernels' metric, dtype and mode codes, the deleted-row
-// penalty, the accumulator type of each storage type, the bf16 helpers, and
+// penalty, the accumulator type of each storage type, the bf16 packing, and
 // the reference's ip/cos/l2sq epilogue, bit for bit.
 //
 // Each source that includes it is compiled on its own; everything here has
@@ -26,13 +26,6 @@ constexpr float kMasked = 3.0e38f;  // MASKED of ops/distances.py: the deleted-r
 // Dots of i8 rows sum exactly in i32; bf16 and f32 rows in f32.
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int; };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(int x) { return __int2float_rn(x); }
-
-// The two bf16 values of a 4-byte word: the low half is the earlier one.
-__device__ __forceinline__ float lo_bf16(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // Two f32 values rounded to bf16 and packed, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {

@@ -1,20 +1,22 @@
-"""Where the time of the tensor-core fused running top-k (csrc/fused.cu,
-B8/B9) goes.
+"""Where the time of the tensor-core flat-scan flavours (csrc/fused.cu
+`fused_wgmma`: B8, B9 and B10) goes.
 
     python -m usearch_torch.microbench.fused_breakdown
 
 Builds csrc/fused.cu again with parts of `fused_wgmma` taken out or
 changed, each a copy of the source with one or more lines replaced
-(`PARTS`), as `scan_breakdown` does for B1/B2, and times B8 and B9 through
-their wrappers at the main path's shape (chip_smoke.py's MAIN): i8 ip over
-2^20 x 256 rows, 1% of them deleted, 16,384 queries, k=10. The variants:
-the full kernel; no merges (B8's inserts, B9's gathered merges); no
-epilogue (bin minima and merges); the product alone (no waits for, and no
-refills of, the table ring: the product runs on whatever the slots hold);
-the table stream alone. Each variant computes garbage where its part is
-missing; only its time means anything. It prints the card's name
-and power limit and one line per variant and kernel. Needs a CUDA card and
-nvcc; the copies are built into usearch_torch/_build/.
+(`PARTS`), as `scan_breakdown` does for B1/B2, and times B8, B9 and B10
+through their wrappers at the main path's shape (chip_smoke.py's MAIN): i8
+ip over 2^20 x 256 rows, 1% of them deleted, 16,384 queries, k=10. The
+variants: the full kernel; no merges (B8's inserts, B9's gathered merges);
+no stores (B10's [n_bins, n_q] minima and rows); no epilogue (bin minima,
+merges and stores); the product alone (no waits for, and no refills of, the
+table ring: the product runs on whatever the slots hold); the table stream
+alone. A variant that takes out another flavour's part times the full
+kernel. Each variant computes garbage where its part is missing; only its
+time means anything. It prints the card's name and power limit and one
+line per variant and kernel. Needs a CUDA card and nvcc; the copies are
+built into usearch_torch/_build/.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _MERGES = [("        if (owner) insert(list_d, list_i, k, ls, thr, v, id);\n",
 _EPILOGUE = ("    bool exact_all[2];\n#pragma unroll\n    for (int h = 0; h < 2; ++h) exact_all[h] = (kMetric",
              "    if (dot_value<kSmall>(acc[0]) == 12345.0f && flag) out_d[0] = 1.0f;\n    continue;\n"
              "    bool exact_all[2];\n#pragma unroll\n    for (int h = 0; h < 2; ++h) exact_all[h] = (kMetric")
+_STORES = ("        if (owner) {\n          out_d[(size_t)(2 * i + b) * n_q + qi] = v;\n",
+           "        if (owner && v == 12345.0f) {\n          out_d[(size_t)(2 * i + b) * n_q + qi] = v;\n")
 _PRODUCT = ("      for (int s = 0; s < kKB / 32; ++s) mma_k(acc, da + 2 * s, db + 2 * s, kb | s);\n",
             "      (void)da;\n      (void)db;\n")
 _LOADS = [("      mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
@@ -46,6 +50,7 @@ _LOADS = [("      mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
 PARTS = {
     "full": [],
     "no_merges": _MERGES,
+    "no_stores": [_STORES],
     "no_epilogue": [_EPILOGUE],
     "product_only": _LOADS + [_EPILOGUE],
     "stream_only": [_EPILOGUE, _PRODUCT],
@@ -63,6 +68,7 @@ def cases(dev):
     return {
         "B8 i8 ip, 2^20 x 256, Q=16,384, k=10": lambda: scan.fused_topk(*a8, 10),
         "B9 i8 ip, 2^20 x 256, Q=16,384, k=10": lambda: scan.fused_topk_stream(*a8, 10),
+        "B10 i8 ip, 2^20 x 256, Q=16,384": lambda: scan.binned_scan_lanes(*a8),
     }
 
 

@@ -1,16 +1,21 @@
-"""Where the time of the tensor-core scan kernel (csrc/scan.cu, B1/B2) goes.
+"""Where the time of the scan kernels (csrc/scan.cu, B1/B2) goes.
 
     python -m usearch_torch.microbench.scan_breakdown
 
-Builds csrc/scan.cu again with parts of `wgmma_scan` taken out, each a copy
-of the source with one or more lines replaced (`PARTS`), and times B1 and B2
-through their wrappers at the main paths' shapes (chip_smoke.py's MAIN and
-COMPACT): i8 ip over 2^20 x 256 rows with 16,384 and 1,024 queries, and the
-f32 cos compact path over 262,144 x 256 rows with 16,384 queries. Each
-variant computes garbage where its part is missing; only its time means
-anything. It prints the card's name and power limit and one line per
-variant and shape. Needs a CUDA card and nvcc; the copies are built into
-usearch_torch/_build/.
+Builds csrc/scan.cu again with parts of a kernel taken out, each a copy of
+the source with one or more lines replaced, and times B1 and B2 through
+their wrappers at the main paths' shapes (chip_smoke.py's MAIN and
+COMPACT). `PARTS` take parts out of the tensor-core kernel `wgmma_scan`,
+timed on i8 ip over 2^20 x 256 rows with 16,384 and 1,024 queries and on
+the f32 cos compact path over 262,144 x 256 rows with 16,384 queries;
+`SIMT_PARTS` out of the SIMT f32 kernel `simt_scan` (the exact f32 path),
+timed on B2 and B1 f32 cos over 262,144 x 256 rows with 1,024 queries
+(no TF32): the full kernel, the product alone (no copies, no epilogue),
+the copies alone (no product, no epilogue) and no epilogue. Each variant
+computes garbage where its part is missing; only its time means anything.
+It prints the card's name and power limit, one line per variant and shape,
+and f32 `torch.matmul` of the SIMT shape's operands as its yardstick.
+Needs a CUDA card and nvcc; the copies are built into usearch_torch/_build/.
 """
 
 from __future__ import annotations
@@ -50,6 +55,20 @@ PARTS = {
     "product_only": _LOADS + [_EPILOGUE],
     "query_loads_only": [_EPILOGUE, _PRODUCT],
 }
+_SIMT_COPIES = [("    if (s < n_slabs) fetch_slab(ring + s * kSlab, copies, width, s);\n", ""),
+                ("    if (next < n_slabs) fetch_slab(ring + next % kStages * kSlab, copies, width, next);\n", "")]
+_SIMT_PRODUCT = ("    slab_fma(acc, slot + ty * kSP, slot + (kBin + tx) * kSP);\n", "    (void)slot;\n")
+_SIMT_EPILOGUE = ("  __syncthreads();  // every slab is read: the ring holds the dots and the rows' values now\n",
+                  "  __syncthreads();\n"
+                  "  float sum = 0.0f;\n#pragma unroll\n  for (int i = 0; i < kTM; ++i)\n#pragma unroll\n"
+                  "    for (int j = 0; j < kTN; ++j) sum += acc[i][j];\n"
+                  "  if (sum == 12345.0f) static_cast<float*>(out_v)[0] = 1.0f;\n  return;\n")
+SIMT_PARTS = {
+    "full": [],
+    "simt_product_only": _SIMT_COPIES + [_SIMT_EPILOGUE],
+    "simt_copies_only": [_SIMT_PRODUCT, _SIMT_EPILOGUE],
+    "simt_no_epilogue": [_SIMT_EPILOGUE],
+}
 
 
 def _variant_source(edits, source: str = "scan.cu") -> str:
@@ -62,9 +81,9 @@ def _variant_source(edits, source: str = "scan.cu") -> str:
 
 
 def build_variants(parts=None, source: str = "scan.cu") -> dict:
-    """One library per variant of ``parts`` (default PARTS) of csrc/<source>,
-    all nvcc processes started together."""
-    parts = PARTS if parts is None else parts
+    """One library per variant of ``parts`` (default PARTS and SIMT_PARTS)
+    of csrc/<source>, all nvcc processes started together."""
+    parts = {**PARTS, **SIMT_PARTS} if parts is None else parts
     lib_name = source.rsplit(".", 1)[0]
     out = build.BUILD_DIR / f"{lib_name}_breakdown"
     out.mkdir(parents=True, exist_ok=True)
@@ -126,6 +145,21 @@ def cases(dev):
     }
 
 
+def simt_cases(dev):
+    """B2 and B1 over f32 rows outside compact mode (the SIMT kernel) at the
+    f32 exact path's shape, and f32 torch.matmul of the same operands."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tf = torch.randn(262144, 256, generator=gen, device=dev)
+    qf = torch.randn(1024, 256, generator=gen, device=dev)
+    vf = torch.ones(262144, dtype=torch.bool, device=dev)
+    cos = MetricKind.Cos
+    af = (cos, qf, tf, *scan.scan_aux(cos, qf, row_stats(tf, ScalarKind.F32), vf))
+    return {
+        "B2 f32 cos, 262,144 x 256, Q=1,024": lambda: scan.binned_minima(*af),
+        "B1 f32 cos, 262,144 x 256, Q=1,024": lambda: scan.binned_scan(*af),
+    }, lambda: torch.matmul(qf, tf.t())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("scan_breakdown: no CUDA device", file=sys.stderr)
@@ -136,7 +170,11 @@ def main() -> int:
     libs = build_variants()
     print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
-    run(libs, "scan", cases(dev), dev)
+    run({name: libs[name] for name in PARTS}, "scan", cases(dev), dev)
+    runs, product = simt_cases(dev)
+    run({name: libs[name] for name in SIMT_PARTS}, "scan", runs, dev)
+    print(f"{'torch.matmul f32, no TF32':26s} {'the SIMT shape':45s} {time_once(product, dev, reps=5) * 1e3:9.3f} ms",
+          flush=True)
     return 0
 
 

@@ -31,11 +31,11 @@ ops-level functions (no `Index` path), have the same entry points here:
   B1's surface in the JAX orientation ``[N/128, Q]``.
 
 B8 and B9 return the stable top-k, by (value, bin), of the bin minima,
-padded with ``(MASKED, -1)``. For i8 and bf16 their kernels run B1's
-tensor-core product and epilogue (csrc/wgmma_common.cuh), so their
-distances are B1's; f32 keeps a SIMT product. Their TPU kernels' tile
-sizes and merge interval, and B10's ``split_dot``, change no output and are
-not parameters here.
+padded with ``(MASKED, -1)``. For i8 and bf16 the three run one kernel
+with B1's tensor-core product and epilogue (csrc/wgmma_common.cuh), so
+their distances, and B10's rows, are B1's; f32 keeps a SIMT product. Their
+TPU kernels' tile sizes and merge interval, and B10's ``split_dot``, change
+no output and are not parameters here.
 
 Each kernel wrapper runs the plain version for CPU tensors and the CUDA
 kernel (csrc/scan.cu, csrc/fused.cu) for CUDA tensors; there is no fallback
@@ -281,7 +281,9 @@ def binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty):
 def binned_scan_lanes(metric, q, table, q_sq, t_sq, penalty):
     """Kernel B10 (csrc/fused.cu `usearch_binned_scan_lanes`), or its plain
     version for CPU tensors. The kernel reduces each bin as soon as its
-    product is done, the schedule ``split_dot`` asks the TPU kernel for."""
+    product is done, the schedule ``split_dot`` asks the TPU kernel for: for
+    i8 and bf16 B8's tensor-core kernel, which stores each 256-row tile's
+    two bins; for f32 a SIMT kernel."""
     _check(metric, q, table, q_sq, t_sq, penalty)
     if q.device.type == "cpu":
         return binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty)
