@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    instantiation of B1/B2 and of B8/B9/B10 must hold its tensor-core
    product, IGMMA for i8 and HGMMA for bf16 and compact f32, and B1/B2's
    SIMT f32 kernel FFMA and no tensor-core product (no TF32 on the exact
-   path);
+   path); and the probe library's: every i8 and bf16 instantiation of
+   B3/B5's tensor-core kernel holds IGMMA or HGMMA, and the SIMT probe
+   kernel is left for f32 and b1 alone;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -22,7 +24,11 @@ Phases, each fatal on failure:
    without the penalty row (ip), with 4 and k candidates per bin, and B5 on
    the same windows and metrics at 4 and 8 per bin; B3 over packed
    1024-bit rows with hamming (4 and k per bin) and B5 (4, 8 and 16 per
-   bin) on windows of the same lengths, bit for bit; B6 (per-query probe)
+   bin) on windows of the same lengths, bit for bit; B3/B5 over i8 and
+   bf16 at PROBE_EDGES (every lane its own window, one 128-lane segment, a
+   segment across lanes 60-70, windows mid-bin, empty and ending at the
+   table's last row, W=128, 384 and 1,024, k 1-128 with bin_m 1-16, ties
+   across a bin edge and between lanes 63 and 64); B6 (per-query probe)
    on such windows for {i8, bf16, f32} x {ip, cos, l2sq} and b1 hamming,
    with and without the penalty row, k 10 and 128 at 4 and k per bin; B7
    (packed-key binned probe) over i8 rows, `pack` and `fminarg` at (bw,
@@ -76,8 +82,11 @@ Phases, each fatal on failure:
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
-   kernels B3-B7); and a profile of one warm search of each path and
-   flavour, the flat-scan flavours and both exact paths included;
+   kernels B3-B7); B3 also over the IVF pairs with queries and table in
+   bf16, and at the pairs of a batch of 1,024 queries (that search through
+   B3's plain version held equal to the kernel's); and a profile of one warm
+   search of each path and flavour, the flat-scan flavours and both exact
+   paths included;
 5. the TPU micro-benchmarks of scripts/, each a path of its own: the
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
@@ -151,6 +160,20 @@ FUSED_FLAVOURS = {"0": "B8", "1": "B9", "2": "B10"}
 SIMT_SASS = ("FFMA", ("HMMA", "HGMMA", "IGMMA", "IMMA"))
 #: phase 2 shape of B3: windows, their lengths, queries, probes per query
 PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
+#: phase 2's edges of B3/B5's tensor-core design (PROBE_EDGES): a table of
+#: n rows, padded windows of w_pad rows, the widths (one 128-byte K-block;
+#: a K-tail past a 256-byte tile; i8 and bf16 query tiles too wide to stay
+#: in shared memory), B3's k and bin_m (B5's bin_m), ~10% deleted rows
+PROBE_EDGES = dict(n=4096, w_pad=768, widths=(128, 384, 1024), ks=(1, 3, 10, 128), bin_ms=(1, 4, 16),
+                   nofold_bin_ms=(1, 4, 8), deleted=0.1)
+#: phase 1: the SASS of the probe library; B3/B5's tensor-core kernel by
+#: storage type (mangled) and product, and the SIMT kernel's instantiations,
+#: which i8 and bf16 no longer have
+PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA"}
+PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",)}
+PROBE_SIMT = ("f", "h")
+#: phase 4: the small batch of B3's row at the IVF path's index
+SMALL_Q = 1024
 #: phase 3/4: the IVF path of bench.py
 IVF = dict(n=1_000_000, w=256, q=16384, k=10, partitions=1024, spill=0.05, expansion=1024, gt_q=2048,
            fresh=4096, removed=0.01)
@@ -379,6 +402,31 @@ def check_scan_sass() -> dict:
     return {**found, **fused}
 
 
+def check_probe_sass() -> dict:
+    """Phase 1: the SASS of the built probe library holds B3/B5's
+    tensor-core kernel (`grouped_wgmma`) for i8 (rows up to 256 bytes and
+    wider) and bf16, every metric and list length of B3 and B5, each with
+    its product (IGMMA, HGMMA); the
+    SIMT `grouped_probe_kernel` is left for f32 and packed b1 alone. Returns
+    the count of product instructions by instantiation."""
+    found, simt = {}, set()
+    for name, body in sass_functions("probe").items():
+        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16)Li(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
+        if m:
+            kind, metric, lists, fold, small = m.groups()
+            key = f"{kind}/metric {metric}/{'B3' if fold == '1' else 'B5'} lists {lists}/small {small}"
+            found[key] = body.count(PROBE_SASS[kind])
+        m = re.search(r"grouped_probe_kernelI(\w+?)Li", name)
+        if m:
+            simt.add(m.group(1))
+    want = {f"{t}/metric {m}/{kind} lists {n}/small {small}" for t in PROBE_SASS for m in (0, 1, 2)
+            for kind, n in (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)) for small in PROBE_SMALL[t]}
+    log(f"probe.cu SASS, tensor-core products by B3/B5 wgmma instantiation: {found}; SIMT kernel over {sorted(simt)}")
+    if set(found) != want or any(n == 0 for n in found.values()) or simt != set(PROBE_SIMT):
+        fail(f"probe.cu's B3/B5 instantiations are not the expected ones: {found}, SIMT {sorted(simt)}")
+    return found
+
+
 def check_one(tag: str, args, compact: bool) -> None:
     """B1 (and B2 when not compact) against the plain versions."""
     hold_b1(tag, args, compact, scan.binned_scan(*args, compact=compact),
@@ -506,6 +554,74 @@ def hold_probe(tag: str, args, kern, plain, name: str = "B3") -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version at {tag}")
     return err
+
+
+def edge_windows(n: int):
+    """PROBE_EDGES' four cells of 128 pairs, (start, length) by pair: every
+    lane its own window (starts mid-bin, lengths 1-300, the last ending at
+    the table's last row); one window for the whole cell; lanes 0-59, 60-70
+    (a segment across the two warpgroups) and 71-127; lanes 0-29 on a
+    window across the 127/128 bin edge, 30-40 empty, 41-127 on a window
+    ending at the table's last row."""
+    own = [(29 * i + (i % 7) * 3, 1 + (i * 53) % 300) for i in range(127)] + [(n - 200, 200)]
+    cells = [own, [(1000, 600)] * 128, [(5, 250)] * 60 + [(300, 700)] * 11 + [(2000, 129)] * 57,
+             [(127, 130)] * 30 + [(0, 0)] * 11 + [(n - 300, 300)] * 87]
+    return tuple(zip(*(w for cell in cells for w in cell)))
+
+
+def check_probe_edges(dev) -> None:
+    """Phase 2, B3/B5 at PROBE_EDGES: `edge_windows`' segment layouts over
+    a table with rows 127/128 and 255/256 equal (a tie across each bin
+    edge) and equal queries in lanes 63 and 64 of every cell (a tie across
+    the warpgroups); i8 rows and queries in -5..5 (many exact ties, queries
+    a third random, the rest table rows), bf16 rows and queries random
+    normal; every width, metric and dtype at k=10, 4 per bin (ip with and
+    without the penalty row), B5 at 8 per bin, and at W=128 every k and
+    bin_m of PROBE_EDGES on l2sq; i8 bit for bit, bf16 within the float
+    tolerance."""
+    spec = PROBE_EDGES
+    n, w_pad = spec["n"], spec["w_pad"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    st, ln = edge_windows(n)
+    win_start = torch.tensor(st, dtype=torch.int32, device=dev)
+    win_len = torch.tensor(ln, dtype=torch.int32, device=dev)
+    win_base = torch.clamp(win_start // 128 * 128, max=n - w_pad).int()
+    n_pairs = win_start.shape[0]
+    valid = torch.rand(n, generator=gen, device=dev) >= spec["deleted"]
+    penalty = torch.where(valid, 0.0, MASKED)
+    count = 0
+    for name in ("i8", "bf16"):
+        for w in spec["widths"]:
+            if name == "i8":
+                table = torch.randint(-5, 6, (n, w), generator=gen, device=dev, dtype=torch.int8)
+                q_g = table[torch.randint(0, n, (n_pairs,), generator=gen, device=dev)]
+                q_g[::3] = torch.randint(-5, 6, (q_g[::3].shape[0], w), generator=gen, device=dev, dtype=torch.int8)
+            else:
+                table = torch.randn(n, w, generator=gen, device=dev).to(torch.bfloat16)
+                q_g = torch.randn(n_pairs, w, generator=gen, device=dev).to(torch.bfloat16)
+            table[128], table[256] = table[127], table[255]
+            q_g[64::128] = q_g[63::128]
+            q_g = q_g.contiguous()
+            t_sq = (table.float() ** 2).sum(1).contiguous()
+            q_sq = (q_g.float() ** 2).sum(1).contiguous()
+            for metric_name in METRICS:
+                metric = normalize_metric(metric_name)
+                t_m = None if metric == MetricKind.IP else t_sq
+                shapes = [(10, 4)]
+                if w == spec["widths"][0] and metric_name == "l2sq":
+                    shapes = [(k, b) for k in spec["ks"] for b in spec["bin_ms"]]
+                for aux in ((True, False) if metric == MetricKind.IP else (True,)):
+                    for k, bin_m in shapes:
+                        args = (metric, q_g, q_sq, table, t_m, penalty if aux else None, win_start, win_len, k, bin_m)
+                        hold_probe(f"edges {name}/{metric_name}{'' if aux else ' no aux'} W={w} k={k} bin_m={bin_m}",
+                                   args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+                        count += 1
+                for bin_m in (spec["nofold_bin_ms"] if w == spec["widths"][0] else spec["nofold_bin_ms"][-1:]):
+                    args = (metric, q_g, q_sq, table, t_m, penalty, win_base, win_start, win_len, w_pad, bin_m)
+                    hold_probe(f"edges {name}/{metric_name} W={w} w_pad={w_pad} bin_m={bin_m}", args,
+                               probe.grouped_probe_nofold(*args), probe.grouped_probe_nofold_plain(*args), "B5")
+                    count += 1
+    log(f"  PROBE_EDGES: {count} B3/B5 cases held")
 
 
 def pair_windows(starts, lens, probes, cap2: int, w_pad: int):
@@ -1337,14 +1453,16 @@ def touched_rows(n_rows: int, win_start, win_len) -> int:
     return int((torch.cumsum(edges, 0)[:n_bins] > 0).sum()) * probe.LANES
 
 
-def b3_row(run) -> dict:
-    """Phase 4 row of B3 at the IVF path's pairs: held against its plain
-    version, timed beside its bound and the plain version's time. No one
+def b3_row(run, args=None, label: str = "i8 ip IVF", peak: str = "i8") -> dict:
+    """Phase 4 row of B3 at the IVF path's pairs (or at ``args``, e.g. the
+    same pairs over a bf16 table, or a small batch's): held against its
+    plain version, timed beside its bound (operations at the ``peak`` rate)
+    and the plain version's time; launches are the IVF path's. No one
     PyTorch call computes the grouped probe, so there is no library time."""
-    args = run["probe_args"]
+    args = run["probe_args"] if args is None else args
     _, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k, bin_m = args
     n_pairs, (n_rows, w) = q_g.shape[0], table.shape
-    tag = f"grouped_probe i8 ip IVF P={n_pairs} k={k} bin_m={bin_m}"
+    tag = f"grouped_probe {label} P={n_pairs} k={k} bin_m={bin_m}"
     err = hold_probe(tag, args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
     ms = time_ms(lambda: probe.grouped_probe(*args), 5)
     plain_ms = time_ms(lambda: probe.grouped_probe_plain(*args), 1)
@@ -1356,13 +1474,36 @@ def b3_row(run) -> dict:
     in_bytes = q_g.numel() * q_g.element_size() + 4 * (q_sq.numel() + win_start.numel() + win_len.numel())
     nbytes = touched * row_bytes + in_bytes + n_pairs * k * 8
     ops = 2.0 * w * float(win_len.sum())
-    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
         f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations), plain {plain_ms:.1f} ms, library none, "
         f"launches on its path {run['launches']['grouped_probe']}, max abs err {err:.3g}")
-    return dict(name="grouped_probe[i8 ip IVF]", route="cuda", source="usearch_torch/csrc/probe.cu",
+    return dict(name=f"grouped_probe[{label}]", route="cuda", source="usearch_torch/csrc/probe.cu",
                 replaces="usearch_tpu/ops/pallas_probe.py:265", launches=run["launches"]["grouped_probe"],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bf16_probe_args(args):
+    """B3's arguments at the IVF path's pairs with the queries and the table
+    in bf16 (i8 values are exact there, so are their f32 dots)."""
+    metric, q_g, q_sq, table, *rest = args
+    return (metric, q_g.to(torch.bfloat16), q_sq, table.to(torch.bfloat16), *rest)
+
+
+def small_probe_args(run):
+    """B3's arguments for a batch of SMALL_Q member queries on the IVF
+    path's index (pairs padded to cells of 128; nearly every partition in
+    few pairs): the search through B3's plain version, held equal to the
+    kernel's."""
+    queries = run["queries"][:SMALL_Q]
+    m = run["index"].search(queries, IVF["k"])
+    mp, args = plain_probe_search(run["index"], queries, IVF["k"], "grouped_probe")
+    if not (np.array_equal(mp.keys, m.keys) and np.array_equal(mp.distances, m.distances)):
+        fail(f"the Q={SMALL_Q} IVF search through B3's plain version differs from the kernel's")
+    windows = torch.unique(torch.stack([args[6], args[7]], 1), dim=0).shape[0]
+    log(f"  IVF search of {SMALL_Q} member queries: the plain probe's equal to the kernel's "
+        f"({args[1].shape[0]} padded pairs, {windows} distinct windows)")
+    return args
 
 
 def binary_row(run) -> dict:
@@ -1729,11 +1870,13 @@ def main() -> int:
         log(f"nvcc {name}.cu:\n{entry['report'].strip()}")
 
     check_scan_sass()
+    check_probe_sass()
 
     log("== phase 2: kernels against their plain versions")
     check_kernels(dev)
     check_scan_edges(dev)
     check_probe(dev)
+    check_probe_edges(dev)
     check_binary_probe(dev)
     check_pair(dev)
     check_binned(dev)
@@ -1801,6 +1944,8 @@ def main() -> int:
         kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
         b3_row(ivf_run),
+        b3_row(ivf_run, bf16_probe_args(ivf_run["probe_args"]), "bf16 ip IVF pairs", "bf16"),
+        b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
     i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands
     rows += [flavour_row(name, head, res["launches"], i8_lib_ms) for name, res in flavours.items()]

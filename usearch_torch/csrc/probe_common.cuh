@@ -3,7 +3,9 @@
 // copy for all of them: the storage types' dot products, the rank-form
 // distances of the TPU kernels' `_window_dists` and `_rank_epilogue`, bit
 // for bit, the staging of row slices through shared memory, and the grouped
-// kernels' window stream (`find_segments`, `segment_dots`).
+// kernels' window stream (`find_segments`, `segment_dots`). The metric and
+// dtype codes, the bin, MASKED and the accumulator types are
+// csrc/scan_common.cuh's.
 //
 // Each source that includes it is compiled on its own; everything here has
 // internal linkage.
@@ -14,20 +16,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"  // the codes (ops/probe.py METRIC_CODES, DTYPE_CODES), kBin, kMasked, Acc
+
 namespace {
 
-constexpr int kBin = 128;            // rows of one bin
 constexpr int kWords = 32;           // 4-byte words of the width per stage
 constexpr int kStride = kWords + 4;  // padded shared row, in words
-constexpr float kMasked = 3.0e38f;   // MASKED of ops/distances.py
-
-// the probe kernels' codes (ops/probe.py METRIC_CODES, DTYPE_CODES)
-enum Metric { kIP = 0, kCos = 1, kL2sq = 2, kHamming = 3 };
-enum DType { kI8 = 0, kBF16 = 1, kF32 = 2, kB1 = 3 };
-
-template <typename T> struct Acc { using type = float; };
-template <> struct Acc<int8_t> { using type = int; };
-template <> struct Acc<uint8_t> { using type = int; };
 
 // acc += <four words of t, four words of q> in the storage type's arithmetic
 __device__ __forceinline__ void mac4(int& acc, uint4 t, uint4 q, int8_t) {

@@ -2,7 +2,9 @@
 // (csrc/scan.cu: B1, B2; csrc/fused.cu: B8, B9, B10), one copy for all of
 // them: the scan kernels' metric, dtype and mode codes, the deleted-row
 // penalty, the accumulator type of each storage type, the bf16 packing, and
-// the reference's ip/cos/l2sq epilogue, bit for bit.
+// the reference's ip/cos/l2sq epilogue, bit for bit. The probe kernels
+// (csrc/probe_common.cuh) take the same codes, the bin and the penalty from
+// here, with hamming and packed b1 rows added.
 //
 // Each source that includes it is compiled on its own; everything here has
 // internal linkage.
@@ -15,17 +17,22 @@
 
 namespace {
 
-// the scan kernels' codes (ops/scan.py _METRIC_CODES, _DTYPE_CODES)
-enum Metric { kIP = 0, kCos = 1, kL2sq = 2 };
-enum DType { kI8 = 0, kBF16 = 1, kF32 = 2 };
+// the kernels' codes (ops/scan.py _METRIC_CODES, _DTYPE_CODES; ops/probe.py
+// METRIC_CODES, DTYPE_CODES: hamming over packed b1 rows is the probe
+// kernels' alone)
+enum Metric { kIP = 0, kCos = 1, kL2sq = 2, kHamming = 3 };
+enum DType { kI8 = 0, kBF16 = 1, kF32 = 2, kB1 = 3 };
 // B1's two outputs and B2's (scan.cu)
 enum Mode { kBinned = 0, kCompact = 1, kMinima = 2 };
 
+constexpr int kBin = 128;           // rows of one bin
 constexpr float kMasked = 3.0e38f;  // MASKED of ops/distances.py: the deleted-row penalty
 
-// Dots of i8 rows sum exactly in i32; bf16 and f32 rows in f32.
+// Dots of i8 (and packed b1) rows sum exactly in i32; bf16 and f32 rows in
+// f32.
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<int8_t> { using type = int; };
+template <> struct Acc<uint8_t> { using type = int; };
 
 // Two f32 values rounded to bf16 and packed, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {

@@ -6,7 +6,8 @@
 // - the rows' per-tile values (`Aux`, `set_row`) and the queries' values
 //   (`query_values`);
 // - mbarrier, TMA and matrix-descriptor helpers, the s8 and bf16 `wgmma`
-//   m64n256 products (`mma_k`) and the accumulator fence;
+//   m64n256 products (`mma_k`; m64n128 for the probe kernels of
+//   csrc/probe.cu, which include this header too) and the accumulator fence;
 // - the register epilogue: per query and 128-row bin the first row reaching
 //   the minimum (`tile_minima`, over `bin_min`/`keyed_bin_min`), with the
 //   distances of csrc/scan_common.cuh's `epilogue`, so every kernel that
@@ -30,8 +31,6 @@
 #include "scan_common.cuh"
 
 namespace {
-
-constexpr int kBin = 128;  // rows of one bin
 
 constexpr int kTileRows = 256;            // table rows of one tile: two bins
 constexpr int kQT = 64;                   // queries of one warpgroup tile
@@ -147,6 +146,31 @@ __device__ __forceinline__ void mma_k(float (&d)[128], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define D_REGS64                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"           \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= a[64 x 32 s8] . b[128 x 32 s8]^T: one 128-row bin (the
+// probe kernels, csrc/probe.cu).
+__device__ __forceinline__ void mma_k(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " D_REGS64 ", %64, %65, p;\n}\n"
+      : D64("+r", 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= a[64 x 16 bf16] . b[128 x 16 bf16]^T, in f32.
+__device__ __forceinline__ void mma_k(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D64("+f", 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous product's fence and wait.
 __device__ __forceinline__ void fence_acc(int (&d)[128]) {
@@ -156,6 +180,14 @@ __device__ __forceinline__ void fence_acc(int (&d)[128]) {
 __device__ __forceinline__ void fence_acc(float (&d)[128]) {
 #pragma unroll
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Norms inside [2^-30, 2^30] keep the cos preselection's products normal.

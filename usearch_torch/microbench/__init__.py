@@ -7,8 +7,10 @@
 - `probe_v2_bisect` (scripts/tpu_probe_v2_bisect.py): kernel B13, B3's
   window stream cut to each select.
 
-`scan_breakdown` is the port's own: the flat-scan kernel B1/B2 rebuilt with
-parts of it taken out, to see where its time goes (card only).
+`scan_breakdown`, `fused_breakdown` and `probe_breakdown` are the port's
+own: the flat-scan kernels B1/B2, B8-B10 and the grouped probe B3/B5 rebuilt
+with parts of them taken out, to see where their time goes; `sass_diff`
+compares the kernels' SASS with another checkout's (card only).
 
 Each runs with ``python -m usearch_torch.microbench.<name>`` and prints its
 TPU script's lines. Nothing runs at import. Each ``main`` runs at its

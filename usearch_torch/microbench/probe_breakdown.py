@@ -1,0 +1,162 @@
+"""Where the time of the tensor-core grouped probe kernels (csrc/probe.cu
+`grouped_wgmma`: B3 and B5 over i8 and bf16) goes.
+
+    python -m usearch_torch.microbench.probe_breakdown [--against CHECKOUT]
+
+Builds csrc/probe.cu again with parts of `grouped_wgmma` taken out, each a
+copy of the source with one or more lines replaced (`PARTS`), as
+`scan_breakdown` and `fused_breakdown` do, and times B3 and B5 i8 through
+their wrappers at the IVF path's pairs (chip_smoke.py's IVF): an i8 ip
+index of 1M unit rows of width 256, `optimize(n_partitions=1024,
+reorder=True, spill=0.05)`, `expansion_search = 1024`, 16,384 member
+queries at k=10, the grouped probe's arguments (B3) and the `nofold`
+flavour's (B5) captured from one search each, and B3's for the first
+1,024 of the queries (a small batch: few pairs share a window). The variants: the full
+kernel; no fold or stores (B3's merges into the lanes' lists, so the lists
+never fill and never prune a row, and B5's stores of the bins' lists); no
+selection (the rows are scored, but no thread keeps a list and the quads
+merge none); no epilogue (nothing after
+the product); the product alone (no waits for, and no refills of, the
+table ring, no epilogue: the product runs on whatever the slots hold); the
+table stream alone (no product, no epilogue). Each variant computes
+garbage where its part is missing; only its time means anything. It
+prints the card's name and power limit and one line per variant and
+kernel. With ``--against CHECKOUT`` it also builds that checkout's
+csrc/probe.cu (e.g. the parent commit's, unpacked with `git archive`),
+checks that it gives the same results on the same inputs, and times it as
+one more variant, ``other``. Needs a CUDA card and nvcc; the copies are
+built into usearch_torch/_build/.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from .. import Index, build, ivf
+from ..ops import probe
+from .scan_breakdown import build_variants, card_line, run
+
+SEED = 0
+#: the IVF path of chip_smoke.py
+N, W, Q, K, PARTITIONS, SPILL, EXPANSION = 1_000_000, 256, 16384, 10, 1024, 0.05, 1024
+#: the small batch of chip_smoke.py's B3 row: the first SMALL_Q queries
+SMALL_Q = 1024
+#: source lines of csrc/probe.cu and what each variant puts in their place
+_FOLD_STORES = [("      if (m > 0) {\n", "      if (m > 0 && cv[0] == 12345.0f) {\n"),
+                ("              if (j >= p.bin_m || bi[u][j] == INT_MAX) break;\n",
+                 "              if (j >= p.bin_m || bi[u][j] == INT_MAX || bv[u][j] != 12345.0f) break;\n")]
+_SELECTION = [("              if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u][kM - 1])) continue;\n",
+               "              if (!act[h] || !in || v != 12345.0f) continue;\n"),
+              ("          quad_merge<kM>(bv[u], bi[u]);\n", "")]
+_EPILOGUE = ("      if (!warp_active) continue;\n",
+             "      if (dot_value<kSmall>(acc[0]) == 12345.0f && warp_active) p.out_d[0] = 1.0f;\n      continue;\n")
+_PRODUCT = ("        for (int k = 0; k < kKB / 32; ++k) mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n",
+            "        (void)da;\n        (void)db;\n")
+_LOADS = [("        mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
+          ("        mbar_wait(full + n % L.stages, (n / L.stages) & 1);\n", ""),
+          ("  if (old % kUsers == kUsers - 1 && m < steps)", "  if (false)")]
+PARTS = {
+    "full": [],
+    "no_fold_or_stores": _FOLD_STORES,
+    "no_selection": _SELECTION,
+    "no_epilogue": [_EPILOGUE],
+    "product_only": _LOADS + [_EPILOGUE],
+    "stream_only": [_EPILOGUE, _PRODUCT],
+}
+
+
+def capture(index, queries, mode: str, name: str):
+    """The arguments of the one call of probe kernel ``name`` that a search
+    of ``queries`` in probe flavour ``mode`` makes."""
+    calls = []
+    kern = getattr(probe, name)
+
+    def spy(*args):
+        calls.append(args)
+        return kern(*args)
+
+    setattr(ivf, name, spy)
+    ivf.PROBE_MODE = mode
+    try:
+        index.search(queries, K)
+    finally:
+        setattr(ivf, name, kern)
+        ivf.PROBE_MODE = "group"
+    if len(calls) != 1:
+        raise RuntimeError(f"the {mode} search called {name} {len(calls)} times")
+    return calls[0]
+
+
+def cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(N, W, generator=gen, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    index = Index(ndim=W, metric="ip", dtype="i8", device=dev)
+    index.add(None, x)
+    index.optimize(n_partitions=PARTITIONS, reorder=True, spill=SPILL)
+    index.expansion_search = EXPANSION
+    queries = x[torch.randperm(N, generator=gen, device=dev)[:Q]]
+    b3 = capture(index, queries, "group", "grouped_probe")
+    b5 = capture(index, queries, "nofold", "grouped_probe_nofold")
+    small = capture(index, queries[:SMALL_Q], "group", "grouped_probe")
+    return {
+        f"B3 i8 ip, IVF pairs P={b3[1].shape[0]:,}, k={b3[8]}": lambda: probe.grouped_probe(*b3),
+        f"B5 i8 ip nofold, P={b5[1].shape[0]:,}, {b5[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5),
+        f"B3 i8 ip, Q={SMALL_Q:,}: P={small[1].shape[0]:,}": lambda: probe.grouped_probe(*small),
+    }
+
+
+def build_other(checkout: Path):
+    """The probe library of another checkout (e.g. the parent commit,
+    unpacked with `git archive`), built from its own csrc/ and loaded."""
+    csrc = checkout.resolve() / "usearch_torch" / "csrc"
+    out = build.BUILD_DIR / "probe_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libother.so"
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / "probe.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {csrc / 'probe.cu'}:\n{proc.stdout}{proc.stderr}")
+    loaded = ctypes.CDLL(str(lib))
+    for fn, argtypes in build.SIGNATURES["probe"].items():
+        getattr(loaded, fn).argtypes = argtypes
+        getattr(loaded, fn).restype = ctypes.c_int
+    return loaded
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("probe_breakdown: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    t0 = time.perf_counter()
+    libs = build_variants(PARTS, "probe.cu")
+    if argv[:1] == ["--against"]:
+        libs["other"] = build_other(Path(argv[1]))
+    print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev = torch.device("cuda")
+    runs = cases(dev)
+    if "other" in libs:
+        # the other checkout's kernels must give this one's results
+        want = {tag: fn() for tag, fn in runs.items()}
+        build._libs["probe"] = libs["other"]
+        try:
+            for tag, fn in runs.items():
+                got = fn()
+                same = all(torch.equal(a, b) for a, b in zip(got, want[tag]))
+                print(f"{'other':26s} {tag:45s} {'the same results' if same else 'OTHER RESULTS'}", flush=True)
+        finally:
+            build._libs.pop("probe", None)
+    run(libs, "probe", runs, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
