@@ -12,9 +12,9 @@ Phases, each fatal on failure:
    instantiation of B1/B2 and of B8/B9/B10 must hold its tensor-core
    product, IGMMA for i8 and HGMMA for bf16 and compact f32, and B1/B2's
    SIMT f32 kernel FFMA and no tensor-core product (no TF32 on the exact
-   path); and the probe library's: every i8 and bf16 instantiation of
-   B3/B5's tensor-core kernel holds IGMMA or HGMMA, and the SIMT probe
-   kernel is left for f32 and b1 alone;
+   path); and the probe library's: every i8, bf16 and b1 instantiation of
+   B3/B5's tensor-core kernel holds IGMMA, HGMMA or BGMMA (the b1
+   and-popc product), and the SIMT probe kernel is left for f32 alone;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -24,11 +24,12 @@ Phases, each fatal on failure:
    without the penalty row (ip), with 4 and k candidates per bin, and B5 on
    the same windows and metrics at 4 and 8 per bin; B3 over packed
    1024-bit rows with hamming (4 and k per bin) and B5 (4, 8 and 16 per
-   bin) on windows of the same lengths, bit for bit; B3/B5 over i8 and
-   bf16 at PROBE_EDGES (every lane its own window, one 128-lane segment, a
+   bin) on windows of the same lengths, bit for bit; B3/B5 over i8, bf16
+   and b1 at PROBE_EDGES (every lane its own window, one 128-lane segment, a
    segment across lanes 60-70, windows mid-bin, empty and ending at the
-   table's last row, W=128, 384 and 1,024, k 1-128 with bin_m 1-16, ties
-   across a bin edge and between lanes 63 and 64); B6 (per-query probe)
+   table's last row, W=128, 384 and 1,024 bytes, k 1-128 with bin_m 1-16,
+   B5 over b1 at 1-16 per bin, ties across a bin edge and between lanes 63
+   and 64; i8 and b1 bit for bit); B6 (per-query probe)
    on such windows for {i8, bf16, f32} x {ip, cos, l2sq} and b1 hamming,
    with and without the penalty row, k 10 and 128 at 4 and k per bin; B7
    (packed-key binned probe) over i8 rows, `pack` and `fminarg` at (bw,
@@ -162,16 +163,23 @@ SIMT_SASS = ("FFMA", ("HMMA", "HGMMA", "IGMMA", "IMMA"))
 PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, nprobe=8, w=256, deleted=0.1)
 #: phase 2's edges of B3/B5's tensor-core design (PROBE_EDGES): a table of
 #: n rows, padded windows of w_pad rows, the widths (one 128-byte K-block;
-#: a K-tail past a 256-byte tile; i8 and bf16 query tiles too wide to stay
-#: in shared memory), B3's k and bin_m (B5's bin_m), ~10% deleted rows
+#: a K-tail past a 256-byte tile; i8, bf16 and b1 query tiles too wide to
+#: stay in shared memory), B3's k and bin_m (B5's bin_m over i8/bf16, and
+#: over b1), ~10% deleted rows
 PROBE_EDGES = dict(n=4096, w_pad=768, widths=(128, 384, 1024), ks=(1, 3, 10, 128), bin_ms=(1, 4, 16),
-                   nofold_bin_ms=(1, 4, 8), deleted=0.1)
+                   nofold_bin_ms=(1, 4, 8), b1_nofold_bin_ms=(1, 4, 8, 16), deleted=0.1)
 #: phase 1: the SASS of the probe library; B3/B5's tensor-core kernel by
-#: storage type (mangled) and product, and the SIMT kernel's instantiations,
-#: which i8 and bf16 no longer have
-PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA"}
-PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",)}
-PROBE_SIMT = ("f", "h")
+#: storage type (mangled: i8, bf16, packed b1 as uint8) and product, its
+#: metric codes (b1: hamming as l2sq's rank form), kSmall values and (kernel,
+#: list length) pairs, and the SIMT kernel's instantiations, which i8, bf16
+#: and b1 no longer have
+PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "h": "BGMMA"}
+PROBE_METRICS = {"a": (0, 1, 2), "13__nv_bfloat16": (0, 1, 2), "h": (2,)}
+PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",), "h": ("1",)}
+PROBE_LISTS = {"a": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)),
+               "13__nv_bfloat16": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)),
+               "h": (("B3", 4), ("B3", 16), ("B5", 8), ("B5", 16))}
+PROBE_SIMT = ("f",)
 #: phase 4: the small batch of B3's row at the IVF path's index
 SMALL_Q = 1024
 #: phase 3/4: the IVF path of bench.py
@@ -180,8 +188,13 @@ IVF = dict(n=1_000_000, w=256, q=16384, k=10, partitions=1024, spill=0.05, expan
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
-#: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s
-PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12}
+#: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s;
+#: b1 (two operations per bit pair) at eight times the int8 rate: the b1
+#: `wgmma` with and-popc (m64n128k256) issues at the s8 form's (m64n128k32)
+#: rate per instruction, 256 bit pairs where s8 takes 32 byte pairs
+#: (`python -m usearch_torch.microbench.probe_breakdown`: B4's product alone
+#: beside the s8 product over the same bytes at the same steps)
+PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12, "b1": 8 * 1979e12}
 PEAK_BYTES = 3.35e12
 #: float bin minima: f32 sums of W products in another order
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
@@ -405,13 +418,14 @@ def check_scan_sass() -> dict:
 def check_probe_sass() -> dict:
     """Phase 1: the SASS of the built probe library holds B3/B5's
     tensor-core kernel (`grouped_wgmma`) for i8 (rows up to 256 bytes and
-    wider) and bf16, every metric and list length of B3 and B5, each with
-    its product (IGMMA, HGMMA); the
-    SIMT `grouped_probe_kernel` is left for f32 and packed b1 alone. Returns
-    the count of product instructions by instantiation."""
+    wider), bf16 and packed b1 (hamming; B5 with lists of 8 and 16), every
+    metric and list length of B3 and B5, each with its product (IGMMA,
+    HGMMA, BGMMA: the b1 and-popc product); the SIMT `grouped_probe_kernel`
+    is left for f32 alone. Returns the count of product instructions by
+    instantiation."""
     found, simt = {}, set()
     for name, body in sass_functions("probe").items():
-        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16)Li(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
+        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h)Li(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
         if m:
             kind, metric, lists, fold, small = m.groups()
             key = f"{kind}/metric {metric}/{'B3' if fold == '1' else 'B5'} lists {lists}/small {small}"
@@ -419,8 +433,8 @@ def check_probe_sass() -> dict:
         m = re.search(r"grouped_probe_kernelI(\w+?)Li", name)
         if m:
             simt.add(m.group(1))
-    want = {f"{t}/metric {m}/{kind} lists {n}/small {small}" for t in PROBE_SASS for m in (0, 1, 2)
-            for kind, n in (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)) for small in PROBE_SMALL[t]}
+    want = {f"{t}/metric {m}/{kind} lists {n}/small {small}" for t in PROBE_SASS for m in PROBE_METRICS[t]
+            for kind, n in PROBE_LISTS[t] for small in PROBE_SMALL[t]}
     log(f"probe.cu SASS, tensor-core products by B3/B5 wgmma instantiation: {found}; SIMT kernel over {sorted(simt)}")
     if set(found) != want or any(n == 0 for n in found.values()) or simt != set(PROBE_SIMT):
         fail(f"probe.cu's B3/B5 instantiations are not the expected ones: {found}, SIMT {sorted(simt)}")
@@ -577,8 +591,10 @@ def check_probe_edges(dev) -> None:
     a third random, the rest table rows), bf16 rows and queries random
     normal; every width, metric and dtype at k=10, 4 per bin (ip with and
     without the penalty row), B5 at 8 per bin, and at W=128 every k and
-    bin_m of PROBE_EDGES on l2sq; i8 bit for bit, bf16 within the float
-    tolerance."""
+    bin_m of PROBE_EDGES on l2sq; packed b1 rows of bytes drawn from a few
+    values (`few_bytes`, many equal hamming distances; queries drawn as the
+    i8 ones) with hamming at every width, k and bin_m, B5 at every b1 bin_m;
+    i8 and b1 bit for bit, bf16 within the float tolerance."""
     spec = PROBE_EDGES
     n, w_pad = spec["n"], spec["w_pad"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -590,25 +606,33 @@ def check_probe_edges(dev) -> None:
     valid = torch.rand(n, generator=gen, device=dev) >= spec["deleted"]
     penalty = torch.where(valid, 0.0, MASKED)
     count = 0
-    for name in ("i8", "bf16"):
+    for name in ("i8", "bf16", "b1"):
         for w in spec["widths"]:
             if name == "i8":
                 table = torch.randint(-5, 6, (n, w), generator=gen, device=dev, dtype=torch.int8)
                 q_g = table[torch.randint(0, n, (n_pairs,), generator=gen, device=dev)]
                 q_g[::3] = torch.randint(-5, 6, (q_g[::3].shape[0], w), generator=gen, device=dev, dtype=torch.int8)
+            elif name == "b1":
+                table = few_bytes((n, w), gen, dev)
+                q_g = table[torch.randint(0, n, (n_pairs,), generator=gen, device=dev)]
+                q_g[::3] = few_bytes((q_g[::3].shape[0], w), gen, dev)
             else:
                 table = torch.randn(n, w, generator=gen, device=dev).to(torch.bfloat16)
                 q_g = torch.randn(n_pairs, w, generator=gen, device=dev).to(torch.bfloat16)
             table[128], table[256] = table[127], table[255]
             q_g[64::128] = q_g[63::128]
             q_g = q_g.contiguous()
-            t_sq = (table.float() ** 2).sum(1).contiguous()
-            q_sq = (q_g.float() ** 2).sum(1).contiguous()
-            for metric_name in METRICS:
+            if name == "b1":
+                t_sq = row_stats(table, ScalarKind.B1)[:, 0].contiguous()
+                q_sq = row_stats(q_g, ScalarKind.B1)[:, 0].contiguous()
+            else:
+                t_sq = (table.float() ** 2).sum(1).contiguous()
+                q_sq = (q_g.float() ** 2).sum(1).contiguous()
+            for metric_name in (("hamming",) if name == "b1" else METRICS):
                 metric = normalize_metric(metric_name)
                 t_m = None if metric == MetricKind.IP else t_sq
                 shapes = [(10, 4)]
-                if w == spec["widths"][0] and metric_name == "l2sq":
+                if name == "b1" or (w == spec["widths"][0] and metric_name == "l2sq"):
                     shapes = [(k, b) for k in spec["ks"] for b in spec["bin_ms"]]
                 for aux in ((True, False) if metric == MetricKind.IP else (True,)):
                     for k, bin_m in shapes:
@@ -616,7 +640,8 @@ def check_probe_edges(dev) -> None:
                         hold_probe(f"edges {name}/{metric_name}{'' if aux else ' no aux'} W={w} k={k} bin_m={bin_m}",
                                    args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
                         count += 1
-                for bin_m in (spec["nofold_bin_ms"] if w == spec["widths"][0] else spec["nofold_bin_ms"][-1:]):
+                nofold = spec["b1_nofold_bin_ms"] if name == "b1" else spec["nofold_bin_ms"]
+                for bin_m in (nofold if name == "b1" or w == spec["widths"][0] else nofold[-1:]):
                     args = (metric, q_g, q_sq, table, t_m, penalty, win_base, win_start, win_len, w_pad, bin_m)
                     hold_probe(f"edges {name}/{metric_name} W={w} w_pad={w_pad} bin_m={bin_m}", args,
                                probe.grouped_probe_nofold(*args), probe.grouped_probe_nofold_plain(*args), "B5")
@@ -884,13 +909,19 @@ def check_flavour_kernels(tag: str, args) -> None:
     hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10")
 
 
+def few_bytes(shape, gen, dev) -> torch.Tensor:
+    """Packed b1 rows of random bytes each masked by one of a few values
+    (many equal hamming distances)."""
+    masks = torch.tensor([0x11, 0x81, 0xFF], dtype=torch.uint8, device=dev)
+    rows = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+    return rows & masks[torch.randint(0, 3, shape, generator=gen, device=dev)]
+
+
 def bit_rows(cap2: int, body: int, nq: int, gen, dev):
     """Packed 1024-bit rows of bytes drawn from a few values (many equal
     hamming distances), zero past ``body``, rows 5 and 133 equal to row 6;
     and ``nq`` queries drawn from the rows."""
-    masks = torch.tensor([0x11, 0x81, 0xFF], dtype=torch.uint8, device=dev)
-    table = torch.randint(0, 256, (cap2, 128), generator=gen, device=dev, dtype=torch.uint8)
-    table &= masks[torch.randint(0, 3, (cap2, 128), generator=gen, device=dev)]
+    table = few_bytes((cap2, 128), gen, dev)
     table[body:] = 0
     table[5] = table[6]
     table[133] = table[6]
@@ -1510,10 +1541,10 @@ def binary_row(run) -> dict:
     """Phase 4 row of B3 over packed rows (hamming path) or of B5 (tanimoto
     path) at the path's pairs: held bit for bit against the plain version,
     timed beside its bound and the plain version's time. Operations: two
-    per bit pair of each window row and its pair's query (the bit-plane
-    product of the TPU kernel), at the int8 tensor-core rate. No one
-    PyTorch call computes a per-bin selection over gathered windows, so
-    there is no library time."""
+    per bit pair of each window row and its pair's query, at the b1
+    tensor-core rate (PEAK_OPS["b1"]: the and-popc product, eight times the
+    int8 rate). No one PyTorch call computes a per-bin selection over
+    gathered windows, so there is no library time."""
     args, name = run["probe_args"], run["kern"]
     kern, plain = getattr(probe, name), getattr(probe, name + "_plain")
     q_g, q_sq, table, win_start, win_len = args[1], args[2], args[3], args[-4], args[-3]
@@ -1528,7 +1559,7 @@ def binary_row(run) -> dict:
     # pairs' inputs and the outputs
     nbytes = touched_rows(n_rows, win_start, win_len) * (w + 8) + in_bytes + n_pairs * out_cols * 8
     ops = 2.0 * 8 * w * float(win_len.sum())
-    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["b1"], nbytes)
     per_search = run["launches_per_search"]
     log(f"  {tag} W={w} bytes: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.4f} GB, "
         f"{ops / 1e9:.2f} G bit operations), plain {plain_ms:.1f} ms, library none, launches on its path "

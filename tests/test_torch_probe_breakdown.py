@@ -80,3 +80,32 @@ def test_simt_kernel_keeps_f32_and_b1_only():
         assert f"launch_wgmma<{t}, 4, false>" in text and f"launch_wgmma<{t}, 8, false>" in text
     fold = _body(text, "int launch_fold(")
     assert "launch_wgmma<T, 4, true>" in fold and "launch_wgmma<T, 16, true>" in fold
+
+
+@pytest.mark.parametrize("part", [p for p in probe_breakdown.PARTS if p != "full"])
+def test_probe_breakdown_variants_reach_the_b1_kernel(part):
+    """B4 and B5 over packed b1 rows run `grouped_wgmma` apart from i8 in
+    their product alone (`if constexpr (kB1)`: the and-popc `mma_popc`), so
+    every variant's replaced lines are lines the b1 instantiations run, and
+    a variant without the i8 product has no b1 product either: no b1
+    variant times the full kernel."""
+    text = (CSRC / "probe.cu").read_text()
+    kernel = _body(text, "grouped_wgmma(const __grid_constant__")
+    assert kernel.count("kB1") == 2 and "if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k)" in kernel
+    variant = _body(scan_breakdown._variant_source(probe_breakdown.PARTS[part], "probe.cu"),
+                    "grouped_wgmma(const __grid_constant__")
+    assert variant != kernel
+    assert ("mma_k(" in variant) == ("mma_popc(" in variant)
+
+
+def test_b1_dispatches_to_the_tensor_core_kernel():
+    """b1 B3 and B5 (bin_m 1-16) launch `grouped_wgmma` and never the SIMT
+    kernel, which keeps f32 alone; the b1 product is the and-popc form."""
+    text = (CSRC / "probe.cu").read_text()
+    assert not re.search(r"launch_typed<(uint8_t|int8_t|__nv_bfloat16),", text)
+    for n in (8, 16):
+        assert f"launch_wgmma<uint8_t, {n}, false>" in text
+    fold = _body(text, "int launch_fold(")
+    assert "constexpr bool kTC = !std::is_same<T, float>::value;" in fold
+    header = (CSRC / "wgmma_common.cuh").read_text()
+    assert ".m64n128k256.s32.b1.b1.and.popc" in _body(header, "void mma_popc(")

@@ -22,7 +22,7 @@
 // After the last window `_rank_epilogue` maps the k entries back to the
 // metric's distances; empty places are MASKED with id -1. dtypes: i8
 // (__dp4a into int32, exact), bf16 and f32 (f32 FMAs, no TF32), and packed
-// b1 rows with hamming (__popc of ANDed 32-bit words, kernel B4's product).
+// b1 rows with hamming (__popc of ANDed 32-bit words).
 //
 // Bound on this card. Nothing is shared between queries: each streams its
 // own windows, Q x nprobe x w_pad rows of W bytes, where the grouped probe

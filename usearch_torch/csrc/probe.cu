@@ -19,9 +19,10 @@
 // B4 is B3 over packed b1 rows (uint8, 8 bits a byte), with hamming: it
 // replaces the uint8 branch of the TPU kernel's `_win_dots`
 // (pallas_probe.py:115-141), which sums eight bit-plane i8 products on the
-// MXU. Here the and-count is __popc(t & q) over 32-bit words, summed in
-// int32: the same integer whatever the bit order, with the popcounts of the
-// rows as their squared norms, so hamming is l2sq's expression.
+// MXU. Here the and-count popc(t & q) is one tensor-core product, `wgmma`
+// m64n128k256 b1 with .and.popc (`mma_popc`), summed in int32: the same
+// integer whatever the bit order, with the popcounts of the rows as their
+// squared norms, so hamming is l2sq's expression and takes its epilogue.
 //
 // B5 `usearch_grouped_probe_nofold` replaces `_make_grouped_nofold_kernel`
 // (pallas_probe.py:453), launched by `pallas_ivf_probe_grouped_nofold`
@@ -47,7 +48,7 @@
 // (`find_segments`, `segment_dots`): lanes with one padded window are one
 // segment, and B3's bound holds.
 //
-// Design over i8 and bf16 rows (`grouped_wgmma`, the tensor cores). A
+// Design over i8, bf16 and b1 rows (`grouped_wgmma`, the tensor cores). A
 // block of two warpgroups takes a cell; warpgroup g owns lanes [64 g,
 // 64 g + 64), the M side and A operand of `wgmma`. The cell's 128 query rows
 // are loaded once by TMA when their rows are at most 512 bytes (wider rows
@@ -60,7 +61,8 @@
 // slot refills it (a counter per slot). A warpgroup with no lane
 // in a segment only waits and releases, so a one-lane segment costs one
 // warpgroup's product. For each tile the warpgroup runs `wgmma` m64n128,
-// k32 s8 (exact int32) or k16 bf16 (f32, no TF32), over the bin's K-blocks;
+// k32 s8 or k256 b1 and-popc (exact int32) or k16 bf16 (f32, no TF32), over
+// the bin's K-blocks (a 1024-bit row is one);
 // each thread then holds 32 rows of each of two lanes (four threads, a
 // quad, hold a lane's 128). The epilogue stays in registers: each thread
 // scores its rows in rank form in place of their dots (+inf outside the
@@ -75,17 +77,18 @@
 // rest up one, sixteen at a time. The lists are written to [P, k] at the
 // end, the cell's rows one coalesced block. The row values (t_sq, the
 // penalty) are loaded a tile ahead into registers and parked in shared
-// memory for the tile. i8 dots of rows of at most 256 bytes convert to f32
-// exactly without I2F (`dot_value`).
+// memory for the tile. i8 dots of rows of at most 256 bytes, and b1 dots
+// (at most 8 W bits, W <= 2^19 bytes), convert to f32 exactly without I2F
+// (`dot_value`).
 //
-// Design over f32 and packed b1 rows (`grouped_probe_kernel`, SIMT). One
+// Design over f32 rows (`grouped_probe_kernel`, SIMT). One
 // block of 128 threads per cell, one thread per pair (lane). The block
 // walks its segments in order, and for each 128-row bin of the segment's
 // window streams the rows through shared memory, 64 rows and 128 bytes of
 // the width at a time, beside the same slice of the segment's query rows.
 // Only the segment's lanes compute: each thread keeps the dots of its query
-// against the 64 rows in registers (b1 with __popc into int32, exact; f32
-// FMAs, no TF32), parks them in shared memory, then folds the rows in
+// against the 64 rows in registers (f32 FMAs, no TF32), parks them in
+// shared memory, then folds the rows in
 // ascending order into a sorted list of the bin's best (strict '<', so the
 // lower row wins ties). After each bin, B3 merges the bin's list into the
 // lane's own sorted top-k_pad, kept lane-major in shared memory with each
@@ -95,13 +98,15 @@
 //
 // Bound on this card: each pair's window is a [w_pad, W] x [W] product,
 // 2 x P x w_pad x W operations (a b1 row of B bytes counts as 8 B one-bit
-// products); the distinct windows of a cell are read once. At bench.py's
-// IVF shape (1M x 256 i8 rows, 16,384 queries, ~311k pairs, w_pad 1,280)
-// the bytes of the distinct windows bound it, below half a millisecond at
-// the card's memory rate. What holds the tensor-core kernel back there is
-// its epilogue, not the product or the stream (PERF.md, Findings;
-// `python -m usearch_torch.microbench.probe_breakdown`). The b1 `mma` with
-// and-popc is later work.
+// products, at eight times the int8 rate: the b1 product takes 256 bit
+// pairs a step where s8 takes 32 byte pairs); the distinct windows of a
+// cell are read once. At bench.py's IVF shape (1M x 256 i8 rows, 16,384
+// queries, ~311k pairs, w_pad 1,280) and at the b1 IVF's (1M x 1024-bit
+// rows, 4,096 queries, ~86k pairs, w_pad 1,792) the bytes of the distinct
+// windows bound it, below half a millisecond at the card's memory rate.
+// What holds the tensor-core kernel back there is its epilogue, not the
+// product or the stream (PERF.md, Findings; `python -m
+// usearch_torch.microbench.probe_breakdown`).
 //
 // The dot products, the rank-form distances, the staging loop and the
 // window stream are csrc/probe_common.cuh's, shared with B6 (csrc/pair.cu)
@@ -463,13 +468,15 @@ __device__ __forceinline__ void quad_merge(float (&v)[M], int (&r)[M]) {
 }
 
 // B3 (kFold: a running top-k_pad per lane) and B5 (the bins' lists written
-// out) over i8 or bf16 rows, on `wgmma`. kM: entries of a bin's list (4 or
-// 16 for B3, 4 or 8 for B5), bin_m <= kM of them kept. kSmall: i8 rows of
-// at most 256 bytes, whose dots convert to f32 exactly without I2F.
+// out) over i8, bf16 or packed b1 (uint8) rows, on `wgmma`. kM: entries of
+// a bin's list (4 or 16 for B3; 4 or 8 for B5, 8 or 16 over b1), bin_m <=
+// kM of them kept. kSmall: i8 rows of at most 256 bytes and b1 rows, whose
+// dots convert to f32 exactly without I2F.
 template <typename T, int kMetric, int kM, bool kFold, bool kSmall>
 __global__ void __launch_bounds__(kPBlock, 1)
 grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map, const Params p) {
   using A = typename Acc<T>::type;
+  constexpr bool kB1 = std::is_same<T, uint8_t>::value;
   constexpr int kTogether = kM <= 8 ? 2 : 1;  // lanes scored at once: two for ILP, one for 16-entry lists
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -627,7 +634,10 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
         const uint32_t qa = L.resident ? smem_addr(smem + (g * L.n_kb + kb) * kQStage) : ta + kBinStage + g * kQStage;
         const uint64_t da = sw128_desc(qa), db = sw128_desc(ta);
 #pragma unroll
-        for (int k = 0; k < kKB / 32; ++k) mma_k(acc, da + 2 * k, db + 2 * k, kb | k);
+        for (int k = 0; k < kKB / 32; ++k) {
+          if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);
+          else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);
+        }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         if (kb > 0) {
           // the previous K-block's product is done: release its slot
@@ -812,29 +822,40 @@ int run_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const Params& 
   const ProbeLayout L = probe_layout(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
   if (L.stages < 2) return cudaErrorInvalidValue;
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
-  const auto kernel = kI8 && p.width <= 256 ? grouped_wgmma<T, kMetric, kM, kFold, kI8>
-                                            : grouped_wgmma<T, kMetric, kM, kFold, false>;
+  constexpr bool kB1 = std::is_same<T, uint8_t>::value;
+  // kSmall: i8 dots of rows of at most 256 bytes, and b1 dots (at most 8 W
+  // bits) of rows of at most 2^19 bytes, the one b1 instantiation
+  if (kB1 && p.width > (1 << 19)) return cudaErrorInvalidValue;
+  auto kernel = grouped_wgmma<T, kMetric, kM, kFold, kI8 || kB1>;
+  if constexpr (kI8) {
+    if (p.width > 256) kernel = grouped_wgmma<T, kMetric, kM, kFold, false>;
+  }
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   kernel<<<n_pairs / kLanes, kPBlock, L.bytes, s>>>(q_map, t_map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3/B5 over i8 or bf16 rows on the tensor cores: the tensor maps (a query
-// box of 64 rows, a table box of one 128-row bin), then the metric's kernel.
+// B3/B5 over i8, bf16 or b1 rows on the tensor cores: the tensor maps (a
+// query box of 64 rows, a table box of one 128-row bin), then the metric's
+// kernel; b1 rows go with hamming alone, l2sq's rank form.
 template <typename T, int kM, bool kFold>
 int launch_wgmma(const Params& p, int n_pairs, cudaStream_t s) {
   const int row_bytes = p.width * static_cast<int>(sizeof(T));
   CUtensorMap q_map, t_map;
   if (!tile_map(&q_map, p.q_g, row_bytes, n_pairs, kQT) || !tile_map(&t_map, p.table, row_bytes, p.n_rows, kBin))
     return cudaErrorInvalidValue;
-  switch (p.metric) {
-    case kIP:
-      return run_wgmma<T, kIP, kM, kFold>(q_map, t_map, p, n_pairs, s);
-    case kCos:
-      return run_wgmma<T, kCos, kM, kFold>(q_map, t_map, p, n_pairs, s);
-    default:
-      return run_wgmma<T, kL2sq, kM, kFold>(q_map, t_map, p, n_pairs, s);
+  if constexpr (std::is_same<T, uint8_t>::value) {
+    return run_wgmma<T, kL2sq, kM, kFold>(q_map, t_map, p, n_pairs, s);
+  } else {
+    switch (p.metric) {
+      case kIP:
+        return run_wgmma<T, kIP, kM, kFold>(q_map, t_map, p, n_pairs, s);
+      case kCos:
+        return run_wgmma<T, kCos, kM, kFold>(q_map, t_map, p, n_pairs, s);
+      default:
+        return run_wgmma<T, kL2sq, kM, kFold>(q_map, t_map, p, n_pairs, s);
+    }
   }
 }
 
@@ -949,10 +970,10 @@ size_t binned_smem_bytes() {
          sizeof(int) * (4 * kLanes + 2);
 }
 
-// B3: i8 and bf16 on the tensor cores, f32 and b1 on the SIMT kernel.
+// B3: i8, bf16 and b1 on the tensor cores, f32 on the SIMT kernel.
 template <typename T>
 int launch_fold(const Params& p, int n_pairs, cudaStream_t stream) {
-  constexpr bool kTC = std::is_same<T, int8_t>::value || std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kTC = !std::is_same<T, float>::value;
   if constexpr (kTC) {
     if (p.bin_m <= 4) return launch_wgmma<T, 4, true>(p, n_pairs, stream);
     return launch_wgmma<T, 16, true>(p, n_pairs, stream);
@@ -1027,8 +1048,8 @@ int usearch_grouped_probe_nofold(const void* q_g, const float* q_sq, const void*
     case kF32:
       return launch_typed<float, 8, false>(p, n_pairs, s);
     case kB1:
-      if (bin_m <= 8) return launch_typed<uint8_t, 8, false>(p, n_pairs, s);
-      return launch_typed<uint8_t, 16, false>(p, n_pairs, s);
+      if (bin_m <= 8) return launch_wgmma<uint8_t, 8, false>(p, n_pairs, s);
+      return launch_wgmma<uint8_t, 16, false>(p, n_pairs, s);
     default:
       return cudaErrorInvalidValue;
   }

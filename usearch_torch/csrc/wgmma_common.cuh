@@ -7,7 +7,8 @@
 //   (`query_values`);
 // - mbarrier, TMA and matrix-descriptor helpers, the s8 and bf16 `wgmma`
 //   m64n256 products (`mma_k`; m64n128 for the probe kernels of
-//   csrc/probe.cu, which include this header too) and the accumulator fence;
+//   csrc/probe.cu, which include this header too, and their b1 and-popc
+//   product `mma_popc`) and the accumulator fence;
 // - the register epilogue: per query and 128-row bin the first row reaching
 //   the minimum (`tile_minima`, over `bin_min`/`keyed_bin_min`), with the
 //   distances of csrc/scan_common.cuh's `epilogue`, so every kernel that
@@ -168,6 +169,19 @@ __device__ __forceinline__ void mma_k(float (&d)[64], uint64_t a, uint64_t b, in
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : D64("+f", 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= popc(a[64 x 256 b1] & b[128 x 256 b1]^T), exact in int32:
+// the and-count of 32 bytes of packed bits per row pair, for the probe
+// kernels over b1 rows. The same bytes per step, descriptors and
+// accumulator layout as the s8 m64n128k32 product, and the same rate per
+// instruction (BGMMA in the SASS).
+__device__ __forceinline__ void mma_popc(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc " D_REGS64 ", %64, %65, p;\n}\n"
+      : D64("+r", 0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -1,5 +1,5 @@
 """Where the time of the tensor-core grouped probe kernels (csrc/probe.cu
-`grouped_wgmma`: B3 and B5 over i8 and bf16) goes.
+`grouped_wgmma`: B3 and B5 over i8, bf16 and packed b1) goes.
 
     python -m usearch_torch.microbench.probe_breakdown [--against CHECKOUT]
 
@@ -11,8 +11,18 @@ index of 1M unit rows of width 256, `optimize(n_partitions=1024,
 reorder=True, spill=0.05)`, `expansion_search = 1024`, 16,384 member
 queries at k=10, the grouped probe's arguments (B3) and the `nofold`
 flavour's (B5) captured from one search each, and B3's for the first
-1,024 of the queries (a small batch: few pairs share a window). The variants: the full
-kernel; no fold or stores (B3's merges into the lanes' lists, so the lists
+1,024 of the queries (a small batch: few pairs share a window); and B3
+over b1 (B4) and B5 over b1 at the binary IVF paths' pairs (chip_smoke.py's
+BINARY, scripts/tpu_binary_ivf_bench.py's shape): 1M packed 1024-bit rows
+of a clustered corpus (400 template rows, 8% of the bits flipped), a
+hamming and a tanimoto index, each `optimize(n_partitions=976,
+reorder=True)`, `expansion_search = 1024`, 4,096 member queries at k=10,
+the hamming search's B3 call and the tanimoto search's B5 call (its
+hamming select) captured, and B3 over B4's pairs with their bytes read as
+i8 rows (l2sq; the s8 product at B4's steps, to hold the b1 product's rate
+against). The variants replace the same lines for every
+storage type (b1 differs from i8 in its product alone): the full kernel;
+no fold or stores (B3's merges into the lanes' lists, so the lists
 never fill and never prune a row, and B5's stores of the bins' lists); no
 selection (the rows are scored, but no thread keeps a list and the quads
 merge none); no epilogue (nothing after
@@ -24,8 +34,9 @@ prints the card's name and power limit and one line per variant and
 kernel. With ``--against CHECKOUT`` it also builds that checkout's
 csrc/probe.cu (e.g. the parent commit's, unpacked with `git archive`),
 checks that it gives the same results on the same inputs, and times it as
-one more variant, ``other``. Needs a CUDA card and nvcc; the copies are
-built into usearch_torch/_build/.
+one more variant, first and last: ``other``, ``full``, the parts, ``full``
+again, ``other`` again. Needs a CUDA card and nvcc; the copies are built
+into usearch_torch/_build/.
 """
 
 from __future__ import annotations
@@ -39,12 +50,17 @@ from pathlib import Path
 import torch
 
 from .. import Index, build, ivf
+from ..enums import MetricKind
 from ..ops import probe
+from ..ops.packbits import pack_bits
 from .scan_breakdown import build_variants, card_line, run
 
 SEED = 0
 #: the IVF path of chip_smoke.py
 N, W, Q, K, PARTITIONS, SPILL, EXPANSION = 1_000_000, 256, 16384, 10, 1024, 0.05, 1024
+#: its binary IVF paths: bits a row, queries, template rows, share of bits
+#: flipped, partitions (N rows, K and EXPANSION as above)
+BITS, BIT_Q, TEMPLATES, FLIP, BIT_PARTITIONS = 1024, 4096, 400, 0.08, 976
 #: the small batch of chip_smoke.py's B3 row: the first SMALL_Q queries
 SMALL_Q = 1024
 #: source lines of csrc/probe.cu and what each variant puts in their place
@@ -56,7 +72,10 @@ _SELECTION = [("              if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u
               ("          quad_merge<kM>(bv[u], bi[u]);\n", "")]
 _EPILOGUE = ("      if (!warp_active) continue;\n",
              "      if (dot_value<kSmall>(acc[0]) == 12345.0f && warp_active) p.out_d[0] = 1.0f;\n      continue;\n")
-_PRODUCT = ("        for (int k = 0; k < kKB / 32; ++k) mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n",
+_PRODUCT = ("        for (int k = 0; k < kKB / 32; ++k) {\n"
+            "          if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);\n"
+            "          else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n"
+            "        }\n",
             "        (void)da;\n        (void)db;\n")
 _LOADS = [("        mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
           ("        mbar_wait(full + n % L.stages, (n / L.stages) & 1);\n", ""),
@@ -105,11 +124,39 @@ def cases(dev):
     b3 = capture(index, queries, "group", "grouped_probe")
     b5 = capture(index, queries, "nofold", "grouped_probe_nofold")
     small = capture(index, queries[:SMALL_Q], "group", "grouped_probe")
+    b4, b5_b1 = bit_cases(dev, gen)
+    # B4's pairs over the same bytes read as i8 rows (l2sq): the s8 product
+    # at B4's steps, beside which `product_only` times the b1 product
+    b4_s8 = (MetricKind.L2sq, b4[1].view(torch.int8), b4[2], b4[3].view(torch.int8), *b4[4:])
     return {
         f"B3 i8 ip, IVF pairs P={b3[1].shape[0]:,}, k={b3[8]}": lambda: probe.grouped_probe(*b3),
         f"B5 i8 ip nofold, P={b5[1].shape[0]:,}, {b5[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5),
         f"B3 i8 ip, Q={SMALL_Q:,}: P={small[1].shape[0]:,}": lambda: probe.grouped_probe(*small),
+        f"B4 b1 hamming, P={b4[1].shape[0]:,}, k={b4[8]}": lambda: probe.grouped_probe(*b4),
+        f"B5 b1 tanimoto, P={b5_b1[1].shape[0]:,}, {b5_b1[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5_b1),
+        f"B3 i8 l2sq over B4's bytes, P={b4[1].shape[0]:,}": lambda: probe.grouped_probe(*b4_s8),
     }
+
+
+def bit_cases(dev, gen):
+    """B3's arguments from a hamming search and B5's from a tanimoto search
+    of the binary IVF paths' corpus, each on its own index."""
+    templates = torch.randint(0, 2, (TEMPLATES, BITS), generator=gen, device=dev, dtype=torch.uint8)
+    x = torch.empty((N, BITS // 8), dtype=torch.uint8, device=dev)
+    for lo in range(0, N, 1 << 17):
+        m = min(1 << 17, N - lo)
+        pick = torch.randint(0, TEMPLATES, (m,), generator=gen, device=dev)
+        flips = torch.rand((m, BITS), generator=gen, device=dev) < FLIP
+        x[lo : lo + m] = pack_bits(templates[pick] ^ flips)
+    queries = x[torch.randperm(N, generator=gen, device=dev)[:BIT_Q]]
+    out = []
+    for metric, name in (("hamming", "grouped_probe"), ("tanimoto", "grouped_probe_nofold")):
+        index = Index(ndim=BITS, metric=metric, dtype="b1", device=dev)
+        index.add(None, x)
+        index.optimize(n_partitions=BIT_PARTITIONS, reorder=True)
+        index.expansion_search = EXPANSION
+        out.append(capture(index, queries, "group", name))
+    return out
 
 
 def build_other(checkout: Path):
@@ -154,6 +201,9 @@ def main(argv=None) -> int:
                 print(f"{'other':26s} {tag:45s} {'the same results' if same else 'OTHER RESULTS'}", flush=True)
         finally:
             build._libs.pop("probe", None)
+        # timed in turns with this checkout's full kernel, around the parts
+        other = libs.pop("other")
+        libs = {"other": other, **libs, "full again": libs["full"], "other again": other}
     run(libs, "probe", runs, dev)
     return 0
 
