@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    product, IGMMA for i8 and HGMMA for bf16 and compact f32, and B1/B2's
    SIMT f32 kernel FFMA and no tensor-core product (no TF32 on the exact
    path); and the probe library's: every i8, bf16 and b1 instantiation of
-   B3/B5's tensor-core kernel holds IGMMA, HGMMA or BGMMA (the b1
-   and-popc product), and the SIMT probe kernel is left for f32 alone;
+   the tensor-core probe kernel (B3, B5, B6's lists; B7 over i8) holds
+   IGMMA, HGMMA or BGMMA (the b1 and-popc product), and the SIMT probe
+   kernel is left for f32 alone;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -29,11 +30,16 @@ Phases, each fatal on failure:
    segment across lanes 60-70, windows mid-bin, empty and ending at the
    table's last row, W=128, 384 and 1,024 bytes, k 1-128 with bin_m 1-16,
    B5 over b1 at 1-16 per bin, ties across a bin edge and between lanes 63
-   and 64; i8 and b1 bit for bit); B6 (per-query probe)
-   on such windows for {i8, bf16, f32} x {ip, cos, l2sq} and b1 hamming,
-   with and without the penalty row, k 10 and 128 at 4 and k per bin; B7
-   (packed-key binned probe) over i8 rows, `pack` and `fminarg` at (bw,
-   keep) (32, 4) and (8, 1), bit for bit; the flat-scan flavours at B1's
+   and 64; i8 and b1 bit for bit); B6 (per-query probe: B3's kernel over
+   its pairs, then its fold) on such windows for {i8, bf16, f32} x {ip,
+   cos, l2sq} and b1 hamming, with and without the penalty row, k 10 and
+   128 at 4 and k per bin, and on a narrow surface (windows shared by many
+   queries and probed by one, one probed twice, one past the table) at
+   k/bin_m (10, 16), (64, 32) and (128, 128); B7 (packed-key binned probe)
+   over i8 rows, `pack` and `fminarg` at (bw, keep) (32, 4) and (8, 1), and
+   at every admitted (bw, keep, sel) over rows of 128, 384 and 2,048 bytes
+   with planted equal dots (dots above 2**24 at 2,048), bit for bit; the
+   flat-scan flavours at B1's
    shape with a fully deleted 4,096-row stretch besides: B8 (fused running
    top-k) and B9 (its streamed form) at k 10 and 128 and B10 (lane-layout
    surface); the three again on rows too wide to stay in shared memory
@@ -168,17 +174,21 @@ PROBE_CHECK = dict(windows=256, min_len=200, max_len=400, q=512, ragged_q=40, np
 #: over b1), ~10% deleted rows
 PROBE_EDGES = dict(n=4096, w_pad=768, widths=(128, 384, 1024), ks=(1, 3, 10, 128), bin_ms=(1, 4, 16),
                    nofold_bin_ms=(1, 4, 8), b1_nofold_bin_ms=(1, 4, 8, 16), deleted=0.1)
-#: phase 1: the SASS of the probe library; B3/B5's tensor-core kernel by
-#: storage type (mangled: i8, bf16, packed b1 as uint8) and product, its
-#: metric codes (b1: hamming as l2sq's rank form), kSmall values and (kernel,
-#: list length) pairs, and the SIMT kernel's instantiations, which i8, bf16
-#: and b1 no longer have
+#: phase 1: the SASS of the probe library; the tensor-core kernel
+#: (`grouped_wgmma`) by storage type (mangled: i8, bf16, packed b1 as uint8)
+#: and product, its metric codes (b1: hamming as l2sq's rank form), kSmall
+#: values and (kernel, list length) pairs of B3, B5 and B6's lists, the one
+#: instantiation of B7 (i8, no metric, integer keys), the flavours by their
+#: code (csrc/probe.cu `Flavour`), and the SIMT kernel's instantiations,
+#: which i8, bf16 and b1 no longer have
 PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "h": "BGMMA"}
 PROBE_METRICS = {"a": (0, 1, 2), "13__nv_bfloat16": (0, 1, 2), "h": (2,)}
 PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",), "h": ("1",)}
-PROBE_LISTS = {"a": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)),
-               "13__nv_bfloat16": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8)),
-               "h": (("B3", 4), ("B3", 16), ("B5", 8), ("B5", 16))}
+PROBE_LISTS = {"a": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8), ("B6", 4)),
+               "13__nv_bfloat16": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8), ("B6", 4)),
+               "h": (("B3", 4), ("B3", 16), ("B5", 8), ("B5", 16), ("B6", 4))}
+PROBE_B7 = "a/metric 0/B7 lists 4/small 0"
+PROBE_FLAVOURS = {"0": "B5", "1": "B3", "2": "B6", "3": "B7"}
 PROBE_SIMT = ("f",)
 #: phase 4: the small batch of B3's row at the IVF path's index
 SMALL_Q = 1024
@@ -268,6 +278,15 @@ LANES_EDGES = dict(wide_w={"i8": 2048, "bf16": 1024, "f32": 512}, wide_bins=19)
 #: phase 3/4: the IVF path's probe flavours besides the default, each with
 #: the wrapper of the kernel it must launch
 MODES = {"pair": "pair_probe", "bin": "binned_probe", "nofold": "grouped_probe_nofold"}
+#: phase 2, B6 on a narrow surface: (k, bin_m), bin_m past the 16 a B3 list
+#: holds
+PAIR_NARROW = ((10, 16), (64, 32), (128, 128))
+#: phase 2, B7: every admitted (sel, bw, keep) (ops/probe.py `_check_binned`)
+#: and the row widths in bytes
+BINNED_SELECTIONS = tuple((sel, bw, keep) for sel in probe.BIN_SELECTIONS
+                          for bw in (2, 4, 8, 16, 32, 64, 128) if sel == "fminarg" or bw <= 32
+                          for keep in range(1, min(probe.MAX_KEEP, bw // 2) + 1))
+BINNED_WIDTHS = (128, 384, 2048)
 
 
 def log(*args) -> None:
@@ -416,28 +435,29 @@ def check_scan_sass() -> dict:
 
 
 def check_probe_sass() -> dict:
-    """Phase 1: the SASS of the built probe library holds B3/B5's
-    tensor-core kernel (`grouped_wgmma`) for i8 (rows up to 256 bytes and
-    wider), bf16 and packed b1 (hamming; B5 with lists of 8 and 16), every
-    metric and list length of B3 and B5, each with its product (IGMMA,
-    HGMMA, BGMMA: the b1 and-popc product); the SIMT `grouped_probe_kernel`
-    is left for f32 alone. Returns the count of product instructions by
-    instantiation."""
+    """Phase 1: the SASS of the built probe library holds the tensor-core
+    kernel (`grouped_wgmma`) of B3, B5 and B6's lists for i8 (rows up to 256
+    bytes and wider), bf16 and packed b1 (hamming; B5 with lists of 8 and
+    16), every metric and list length, and of B7 over i8, each with its
+    product (IGMMA, HGMMA, BGMMA: the b1 and-popc product); the SIMT
+    `grouped_probe_kernel` is left for f32 alone (B3, B5 and B6's lists).
+    Returns the count of product instructions by instantiation."""
     found, simt = {}, set()
     for name, body in sass_functions("probe").items():
-        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h)Li(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
+        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h)Li(\d)ELi(\d+)ELi(\d)ELb(\d)E", name)
         if m:
-            kind, metric, lists, fold, small = m.groups()
-            key = f"{kind}/metric {metric}/{'B3' if fold == '1' else 'B5'} lists {lists}/small {small}"
+            kind, metric, lists, flavour, small = m.groups()
+            key = f"{kind}/metric {metric}/{PROBE_FLAVOURS[flavour]} lists {lists}/small {small}"
             found[key] = body.count(PROBE_SASS[kind])
         m = re.search(r"grouped_probe_kernelI(\w+?)Li", name)
         if m:
             simt.add(m.group(1))
     want = {f"{t}/metric {m}/{kind} lists {n}/small {small}" for t in PROBE_SASS for m in PROBE_METRICS[t]
-            for kind, n in PROBE_LISTS[t] for small in PROBE_SMALL[t]}
-    log(f"probe.cu SASS, tensor-core products by B3/B5 wgmma instantiation: {found}; SIMT kernel over {sorted(simt)}")
+            for kind, n in PROBE_LISTS[t] for small in PROBE_SMALL[t]} | {PROBE_B7}
+    log(f"probe.cu SASS, tensor-core products by B3/B5/B6/B7 wgmma instantiation: {found}; SIMT kernel over "
+        f"{sorted(simt)}")
     if set(found) != want or any(n == 0 for n in found.values()) or simt != set(PROBE_SIMT):
-        fail(f"probe.cu's B3/B5 instantiations are not the expected ones: {found}, SIMT {sorted(simt)}")
+        fail(f"probe.cu's B3/B5/B6/B7 instantiations are not the expected ones: {found}, SIMT {sorted(simt)}")
     return found
 
 
@@ -657,11 +677,29 @@ def pair_windows(starts, lens, probes, cap2: int, w_pad: int):
     return st_c.contiguous(), (st - st_c).contiguous(), ln.contiguous()
 
 
+def narrow_windows(starts, lens, cap2: int, w_pad: int, nq: int):
+    """B6's windows on a narrow surface (two probes a query): windows 0 and
+    1 probed by all but the last 12 queries, each of those 12 its own two
+    windows; query 1 probes window 5 twice and query 2's second window lies
+    past the table (it finds nothing)."""
+    probes = torch.zeros((nq, 2), dtype=torch.long, device=starts.device)
+    probes[:, 1] = 1
+    probes[nq - 12 :] = torch.arange(2, 26, device=starts.device).view(12, 2)
+    probes[1] = 5
+    st_c, off, ln = pair_windows(starts, lens, probes, cap2, w_pad)
+    st_c[2, 1] = cap2
+    return st_c, off, ln
+
+
 def check_pair(dev) -> None:
     """Phase 2, kernel B6: the windows of `check_probe` (planted ties, ~10%
     deleted rows), 512 and 40 queries of 8 random probes each, every dtype
     and metric and b1 hamming, with and without the penalty row, k 10 and
-    128 at 4 and k candidates per bin."""
+    128 at 4 and k candidates per bin; and on a narrow surface
+    (`narrow_windows`: windows shared by many queries and windows probed by
+    one, a window probed twice, one past the table) at k/bin_m (10, 16),
+    (64, 32) and (128, 128), every dtype and metric with the penalty row
+    (float queries there without the planted copy of row 6)."""
     spec = PROBE_CHECK
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     n_win, w, nprobe = spec["windows"], spec["w"], spec["nprobe"]
@@ -679,6 +717,7 @@ def check_pair(dev) -> None:
     table, q = bit_rows(cap2, body, spec["q"], gen, dev)
     sets.append(("b1", table, q, row_stats(table, ScalarKind.B1)[:, 0].contiguous(),
                  row_stats(q, ScalarKind.B1)[:, 0].contiguous(), ("hamming",)))
+    count = 0
     for name, table, q, t_sq, q_sq, metrics in sets:
         for nq in (spec["q"], spec["ragged_q"]):
             probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
@@ -691,14 +730,52 @@ def check_pair(dev) -> None:
                                 None if metric == MetricKind.IP else t_sq, penalty if aux else None, *windows, k,
                                 w_pad, bin_m)
                         hold_probe(f"{name}/{metric_name}{'' if aux else ' no penalty'} Q={nq} k={k} bin_m={bin_m}",
-                                args, probe.pair_probe(*args), probe.pair_probe_plain(*args), "B6")
+                                   args, probe.pair_probe(*args), probe.pair_probe_plain(*args), "B6")
+                        count += 1
+        windows = narrow_windows(starts, lens, cap2, w_pad, spec["q"])
+        if name in ("bf16", "f32"):
+            # no planted copy among the float queries of windows 0 and 1: its
+            # l2sq distance, ~0 from terms of ~2 W, cancels digits in any sum
+            # order (PROBE_EDGES likewise)
+            q = q.clone()
+            q[0] = make_rows(1, w, q.dtype, gen, dev)[0]
+            q_sq = (q.float() ** 2).sum(1).contiguous()
+        for metric_name in metrics:
+            metric = normalize_metric(metric_name)
+            for k, bin_m in PAIR_NARROW:
+                args = (metric, q, q_sq, table, None if metric == MetricKind.IP else t_sq, penalty, *windows, k,
+                        w_pad, bin_m)
+                hold_probe(f"{name}/{metric_name} narrow Q={spec['q']} k={k} bin_m={bin_m}", args,
+                           probe.pair_probe(*args), probe.pair_probe_plain(*args), "B6")
+                count += 1
+    log(f"  B6: {count} cases held")
+
+
+def planted_keys(n_rows: int, w: int, gen, dev):
+    """i8 rows for B7 with planted equal dots: values in -2..2 (many ties
+    inside a thread's rows and across the quad), rows 1, 3 and 64 copies of
+    row 0; at w = 2,048 every row 127 but the last column and queries 127
+    but a last 1, so the dots (above 2**24) differ by the last column alone
+    and f32 rounds neighbours together (``fminarg`` ties what ``pack``
+    orders)."""
+    if w < 2048:
+        table = torch.randint(-2, 3, (n_rows, w), generator=gen, device=dev, dtype=torch.int8)
+        table[1], table[3], table[64] = table[0], table[0], table[0]
+        return table, None
+    table = torch.full((n_rows, w), 127, dtype=torch.int8, device=dev)
+    table[:, -1] = torch.randint(-127, 128, (n_rows,), generator=gen, device=dev).to(torch.int8)
+    q = torch.full((1, w), 127, dtype=torch.int8, device=dev)
+    q[0, -1] = 1
+    return table, q
 
 
 def check_binned(dev) -> None:
     """Phase 2, kernel B7: the windows of `check_probe` over i8 rows (a
     duplicate of row 6 at rows 5 and 133), the pairs of 512 and 40 queries
-    at nprobe 8, ``pack`` and ``fminarg`` at (bw, keep) (32, 4) and (8, 1),
-    bit for bit."""
+    at nprobe 8, ``pack`` and ``fminarg`` at (bw, keep) (32, 4) and (8, 1);
+    then every admitted (bw, keep, sel) (`BINNED_SELECTIONS`) at the pairs
+    of 40 queries over rows of 128, 384 and 2,048 bytes with planted equal
+    dots (`planted_keys`; at 2,048 bytes dots above 2**24); bit for bit."""
     spec = PROBE_CHECK
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     n_win, nprobe = spec["windows"], spec["nprobe"]
@@ -716,6 +793,19 @@ def check_binned(dev) -> None:
                 args = (q_g.contiguous(), table, st_c.contiguous(), w_pad, bw, keep, sel)
                 hold_exact(f"i8 Q={nq} {sel} bw={bw} keep={keep}", "B7", probe.binned_probe(*args),
                            probe.binned_probe_plain(*args))
+    nq = spec["ragged_q"]
+    probes = torch.argsort(torch.rand(nq, n_win, generator=gen, device=dev), dim=1)[:, :nprobe]
+    count = 0
+    for w in BINNED_WIDTHS:
+        table, q_top = planted_keys(cap2, w, gen, dev)
+        q = table[torch.randint(0, cap2, (nq,), generator=gen, device=dev)] if q_top is None else q_top.expand(nq, w)
+        q_g, _, st_c, _, _, _, _, _ = ivf._binned_pairs(q, probes, starts, lens, cap2, w_pad, nprobe)
+        for sel, bw, keep in BINNED_SELECTIONS:
+            args = (q_g.contiguous(), table, st_c.contiguous(), w_pad, bw, keep, sel)
+            hold_exact(f"i8 W={w} Q={nq} {sel} bw={bw} keep={keep}", "B7", probe.binned_probe(*args),
+                       probe.binned_probe_plain(*args))
+            count += 1
+    log(f"  B7: {count} planted cases held")
 
 
 def check_flavours(dev) -> None:

@@ -46,9 +46,10 @@ SIGNATURES = {
         "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
         "usearch_grouped_probe_nofold": [_P] * 10 + [_I] * 7 + [_P],
         "usearch_binned_probe": [_P] * 5 + [_I] * 7 + [_P],
+        "usearch_pair_lists": [_P] * 9 + [_I] * 7 + [_P],
     },
     "pair": {
-        "usearch_pair_probe": [_P] * 10 + [_I] * 9 + [_P],
+        "usearch_pair_fold": [_P] * 6 + [_I] * 4 + [_P],
     },
     "fused": {
         "usearch_fused_topk": [_P] * 7 + [_I] * 6 + [_P],

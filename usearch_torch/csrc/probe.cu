@@ -34,19 +34,23 @@
 // `nofold` flavour, at most 8 per bin) and b1 rows with hamming (the select
 // of the tanimoto/sorensen probe, whose exact re-rank runs outside).
 //
+// B6's lists `usearch_pair_lists`: the `pair` flavour (csrc/pair.cu) hands
+// B3 its (query, window) pairs and takes each pair's first k in rank form,
+// before `_rank_epilogue`, for bin_m up to k <= 128: a pass takes kM rounds
+// of each bin, the next pass the rounds after the last (value, row) it took,
+// while some lane still has rounds of its bin_m to take.
+//
 // B7 `usearch_binned_probe` replaces `_make_binned_probe_kernel`
 // (pallas_probe.py:636), launched by `pallas_ivf_probe_binned` (:799), the
 // `bin` flavour: i8 rows only, over each pair's whole padded window with no
 // window mask, stats or penalty, the raw int32 dot of every row, and per
-// bw-row bin the `keep` largest, written round-major (round j of bin b at
-// column j * (w_pad / bw) + b) as f32 -dot beside the global row. The TPU
-// kernel selects by min-reducing the packed key (-dot << 5) | row_in_bin
-// (`pack`) or by f32 min and first argmin (`fminarg`); here each lane keeps
-// a sorted list of `keep` (-dot, row) entries per bin, fed rows in
-// ascending order with a strict '<' on -dot (pack) or on -dot rounded to f32
-// (fminarg), which is the same order. It shares B3's window stream
-// (`find_segments`, `segment_dots`): lanes with one padded window are one
-// segment, and B3's bound holds.
+// bw-row sub-bin the `keep` largest, written round-major (round j of sub-bin
+// b at column j * (w_pad / bw) + b) as f32 -dot beside the global row. The
+// TPU kernel selects by min-reducing the packed key (-dot << 5) | row_in_bin
+// (`pack`) or by f32 min and first argmin (`fminarg`); here the key is -dot,
+// or -dot rounded to f32, with the lower row first on equal keys, which is
+// the same order. It is a flavour of the tensor-core kernel below: lanes
+// with one padded window are one segment, and B3's bound holds.
 //
 // Design over i8, bf16 and b1 rows (`grouped_wgmma`, the tensor cores). A
 // block of two warpgroups takes a cell; warpgroup g owns lanes [64 g,
@@ -79,7 +83,13 @@
 // penalty) are loaded a tile ahead into registers and parked in shared
 // memory for the tile. i8 dots of rows of at most 256 bytes, and b1 dots
 // (at most 8 W bits, W <= 2^19 bytes), convert to f32 exactly without I2F
-// (`dot_value`).
+// (`dot_value`). B6's lists are B3's with the list kept in rank form and,
+// for bin_m above kM, the selection and fold repeated in passes while a lane
+// of the warp took a full pass. B7 keeps the int32 dots: per lane and round
+// each thread's best (key, row) of each of its runs of a sub-bin (a tree
+// over its 32 rows in registers), the best of the quad's threads that share
+// the sub-bin (shuffles), stored by one of them and removed by its holder;
+// only the columns no round reaches are filled with MASKED/-1.
 //
 // Design over f32 rows (`grouped_probe_kernel`, SIMT). One
 // block of 128 threads per cell, one thread per pair (lane). The block
@@ -94,7 +104,9 @@
 // lane's own sorted top-k_pad, kept lane-major in shared memory with each
 // entry's extraction round; B5 writes the bin's list to its columns instead,
 // after the block has filled its [128, out_pad] outputs with MASKED/-1 in
-// coalesced stores (as the tensor-core kernel does).
+// coalesced stores (as the tensor-core kernel does). B6's lists over f32
+// run B3 here in rank form, in passes of kMaxBinM rounds past kMaxBinM,
+// each pass computing the bin's dots again.
 //
 // Bound on this card: each pair's window is a [w_pad, W] x [W] product,
 // 2 x P x w_pad x W operations (a b1 row of B bytes counts as 8 B one-bit
@@ -109,11 +121,11 @@
 // usearch_torch.microbench.probe_breakdown`).
 //
 // The dot products, the rank-form distances, the staging loop and the
-// window stream are csrc/probe_common.cuh's, shared with B6 (csrc/pair.cu)
-// and B13 (csrc/bisect.cu); the tensor-core blocks (descriptors, TMA,
-// mbarriers, `mma_k`) csrc/wgmma_common.cuh's. The entry points
-// launch on the stream they are given, allocate nothing, and return
-// cudaGetLastError() after the launch.
+// window stream are csrc/probe_common.cuh's, shared with B6's fold
+// (csrc/pair.cu) and B13 (csrc/bisect.cu); the tensor-core blocks
+// (descriptors, TMA, mbarriers, `mma_k`) csrc/wgmma_common.cuh's. The
+// entry points launch on the stream they are given, allocate nothing, and
+// return cudaGetLastError() after the launch.
 
 #include <limits.h>
 
@@ -131,15 +143,25 @@ struct Params {
   const int* win_base;    // [P] B5: first row of the padded window
   const int* win_start;   // [P]
   const int* win_len;     // [P]
-  float* out_d;           // B3 [P, k]; B5 [P, out_pad]
+  float* out_d;           // B3, B6 [P, k]; B5, B7 [P, out_pad]
   int* out_i;
   int n_rows, width, metric, k, k_pad, bin_m, w_pad, out_pad;
+  int bw, keep, fminarg;  // B7
 };
 
-// kFold: B3 (a running top-k per lane); else B5 (per-bin lists written out)
-template <typename T, int kMaxBinM, bool kFold>
+// What a kernel does with each bin's candidates. B5 and B3 are 0 and 1,
+// the false and true of the launchers' fold flag.
+enum Flavour {
+  kB5Store = 0,  // each bin's bin_m best written to its columns
+  kB3Fold = 1,   // folded into a running top-k_pad per lane
+  kB6Lists = 2,  // B3's fold in rank form, bin_m past kM in passes
+  kB7Keys = 3,   // the keep best raw keys of each bw-row sub-bin written out
+};
+
+template <typename T, int kMaxBinM, int kFlavour>
 __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
   using A = typename Acc<T>::type;
+  constexpr bool kFold = kFlavour != kB5Store;  // B3 and B6; the SIMT kernel has no B7
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* t_s = smem;                                   // [kRows][kStride]
   uint32_t* q_s = t_s + kRows * kStride;                  // [kLanes][kStride]
@@ -192,87 +214,104 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
       __syncthreads();  // the previous bin's aux is read
       if (p.metric != kIP) aux_t[lane] = p.t_sq[row0 + lane];
       if (p.penalty != nullptr) aux_p[lane] = p.penalty[row0 + lane];
-      float bv[kMaxBinM];
-      int bi[kMaxBinM];
+      // B6: passes of kMaxBinM rounds while a lane has more of its bin_m to
+      // take, each after the last (value, row) of the one before
+      float lb_v = -__int_as_float(0x7f800000);
+      int lb_r = -1;
+      for (int base = 0;; base += kMaxBinM) {
+        float bv[kMaxBinM];
+        int bi[kMaxBinM];
 #pragma unroll
-      for (int j = 0; j < kMaxBinM; ++j) {
-        bv[j] = __int_as_float(0x7f800000);  // +inf
-        bi[j] = -1;
-      }
-      for (int half = 0; half < kBin / kRows; ++half) {
-        const int r0 = row0 + half * kRows;
-        if (r0 + kRows <= w_st || r0 >= w_end) continue;
-        A acc[kRows];
-        segment_dots<T>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
-        if (owner) {
-          // this lane's dots, then its rows in ascending order into the
-          // bin's sorted list (strict '<': the lower row keeps its place)
+        for (int j = 0; j < kMaxBinM; ++j) {
+          bv[j] = __int_as_float(0x7f800000);  // +inf
+          bi[j] = -1;
+        }
+        for (int half = 0; half < kBin / kRows; ++half) {
+          const int r0 = row0 + half * kRows;
+          if (r0 + kRows <= w_st || r0 >= w_end) continue;
+          A acc[kRows];
+          segment_dots<T>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
+          if (owner) {
+            // this lane's dots, then its rows in ascending order into the
+            // bin's sorted list (strict '<': the lower row keeps its place)
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) dot_s[r * kLanes + lane] = to_float(acc[r]);
+            for (int r = 0; r < kRows; ++r) dot_s[r * kLanes + lane] = to_float(acc[r]);
 #pragma unroll 1
-          for (int r = 0; r < kRows; ++r) {
-            const int row = r0 + r;
-            if (row < w_st || row >= w_end) continue;
-            const int rr = half * kRows + r;
-            const float ts = p.metric != kIP ? aux_t[rr] : 0.0f;
-            const float pen = p.penalty != nullptr ? aux_p[rr] : 0.0f;
-            float v = window_dist(p.metric, dot_s[r * kLanes + lane], qs, ts, p.penalty != nullptr, pen);
-            if (!(v < kMasked * 0.5f) || !(v < bv[kMaxBinM - 1])) continue;
-            int id = row;
-            bool shift = false;  // past the insertion point every entry moves down one
+            for (int r = 0; r < kRows; ++r) {
+              const int row = r0 + r;
+              if (row < w_st || row >= w_end) continue;
+              const int rr = half * kRows + r;
+              const float ts = p.metric != kIP ? aux_t[rr] : 0.0f;
+              const float pen = p.penalty != nullptr ? aux_p[rr] : 0.0f;
+              float v = window_dist(p.metric, dot_s[r * kLanes + lane], qs, ts, p.penalty != nullptr, pen);
+              if (!(v < kMasked * 0.5f) || !(v < bv[kMaxBinM - 1])) continue;
+              // B6: taken by an earlier pass
+              if (kFlavour == kB6Lists && !(v > lb_v || (v == lb_v && row > lb_r))) continue;
+              int id = row;
+              bool shift = false;  // past the insertion point every entry moves down one
 #pragma unroll
-            for (int j = 0; j < kMaxBinM; ++j) {
-              if (shift || v < bv[j]) {
-                shift = true;
-                const float tv = bv[j];
-                const int ti = bi[j];
-                bv[j] = v;
-                bi[j] = id;
-                v = tv;
-                id = ti;
+              for (int j = 0; j < kMaxBinM; ++j) {
+                if (shift || v < bv[j]) {
+                  shift = true;
+                  const float tv = bv[j];
+                  const int ti = bi[j];
+                  bv[j] = v;
+                  bi[j] = id;
+                  v = tv;
+                  id = ti;
+                }
               }
             }
           }
         }
-      }
-      if (owner && !kFold) {
-        // round j of this bin at column j * nb_w + bin of the padded window
-        const int col = (row0 - seg_bs[lo]) / kBin;
-        const int nb_w = p.w_pad / kBin;
-        const size_t out0 = pair * p.out_pad;
+        if (owner && !kFold) {
+          // round j of this bin at column j * nb_w + bin of the padded window
+          const int col = (row0 - seg_bs[lo]) / kBin;
+          const int nb_w = p.w_pad / kBin;
+          const size_t out0 = pair * p.out_pad;
 #pragma unroll
-        for (int j = 0; j < kMaxBinM; ++j) {
-          if (j >= p.bin_m || bi[j] < 0) break;
-          const float d = rank_epilogue(p.metric, bv[j], qs);
-          p.out_d[out0 + j * nb_w + col] = d;
-          p.out_i[out0 + j * nb_w + col] = bi[j];
+          for (int j = 0; j < kMaxBinM; ++j) {
+            if (j >= p.bin_m || bi[j] < 0) break;
+            const float d = rank_epilogue(p.metric, bv[j], qs);
+            p.out_d[out0 + j * nb_w + col] = d;
+            p.out_i[out0 + j * nb_w + col] = bi[j];
+          }
         }
-      }
-      if (owner && kFold) {
-        // merge the bin's candidates (round j = rank within the bin) into
-        // the lane's list, ordered by (distance, round, bin)
+        if (owner && kFold) {
+          // merge the bin's candidates (round base + j = rank within the bin)
+          // into the lane's list, ordered by (distance, round, bin)
 #pragma unroll
-        for (int j = 0; j < kMaxBinM; ++j) {
-          if (j >= p.bin_m || bi[j] < 0) break;
-          const float v = bv[j];
-          int pos = cnt < p.k_pad ? cnt : p.k_pad - 1;
-          if (cnt == p.k_pad) {
-            const float lv = lst_v[pos * kLanes + lane];
-            if (lv < v || (lv == v && lst_r[pos * kLanes + lane] <= j)) break;
+          for (int j = 0; j < kMaxBinM; ++j) {
+            const int round = kFlavour == kB6Lists ? base + j : j;
+            if (round >= p.bin_m || bi[j] < 0) break;
+            const float v = bv[j];
+            int pos = cnt < p.k_pad ? cnt : p.k_pad - 1;
+            if (cnt == p.k_pad) {
+              const float lv = lst_v[pos * kLanes + lane];
+              if (lv < v || (lv == v && lst_r[pos * kLanes + lane] <= round)) break;
+            }
+            while (pos > 0) {
+              const int e = (pos - 1) * kLanes + lane;
+              const float ev = lst_v[e];
+              if (ev < v || (ev == v && lst_r[e] <= round)) break;
+              lst_v[e + kLanes] = ev;
+              lst_i[e + kLanes] = lst_i[e];
+              lst_r[e + kLanes] = lst_r[e];
+              --pos;
+            }
+            lst_v[pos * kLanes + lane] = v;
+            lst_i[pos * kLanes + lane] = bi[j];
+            lst_r[pos * kLanes + lane] = static_cast<uint8_t>(round);
+            if (cnt < p.k_pad) ++cnt;
           }
-          while (pos > 0) {
-            const int e = (pos - 1) * kLanes + lane;
-            const float ev = lst_v[e];
-            if (ev < v || (ev == v && lst_r[e] <= j)) break;
-            lst_v[e + kLanes] = ev;
-            lst_i[e + kLanes] = lst_i[e];
-            lst_r[e + kLanes] = lst_r[e];
-            --pos;
-          }
-          lst_v[pos * kLanes + lane] = v;
-          lst_i[pos * kLanes + lane] = bi[j];
-          lst_r[pos * kLanes + lane] = static_cast<uint8_t>(j);
-          if (cnt < p.k_pad) ++cnt;
+        }
+        if constexpr (kFlavour != kB6Lists) {
+          break;
+        } else {
+          // another pass while an owner's pass was full and rounds remain
+          lb_v = bv[kMaxBinM - 1];
+          lb_r = bi[kMaxBinM - 1];
+          if (!__syncthreads_or(owner && bi[kMaxBinM - 1] >= 0 && base + kMaxBinM < p.bin_m)) break;
         }
       }
     }
@@ -283,7 +322,8 @@ __global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
       float d = kMasked;
       int id = -1;
       if (j < cnt) {
-        d = rank_epilogue(p.metric, lst_v[j * kLanes + lane], qs);
+        if constexpr (kFlavour == kB6Lists) d = lst_v[j * kLanes + lane];  // rank form: B6's fold compares these
+        else d = rank_epilogue(p.metric, lst_v[j * kLanes + lane], qs);
         id = d >= kMasked * 0.5f ? -1 : lst_i[j * kLanes + lane];
       }
       p.out_d[pair * p.k + j] = d;
@@ -298,9 +338,9 @@ size_t smem_bytes(int k_pad) {
          ((static_cast<size_t>(k_pad) * kLanes + 15) & ~size_t(15)) + sizeof(float) * kRows * kLanes;
 }
 
-template <typename T, int kMaxBinM, bool kFold>
+template <typename T, int kMaxBinM, int kFlavour>
 int launch_typed(const Params& p, int n_pairs, cudaStream_t stream) {
-  auto kernel = grouped_probe_kernel<T, kMaxBinM, kFold>;
+  auto kernel = grouped_probe_kernel<T, kMaxBinM, kFlavour>;
   const size_t smem = smem_bytes(p.k_pad);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -467,15 +507,18 @@ __device__ __forceinline__ void quad_merge(float (&v)[M], int (&r)[M]) {
   }
 }
 
-// B3 (kFold: a running top-k_pad per lane) and B5 (the bins' lists written
-// out) over i8, bf16 or packed b1 (uint8) rows, on `wgmma`. kM: entries of
-// a bin's list (4 or 16 for B3; 4 or 8 for B5, 8 or 16 over b1), bin_m <=
-// kM of them kept. kSmall: i8 rows of at most 256 bytes and b1 rows, whose
-// dots convert to f32 exactly without I2F.
-template <typename T, int kMetric, int kM, bool kFold, bool kSmall>
+// B3 (a running top-k_pad per lane), B5 (the bins' lists written out) and
+// B6's lists (B3 in rank form) over i8, bf16 or packed b1 (uint8) rows, and
+// B7 (the sub-bins' keys written out) over i8 rows, on `wgmma`; kFlavour
+// says which. kM: entries of a bin's list (4 or 16 for B3; 4 or 8 for B5, 8
+// or 16 over b1; 4 for B6, bin_m <= k of them in passes of kM), bin_m <= kM
+// of them kept. kSmall: i8 rows of at most 256 bytes and b1 rows, whose dots
+// convert to f32 exactly without I2F.
+template <typename T, int kMetric, int kM, int kFlavour, bool kSmall>
 __global__ void __launch_bounds__(kPBlock, 1)
 grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map, const Params p) {
   using A = typename Acc<T>::type;
+  constexpr bool kFold = kFlavour == kB3Fold || kFlavour == kB6Lists;  // a running list per lane
   constexpr bool kB1 = std::is_same<T, uint8_t>::value;
   constexpr int kTogether = kM <= 8 ? 2 : 1;  // lanes scored at once: two for ILP, one for 16-entry lists
   extern __shared__ uint8_t smem_raw[];
@@ -502,7 +545,7 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
   if (tid < kLanes) {
     const size_t pair = cell * kLanes + tid;
     int st = p.win_start[pair];
-    int ln = p.win_len[pair];
+    int ln = kFlavour == kB7Keys ? p.w_pad : p.win_len[pair];  // B7: the whole padded window
     int bs = kFold ? 0 : p.win_base[pair];
     if (st < 0 || ln < 0 || st > p.n_rows - ln) ln = 0;
     if (!kFold && (bs < 0 || bs % kBin || bs > p.n_rows - p.w_pad || st < bs || st - bs > p.w_pad - ln)) ln = 0;
@@ -516,7 +559,7 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
     for (int i = 0; i < L.stages; ++i) taken[i] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (!kFold) {
+  if (kFlavour == kB5Store) {
     // MASKED/-1 everywhere first, in coalesced stores; the bins of each
     // window overwrite their columns below
     const size_t cell0 = cell * kLanes * p.out_pad;
@@ -526,6 +569,18 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
     }
   }
   __syncthreads();
+  if constexpr (kFlavour == kB7Keys) {
+    // MASKED/-1 only where no round lands: past keep * w_pad / bw, and the
+    // whole row of a lane without a window; a warp a row, coalesced
+    const int used = p.keep * (p.w_pad / p.bw);
+    for (int lane = tid / 32; lane < kLanes; lane += kPBlock / 32) {
+      const size_t row = (cell * kLanes + lane) * p.out_pad;
+      for (int c = (S.ln[lane] > 0 ? used : 0) + tid % 32; c < p.out_pad; c += 32) {
+        p.out_d[row + c] = kMasked;
+        p.out_i[row + c] = -1;
+      }
+    }
+  }
   // the runs of lanes that share a window: a ballot per warp of warpgroup 0
   if (tid < kLanes) {
     const bool start =
@@ -575,8 +630,10 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
   const int lane0 = kQT * g + 16 * warp + l / 4;
   const int c2 = 2 * (l % 4);
   float qs[2];
+  if constexpr (kFlavour != kB7Keys) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) qs[h] = p.q_sq[q0 + lane0 + 8 * h];
+    for (int h = 0; h < 2; ++h) qs[h] = p.q_sq[q0 + lane0 + 8 * h];
+  }
   // B3: thread h < 2 of a quad owns lane lane0 + 8 h's list: its count and,
   // once the list is full, its last value
   int cnt = 0;
@@ -652,147 +709,285 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
       ++used;
       if (!warp_active) continue;
 
+      if constexpr (kFlavour == kB7Keys) {
+        // B7, from the accumulators: per lane and bw-row sub-bin, round t
+        // takes the best (key, row), key = -dot or -dot rounded to f32. A
+        // thread holds `rows` of each sub-bin (row pairs of 8 j + c2 and a
+        // run of j), `sharing` threads of the quad hold one: each thread's
+        // best by a tree over its aligned runs, the sharing threads' best by
+        // shuffles, written by one of them (a thread's sub-bins of a tile
+        // are adjacent columns from bw = 8 on: 16-byte stores) and removed
+        // by its holder. The two lanes' rounds interleave; each bw is a
+        // compile-time shape of the rounds, all in this one instantiation.
+        const int lg_bw = __ffs(p.bw) - 1;
+        const int col0 = (row0 - S.bs[lo]) >> lg_bw;  // the tile's first sub-bin
+        const int nbw = p.w_pad >> lg_bw;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int x = -acc[i];
+          acc[i] = p.fminarg ? __float2int_rz(__int2float_rn(x)) : x;
+        }
+        auto rounds = [&](auto shape) {
+          constexpr int bw = decltype(shape)::value;
+          constexpr int rows = bw / 4 > 2 ? bw / 4 : 2;
+          constexpr int sharing = bw / rows;
+          constexpr int run = rows / 2;     // row pairs of a thread's run
+          constexpr int heads = 16 / run;   // a thread's sub-bins of the tile
+          for (int t = 0; t < p.keep; ++t) {
+            int bk[2][16], bc[2][16];  // per row pair, then per run: the best key and its column
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int i = 0; i < 16; ++i) {
+                const int k0 = acc[4 * i + 2 * h], k1 = acc[4 * i + 2 * h + 1];
+                bk[h][i] = k1 < k0 ? k1 : k0;
+                bc[h][i] = 8 * i + c2 + (k1 < k0);
+              }
+            }
+#pragma unroll
+            for (int s = 1; s < run; s *= 2) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int i = 0; i < 16; i += 2 * s) {
+                  if (bk[h][i + s] < bk[h][i]) {
+                    bk[h][i] = bk[h][i + s];
+                    bc[h][i] = bc[h][i + s];
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int m = 1; m < sharing; m *= 2) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int i = 0; i < 16; i += run) {
+                  const int ok = __shfl_xor_sync(0xffffffffu, bk[h][i], m);
+                  const int oc = __shfl_xor_sync(0xffffffffu, bc[h][i], m);
+                  if (ok < bk[h][i] || (ok == bk[h][i] && oc < bc[h][i])) {
+                    bk[h][i] = ok;
+                    bc[h][i] = oc;
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const bool writer = act[h] && (l & (sharing - 1)) == (t & (sharing - 1));
+              const size_t at = static_cast<size_t>(q0 + lane0 + 8 * h) * p.out_pad + t * nbw + col0;
+              if (sharing == 4 && heads % 4 == 0) {
+                // columns at + u: the tile's sub-bins of this lane, in order
+#pragma unroll
+                for (int u = 0; u < heads; u += 4) {
+                  if (!writer) break;
+                  reinterpret_cast<float4*>(p.out_d + at)[u / 4] =
+                      make_float4(__int2float_rn(bk[h][u * run]), __int2float_rn(bk[h][(u + 1) * run]),
+                                  __int2float_rn(bk[h][(u + 2) * run]), __int2float_rn(bk[h][(u + 3) * run]));
+                  reinterpret_cast<int4*>(p.out_i + at)[u / 4] =
+                      make_int4(row0 + bc[h][u * run], row0 + bc[h][(u + 1) * run], row0 + bc[h][(u + 2) * run],
+                                row0 + bc[h][(u + 3) * run]);
+                }
+              } else {
+#pragma unroll
+                for (int i = 0; i < 16; i += run) {
+                  if (!writer) break;
+                  p.out_d[at + ((8 * i + c2) >> lg_bw)] = __int2float_rn(bk[h][i]);
+                  p.out_i[at + ((8 * i + c2) >> lg_bw)] = row0 + bc[h][i];
+                }
+              }
+            }
+#pragma unroll
+            for (int s = run / 2; s >= 1; s /= 2) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                for (int i = 0; i < 16; i += 2 * s) bc[h][i + s] = bc[h][i];
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+#pragma unroll
+              for (int r = 0; r < 32; ++r) {
+                if (8 * (r / 2) + c2 + r % 2 == bc[h][r / 2]) acc[4 * (r / 2) + 2 * h + r % 2] = INT_MAX;
+              }
+            }
+          }
+        };
+        switch (p.bw) {
+          case 2: rounds(std::integral_constant<int, 2>()); break;
+          case 4: rounds(std::integral_constant<int, 4>()); break;
+          case 8: rounds(std::integral_constant<int, 8>()); break;
+          case 16: rounds(std::integral_constant<int, 16>()); break;
+          case 32: rounds(std::integral_constant<int, 32>()); break;
+          case 64: rounds(std::integral_constant<int, 64>()); break;
+          default: rounds(std::integral_constant<int, 128>()); break;
+        }
+        continue;
+      }
+
       // The epilogue, from the accumulators: each thread scores its 32 rows
       // of each of its two lanes and keeps their kM best, the quad merges
       // its four lists of each lane, then B3's two owners fold the bin's
-      // lists into their lanes' lists and B5 writes them out.
+      // lists into their lanes' lists and B5 writes them out. B6 repeats
+      // this in passes of kM rounds, each taking the rows after the last
+      // (value, row) of the pass before, while a lane of the warp has a full
+      // pass and rounds of its bin_m left.
       const int c_lo = max(w_st - row0, 0), span = min(w_end - row0, kBin) - c_lo;
+      float lb_v[2] = {-inf, -inf};
+      int lb_c[2] = {-1, -1};
+      for (int base = 0;; base += kM) {
+        bool more = false;
 #pragma unroll
-      for (int h0 = 0; h0 < 2; h0 += kTogether) {
-        float bv[kTogether][kM];
-        int bi[kTogether][kM];
-        float thr[kTogether];
+        for (int h0 = 0; h0 < 2; h0 += kTogether) {
+          float bv[kTogether][kM];
+          int bi[kTogether][kM];
+          float thr[kTogether];
 #pragma unroll
-        for (int u = 0; u < kTogether; ++u) {
+          for (int u = 0; u < kTogether; ++u) {
 #pragma unroll
-          for (int j = 0; j < kM; ++j) {
-            bv[u][j] = inf;
-            bi[u][j] = INT_MAX;
+            for (int j = 0; j < kM; ++j) {
+              bv[u][j] = inf;
+              bi[u][j] = INT_MAX;
+            }
+            // B3: a row past the lane's full list cannot enter it (the bin's
+            // kept candidates are a prefix of the bin's order, so dropping it
+            // moves no round)
+            thr[u] = kFold ? __shfl_sync(0xffffffffu, own_thr, (l & ~3) | (h0 + u)) : below_half;
           }
-          // B3: a row past the lane's full list cannot enter it (the bin's
-          // kept candidates are a prefix of the bin's order, so dropping it
-          // moves no round)
-          thr[u] = kFold ? __shfl_sync(0xffffffffu, own_thr, (l & ~3) | (h0 + u)) : below_half;
-        }
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 8 * j + c2;
-          float2 ts = make_float2(0.0f, 0.0f), pen = make_float2(0.0f, 0.0f);
-          if (kMetric != kIP) ts = *reinterpret_cast<const float2*>(ax + col);
-          if (has_pen) pen = *reinterpret_cast<const float2*>(ax + kBin + col);
+          for (int j = 0; j < 16; ++j) {
+            const int col = 8 * j + c2;
+            float2 ts = make_float2(0.0f, 0.0f), pen = make_float2(0.0f, 0.0f);
+            if (kMetric != kIP) ts = *reinterpret_cast<const float2*>(ax + col);
+            if (has_pen) pen = *reinterpret_cast<const float2*>(ax + kBin + col);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool in = static_cast<unsigned>(col + e - c_lo) < static_cast<unsigned>(span);
+            for (int e = 0; e < 2; ++e) {
+              const bool in = static_cast<unsigned>(col + e - c_lo) < static_cast<unsigned>(span);
 #pragma unroll
-            for (int u = 0; u < kTogether; ++u) {
-              const int h = h0 + u;
-              const float v = window_dist(kMetric, dot_value<kSmall>(acc[4 * j + 2 * h + e]), qs[h],
-                                          e ? ts.y : ts.x, has_pen, e ? pen.y : pen.x);
-              // rows in ascending order: '<' leaves the lower row first
-              if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u][kM - 1])) continue;
-              float x = v;
-              int c = col + e;
-              bool shift = false;  // past the insertion point every entry moves down one
+              for (int u = 0; u < kTogether; ++u) {
+                const int h = h0 + u;
+                const float v = window_dist(kMetric, dot_value<kSmall>(acc[4 * j + 2 * h + e]), qs[h],
+                                            e ? ts.y : ts.x, has_pen, e ? pen.y : pen.x);
+                // rows in ascending order: '<' leaves the lower row first
+                if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u][kM - 1])) continue;
+                if constexpr (kFlavour == kB6Lists) {
+                  if (!(v > lb_v[h] || (v == lb_v[h] && col + e > lb_c[h]))) continue;  // taken by an earlier pass
+                }
+                float x = v;
+                int c = col + e;
+                bool shift = false;  // past the insertion point every entry moves down one
 #pragma unroll
-              for (int i = 0; i < kM; ++i) {
-                if (shift || x < bv[u][i]) {
-                  shift = true;
-                  const float tv = bv[u][i];
-                  const int tc = bi[u][i];
-                  bv[u][i] = x;
-                  bi[u][i] = c;
-                  x = tv;
-                  c = tc;
+                for (int i = 0; i < kM; ++i) {
+                  if (shift || x < bv[u][i]) {
+                    shift = true;
+                    const float tv = bv[u][i];
+                    const int tc = bi[u][i];
+                    bv[u][i] = x;
+                    bi[u][i] = c;
+                    x = tv;
+                    c = tc;
+                  }
                 }
               }
             }
           }
-        }
 #pragma unroll
-        for (int u = 0; u < kTogether; ++u) {
-          const int h = h0 + u;
-          quad_merge<kM>(bv[u], bi[u]);
-          if (!act[h]) continue;
-          if (kFold) {
-            // the owner of lane h keeps the bin's list for the fold
-            if ((l & 3) == h) {
+          for (int u = 0; u < kTogether; ++u) {
+            const int h = h0 + u;
+            quad_merge<kM>(bv[u], bi[u]);
+            if (!act[h]) continue;
+            if (kFold) {
+              // the owner of lane h keeps the bin's list for the fold
+              if ((l & 3) == h) {
+#pragma unroll
+                for (int j = 0; j < kM; ++j) {
+                  cv[j] = bv[u][j];
+                  ci[j] = bi[u][j];
+                }
+              }
+              if constexpr (kFlavour == kB6Lists) {
+                lb_v[h] = bv[u][kM - 1];
+                lb_c[h] = bi[u][kM - 1];
+                more |= bi[u][kM - 1] != INT_MAX;
+              }
+            } else {
+              // round j of this bin at column j * nb_w + bin of the padded
+              // window; the quad's threads take every fourth round
+              const size_t out0 = static_cast<size_t>(q0 + lane0 + 8 * h) * p.out_pad + (row0 - S.bs[lo]) / kBin;
+              const int nb_w = p.w_pad / kBin;
 #pragma unroll
               for (int j = 0; j < kM; ++j) {
-                cv[j] = bv[u][j];
-                ci[j] = bi[u][j];
+                if (j >= p.bin_m || bi[u][j] == INT_MAX) break;
+                if ((j & 3) != (l & 3)) continue;
+                p.out_d[out0 + j * nb_w] = rank_epilogue(kMetric, bv[u][j], qs[h]);
+                p.out_i[out0 + j * nb_w] = row0 + bi[u][j];
               }
             }
-          } else {
-            // round j of this bin at column j * nb_w + bin of the padded
-            // window; the quad's threads take every fourth round
-            const size_t out0 = static_cast<size_t>(q0 + lane0 + 8 * h) * p.out_pad + (row0 - S.bs[lo]) / kBin;
-            const int nb_w = p.w_pad / kBin;
-#pragma unroll
-            for (int j = 0; j < kM; ++j) {
-              if (j >= p.bin_m || bi[u][j] == INT_MAX) break;
-              if ((j & 3) != (l & 3)) continue;
-              p.out_d[out0 + j * nb_w] = rank_epilogue(kMetric, bv[u][j], qs[h]);
-              p.out_i[out0 + j * nb_w] = row0 + bi[u][j];
-            }
           }
         }
-      }
-      int m = 0;  // B3: the owned lane's candidates of this bin
-      if (kFold && (l & 3) < 2 && ((l & 3) == 0 ? act[0] : act[1])) {
+        int m = 0;  // B3: the owned lane's candidates of this bin
+        if (kFold && (l & 3) < 2 && ((l & 3) == 0 ? act[0] : act[1])) {
 #pragma unroll
-        for (int j = 0; j < kM; ++j) m += j < p.bin_m && ci[j] != INT_MAX;
-      }
-      if (m > 0) {
-        // B3: the owner's lane takes the bin's candidates (round j = rank
-        // within the bin) into its list, ordered by (distance, round, bin):
-        // each candidate's place is the count of entries before it (a lower
-        // value, or the same value from an earlier round or bin), then the
-        // entries from the first place on move up past the candidates before
-        // them, four at a time from the top; entries past k_pad drop
-        const int lane = lane0 + 8 * (l & 3);
-        int2* le = lst + lane;
-        uint8_t* lr = lst_r + lane;
-        int pos[kM];
+          for (int j = 0; j < kM; ++j) m += base + j < p.bin_m && ci[j] != INT_MAX;
+        }
+        if (m > 0) {
+          // B3: the owner's lane takes the bin's candidates (round base + j =
+          // rank within the bin) into its list, ordered by (distance, round,
+          // bin): each candidate's place is the count of entries before it (a
+          // lower value, or the same value from an earlier round or bin), then
+          // the entries from the first place on move up past the candidates
+          // before them, four at a time from the top; entries past k_pad drop
+          const int lane = lane0 + 8 * (l & 3);
+          int2* le = lst + lane;
+          uint8_t* lr = lst_r + lane;
+          int pos[kM];
 #pragma unroll
-        for (int j = 0; j < kM; ++j) pos[j] = 0;
+          for (int j = 0; j < kM; ++j) pos[j] = 0;
 #pragma unroll 4
-        for (int e = 0; e < cnt; ++e) {
-          const float ev = __int_as_float(le[e * kLanes].x);
-          const int er = lr[e * kLanes];
+          for (int e = 0; e < cnt; ++e) {
+            const float ev = __int_as_float(le[e * kLanes].x);
+            const int er = lr[e * kLanes];
 #pragma unroll
-          for (int j = 0; j < kM; ++j) pos[j] += ev < cv[j] || (ev == cv[j] && er <= j);
-        }
-        for (int top = cnt - 1; top >= pos[0]; top -= 4) {
-          int2 me[4];
-          int mr[4];
+            for (int j = 0; j < kM; ++j) pos[j] += ev < cv[j] || (ev == cv[j] && er <= base + j);
+          }
+          for (int top = cnt - 1; top >= pos[0]; top -= 4) {
+            int2 me[4];
+            int mr[4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (top - c >= pos[0]) {
-              me[c] = le[(top - c) * kLanes];
-              mr[c] = lr[(top - c) * kLanes];
+            for (int c = 0; c < 4; ++c) {
+              if (top - c >= pos[0]) {
+                me[c] = le[(top - c) * kLanes];
+                mr[c] = lr[(top - c) * kLanes];
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int e = top - c;
+              int to = e;
+#pragma unroll
+              for (int j = 0; j < kM; ++j) to += j < m && pos[j] <= e;
+              if (e >= pos[0] && to < p.k_pad) {
+                le[to * kLanes] = me[c];
+                lr[to * kLanes] = static_cast<uint8_t>(mr[c]);
+              }
             }
           }
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int e = top - c;
-            int to = e;
-#pragma unroll
-            for (int j = 0; j < kM; ++j) to += j < m && pos[j] <= e;
-            if (e >= pos[0] && to < p.k_pad) {
-              le[to * kLanes] = me[c];
-              lr[to * kLanes] = static_cast<uint8_t>(mr[c]);
+          for (int j = 0; j < kM; ++j) {
+            if (j < m && pos[j] + j < p.k_pad) {
+              le[(pos[j] + j) * kLanes] = make_int2(__float_as_int(cv[j]), row0 + ci[j]);
+              lr[(pos[j] + j) * kLanes] = static_cast<uint8_t>(base + j);
             }
           }
+          cnt = min(cnt + m, p.k_pad);
+          if (cnt == p.k_pad) own_thr = __int_as_float(lst[(p.k_pad - 1) * kLanes + lane].x);
         }
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-          if (j < m && pos[j] + j < p.k_pad) {
-            le[(pos[j] + j) * kLanes] = make_int2(__float_as_int(cv[j]), row0 + ci[j]);
-            lr[(pos[j] + j) * kLanes] = static_cast<uint8_t>(j);
-          }
+        if constexpr (kFlavour != kB6Lists) {
+          break;
+        } else if (!__any_sync(0xffffffffu, more && base + kM < p.bin_m)) {
+          break;
         }
-        cnt = min(cnt + m, p.k_pad);
-        if (cnt == p.k_pad) own_thr = __int_as_float(lst[(p.k_pad - 1) * kLanes + lane].x);
       }
     }
   }
@@ -808,7 +1003,8 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
       int id = -1;
       if (j < S.cnt[lane]) {
         const int2 entry = lst[j * kLanes + lane];
-        d = rank_epilogue(kMetric, __int_as_float(entry.x), p.q_sq[q0 + lane]);
+        if constexpr (kFlavour == kB6Lists) d = __int_as_float(entry.x);  // rank form: B6's fold compares these
+        else d = rank_epilogue(kMetric, __int_as_float(entry.x), p.q_sq[q0 + lane]);
         id = d >= kMasked * 0.5f ? -1 : entry.y;
       }
       p.out_d[cell0 + e] = d;
@@ -817,18 +1013,20 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
   }
 }
 
-template <typename T, int kMetric, int kM, bool kFold>
+template <typename T, int kMetric, int kM, int kFlavour>
 int run_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const Params& p, int n_pairs, cudaStream_t s) {
+  constexpr bool kFold = kFlavour == kB3Fold || kFlavour == kB6Lists;
   const ProbeLayout L = probe_layout(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
   if (L.stages < 2) return cudaErrorInvalidValue;
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
   constexpr bool kB1 = std::is_same<T, uint8_t>::value;
   // kSmall: i8 dots of rows of at most 256 bytes, and b1 dots (at most 8 W
-  // bits) of rows of at most 2^19 bytes, the one b1 instantiation
+  // bits) of rows of at most 2^19 bytes, the one b1 instantiation; B7 keeps
+  // its dots as integers
   if (kB1 && p.width > (1 << 19)) return cudaErrorInvalidValue;
-  auto kernel = grouped_wgmma<T, kMetric, kM, kFold, kI8 || kB1>;
+  auto kernel = grouped_wgmma<T, kMetric, kM, kFlavour, (kI8 || kB1) && kFlavour != kB7Keys>;
   if constexpr (kI8) {
-    if (p.width > 256) kernel = grouped_wgmma<T, kMetric, kM, kFold, false>;
+    if (p.width > 256) kernel = grouped_wgmma<T, kMetric, kM, kFlavour, false>;
   }
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
@@ -836,138 +1034,30 @@ int run_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const Params& 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3/B5 over i8, bf16 or b1 rows on the tensor cores: the tensor maps (a
-// query box of 64 rows, a table box of one 128-row bin), then the metric's
-// kernel; b1 rows go with hamming alone, l2sq's rank form.
-template <typename T, int kM, bool kFold>
+// B3/B5/B6/B7 over i8, bf16 or b1 rows on the tensor cores: the tensor maps
+// (a query box of 64 rows, a table box of one 128-row bin), then the
+// metric's kernel; b1 rows go with hamming alone, l2sq's rank form, and B7
+// takes no metric. kFlavour: B5 (0, false) or B3 (1, true), B6's lists, B7.
+template <typename T, int kM, int kFlavour>
 int launch_wgmma(const Params& p, int n_pairs, cudaStream_t s) {
   const int row_bytes = p.width * static_cast<int>(sizeof(T));
   CUtensorMap q_map, t_map;
   if (!tile_map(&q_map, p.q_g, row_bytes, n_pairs, kQT) || !tile_map(&t_map, p.table, row_bytes, p.n_rows, kBin))
     return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, uint8_t>::value) {
-    return run_wgmma<T, kL2sq, kM, kFold>(q_map, t_map, p, n_pairs, s);
+    return run_wgmma<T, kL2sq, kM, kFlavour>(q_map, t_map, p, n_pairs, s);
+  } else if constexpr (kFlavour == kB7Keys) {
+    return run_wgmma<T, kIP, kM, kFlavour>(q_map, t_map, p, n_pairs, s);
   } else {
     switch (p.metric) {
       case kIP:
-        return run_wgmma<T, kIP, kM, kFold>(q_map, t_map, p, n_pairs, s);
+        return run_wgmma<T, kIP, kM, kFlavour>(q_map, t_map, p, n_pairs, s);
       case kCos:
-        return run_wgmma<T, kCos, kM, kFold>(q_map, t_map, p, n_pairs, s);
+        return run_wgmma<T, kCos, kM, kFlavour>(q_map, t_map, p, n_pairs, s);
       default:
-        return run_wgmma<T, kL2sq, kM, kFold>(q_map, t_map, p, n_pairs, s);
+        return run_wgmma<T, kL2sq, kM, kFlavour>(q_map, t_map, p, n_pairs, s);
     }
   }
-}
-
-// B7: per pair, the whole padded window [win_base, win_base + w_pad), no
-// masks, no stats; per bw-row bin the `keep` rows of largest i8 dot, by
-// (-dot, row) (`pack`, the packed key's order) or by (f32(-dot), row)
-// (`fminarg`), written round-major as f32 -dot beside the global row.
-struct BinnedParams {
-  const int8_t* q_g;      // [P, W]
-  const int8_t* table;    // [n_rows, W]
-  const int* win_base;    // [P]
-  float* out_d;           // [P, out_pad]
-  int* out_i;
-  int n_rows, width, w_pad, bw, keep, fminarg, out_pad;
-};
-
-constexpr int kMaxKeep = 8;
-
-// a before b in a bin's order: (key, row) with the rows met in ascending
-// order, so a strict '<' on the key leaves the lower row first
-__device__ __forceinline__ bool binned_before(int a, int b, int fminarg) {
-  return fminarg ? __int2float_rn(a) < __int2float_rn(b) : a < b;
-}
-
-__global__ void __launch_bounds__(kLanes) binned_probe_kernel(const BinnedParams p) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* t_s = smem;                                   // [kRows][kStride]
-  uint32_t* q_s = t_s + kRows * kStride;                  // [kLanes][kStride]
-  int* dot_s = reinterpret_cast<int*>(q_s + kLanes * kStride);  // [kRows][kLanes]
-  int* seg_st = dot_s + kRows * kLanes;                   // [kLanes]
-  int* seg_ln = seg_st + kLanes;                          // [kLanes]
-  int* seg_bs = seg_ln + kLanes;                          // [kLanes]
-  int* seg_lo = seg_bs + kLanes;                          // [kLanes + 1]
-  int* n_seg = seg_lo + kLanes + 1;                       // [1]
-
-  const int lane = threadIdx.x;
-  const size_t pair = static_cast<size_t>(blockIdx.x) * kLanes + lane;
-  const int row_words = p.width / 4;
-  const int nbw = p.w_pad / p.bw;
-  const uint32_t* t_src = reinterpret_cast<const uint32_t*>(p.table);
-  const uint32_t* q_src =
-      reinterpret_cast<const uint32_t*>(p.q_g) + static_cast<size_t>(blockIdx.x) * kLanes * row_words;
-  const int bs = p.win_base[pair];
-  const bool ok = bs >= 0 && bs % kBin == 0 && bs <= p.n_rows - p.w_pad;
-  // MASKED/-1 everywhere first, in coalesced stores; each window's bins
-  // overwrite their columns below
-  const size_t cell0 = static_cast<size_t>(blockIdx.x) * kLanes * p.out_pad;
-  for (int e = lane; e < kLanes * p.out_pad; e += kLanes) {
-    p.out_d[cell0 + e] = kMasked;
-    p.out_i[cell0 + e] = -1;
-  }
-  // a lane reads its whole padded window, or nothing
-  find_segments(lane, ok ? bs : 0, ok ? p.w_pad : 0, ok ? bs : 0, seg_st, seg_ln, seg_bs, seg_lo, n_seg);
-
-  const size_t out0 = pair * p.out_pad;
-  const int segs = *n_seg;
-  for (int s = 0; s < segs; ++s) {
-    const int lo = seg_lo[s], hi = seg_lo[s + 1];
-    if (seg_ln[lo] == 0) continue;
-    const int base = seg_bs[lo];
-    const bool owner = lane >= lo && lane < hi;
-    int lv[kMaxKeep];  // this bin's best keys (-dot), ascending
-    int li[kMaxKeep];
-    for (int r0 = base; r0 < base + p.w_pad; r0 += kRows) {
-      int acc[kRows];
-      segment_dots<int8_t>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
-      if (!owner) continue;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) dot_s[r * kLanes + lane] = acc[r];
-#pragma unroll 1
-      for (int r = 0; r < kRows; ++r) {
-        const int row = r0 + r;
-        const int sub = (row - base) % p.bw;  // bins start at multiples of bw
-        if (sub == 0) {
-#pragma unroll
-          for (int j = 0; j < kMaxKeep; ++j) {
-            lv[j] = 0x7fffffff;
-            li[j] = -1;
-          }
-        }
-        int v = -dot_s[r * kLanes + lane];
-        int id = row;
-        bool shift = false;  // past the insertion point every entry moves down one
-#pragma unroll
-        for (int j = 0; j < kMaxKeep; ++j) {
-          if (j < p.keep && (shift || li[j] < 0 || binned_before(v, lv[j], p.fminarg))) {
-            shift = true;
-            const int tv = lv[j], ti = li[j];
-            lv[j] = v;
-            li[j] = id;
-            v = tv;
-            id = ti;
-          }
-        }
-        if (sub == p.bw - 1) {
-          // round j of this bin at column j * nbw + bin
-          const int bin = (row - base) / p.bw;
-#pragma unroll
-          for (int j = 0; j < kMaxKeep; ++j) {
-            if (j >= p.keep) break;
-            p.out_d[out0 + j * nbw + bin] = __int2float_rn(lv[j]);
-            p.out_i[out0 + j * nbw + bin] = li[j];
-          }
-        }
-      }
-    }
-  }
-}
-
-size_t binned_smem_bytes() {
-  return sizeof(uint32_t) * (kRows + kLanes) * kStride + sizeof(int) * kRows * kLanes +
-         sizeof(int) * (4 * kLanes + 2);
 }
 
 // B3: i8, bf16 and b1 on the tensor cores, f32 on the SIMT kernel.
@@ -983,12 +1073,40 @@ int launch_fold(const Params& p, int n_pairs, cudaStream_t stream) {
   }
 }
 
-bool bad_common(int n_pairs, int n_rows, int width, int dtype, int metric, int bin_m,
-                const float* t_sq, const float* penalty) {
+// B6's lists: i8, bf16 and b1 on the tensor cores in passes of 4 rounds,
+// f32 on the SIMT kernel in passes of 4 or 16 (each pass computes the dots
+// again there).
+template <typename T>
+int launch_lists(const Params& p, int n_pairs, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return launch_wgmma<T, 4, kB6Lists>(p, n_pairs, stream);
+  } else {
+    if (p.bin_m <= 4) return launch_typed<T, 4, kB6Lists>(p, n_pairs, stream);
+    return launch_typed<T, 16, kB6Lists>(p, n_pairs, stream);
+  }
+}
+
+bool bad_common(int n_pairs, int n_rows, int width, int dtype, int metric, const float* t_sq) {
   // hamming goes with packed b1 rows and they with it
-  return n_pairs <= 0 || n_pairs % kLanes || n_rows % kBin || width % 128 || bin_m < 1 || bin_m > 16 ||
-         metric < kIP || metric > kHamming || (metric == kHamming) != (dtype == kB1) ||
-         (metric != kIP && t_sq == nullptr);
+  return n_pairs <= 0 || n_pairs % kLanes || n_rows % kBin || width % 128 || metric < kIP || metric > kHamming ||
+         (metric == kHamming) != (dtype == kB1) || (metric != kIP && t_sq == nullptr);
+}
+
+template <int (*launch_i8)(const Params&, int, cudaStream_t), int (*launch_bf16)(const Params&, int, cudaStream_t),
+          int (*launch_f32)(const Params&, int, cudaStream_t), int (*launch_b1)(const Params&, int, cudaStream_t)>
+int by_dtype(int dtype, const Params& p, int n_pairs, cudaStream_t s) {
+  switch (dtype) {
+    case kI8:
+      return launch_i8(p, n_pairs, s);
+    case kBF16:
+      return launch_bf16(p, n_pairs, s);
+    case kF32:
+      return launch_f32(p, n_pairs, s);
+    case kB1:
+      return launch_b1(p, n_pairs, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1002,24 +1120,26 @@ int usearch_grouped_probe(const void* q_g, const float* q_sq, const void* table,
                           const int* win_len, float* out_d, int* out_i, int n_pairs, int n_rows,
                           int width, int dtype, int metric, int k, int bin_m, void* stream) {
   const int k_pad = k > 8 ? k : 8;
-  if (bad_common(n_pairs, n_rows, width, dtype, metric, bin_m, t_sq, penalty) || k < 1 || k > 128 ||
+  if (bad_common(n_pairs, n_rows, width, dtype, metric, t_sq) || k < 1 || k > 128 || bin_m < 1 || bin_m > 16 ||
       bin_m > k_pad)
     return cudaErrorInvalidValue;
   const Params p{q_g, q_sq, table, t_sq, penalty, nullptr, win_start, win_len, out_d, out_i,
                  n_rows, width, metric, k, k_pad, bin_m, 0, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kI8:
-      return launch_fold<int8_t>(p, n_pairs, s);
-    case kBF16:
-      return launch_fold<__nv_bfloat16>(p, n_pairs, s);
-    case kF32:
-      return launch_fold<float>(p, n_pairs, s);
-    case kB1:
-      return launch_fold<uint8_t>(p, n_pairs, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return by_dtype<launch_fold<int8_t>, launch_fold<__nv_bfloat16>, launch_fold<float>, launch_fold<uint8_t>>(
+      dtype, p, n_pairs, static_cast<cudaStream_t>(stream));
+}
+
+// B6's lists: B3 over the pair flavour's (query, window) pairs, each pair's
+// first k (value, row) in rank form, before `_rank_epilogue`; bin_m <= k.
+int usearch_pair_lists(const void* q_g, const float* q_sq, const void* table, const float* t_sq,
+                       const float* penalty, const int* win_start, const int* win_len, float* out_d, int* out_i,
+                       int n_pairs, int n_rows, int width, int dtype, int metric, int k, int bin_m, void* stream) {
+  if (bad_common(n_pairs, n_rows, width, dtype, metric, t_sq) || k < 1 || k > 128 || bin_m < 1 || bin_m > k)
+    return cudaErrorInvalidValue;
+  const Params p{q_g, q_sq, table, t_sq, penalty, nullptr, win_start, win_len, out_d, out_i,
+                 n_rows, width, metric, k, k > 8 ? k : 8, bin_m, 0, 0};
+  return by_dtype<launch_lists<int8_t>, launch_lists<__nv_bfloat16>, launch_lists<float>, launch_lists<uint8_t>>(
+      dtype, p, n_pairs, static_cast<cudaStream_t>(stream));
 }
 
 // B5: ip/cos/l2sq over i8/bf16/f32 rows with bin_m <= 8, hamming over b1
@@ -1030,7 +1150,7 @@ int usearch_grouped_probe_nofold(const void* q_g, const float* q_sq, const void*
                                  const int* win_start, const int* win_len, float* out_d, int* out_i,
                                  int n_pairs, int n_rows, int width, int dtype, int metric, int w_pad,
                                  int bin_m, void* stream) {
-  if (bad_common(n_pairs, n_rows, width, dtype, metric, bin_m, t_sq, penalty) || penalty == nullptr ||
+  if (bad_common(n_pairs, n_rows, width, dtype, metric, t_sq) || bin_m < 1 || bin_m > 16 || penalty == nullptr ||
       (dtype != kB1 && bin_m > 8) || w_pad <= 0 || w_pad % kBin || w_pad > n_rows)
     return cudaErrorInvalidValue;
   const int n_cand = bin_m * (w_pad / kBin);
@@ -1062,18 +1182,14 @@ int usearch_binned_probe(const void* q_g, const void* table, const int* win_base
                          int n_pairs, int n_rows, int width, int w_pad, int bw, int keep, int fminarg,
                          void* stream) {
   if (n_pairs <= 0 || n_pairs % kLanes || n_rows % kBin || width % 128 || width > 2048 || w_pad <= 0 ||
-      w_pad % kBin || w_pad > n_rows || bw < 2 || (bw & (bw - 1)) || bw > (fminarg ? kBin : 32) ||
-      keep < 1 || keep > kMaxKeep || 2 * keep > bw)
+      w_pad % kBin || w_pad > n_rows || bw < 2 || (bw & (bw - 1)) || bw > (fminarg ? kBin : 32) || keep < 1 ||
+      keep > 8 || 2 * keep > bw)
     return cudaErrorInvalidValue;
   const int out_pad = (keep * (w_pad / bw) + kLanes - 1) / kLanes * kLanes;
-  const BinnedParams p{static_cast<const int8_t*>(q_g), static_cast<const int8_t*>(table), win_base, out_d,
-                       out_i, n_rows, width, w_pad, bw, keep, fminarg, out_pad};
-  const size_t smem = binned_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(binned_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  binned_probe_kernel<<<n_pairs / kLanes, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  // a lane's window is its padded window, from win_base (win_start) on
+  const Params p{q_g, nullptr, table, nullptr, nullptr, win_base, win_base, nullptr, out_d, out_i,
+                 n_rows, width, kIP, 0, 0, 0, w_pad, out_pad, bw, keep, fminarg != 0};
+  return launch_wgmma<int8_t, 4, kB7Keys>(p, n_pairs, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

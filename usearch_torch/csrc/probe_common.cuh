@@ -1,5 +1,6 @@
 // Device arithmetic shared by the IVF probe kernels of usearch_torch
-// (csrc/probe.cu: B3, B5, B7; csrc/pair.cu: B6; csrc/bisect.cu: B13), one
+// (csrc/probe.cu: B3, B5, B6's lists, B7; csrc/pair.cu: B6's fold;
+// csrc/bisect.cu: B13), one
 // copy for all of them: the storage types' dot products, the rank-form
 // distances of the TPU kernels' `_window_dists` and `_rank_epilogue`, bit
 // for bit, the staging of row slices through shared memory, and the grouped

@@ -1,5 +1,6 @@
 """Where the time of the tensor-core grouped probe kernels (csrc/probe.cu
-`grouped_wgmma`: B3 and B5 over i8, bf16 and packed b1) goes.
+`grouped_wgmma`: B3 and B5 over i8, bf16 and packed b1, B6's lists and B7
+over i8) goes.
 
     python -m usearch_torch.microbench.probe_breakdown [--against CHECKOUT]
 
@@ -20,12 +21,15 @@ reorder=True)`, `expansion_search = 1024`, 4,096 member queries at k=10,
 the hamming search's B3 call and the tanimoto search's B5 call (its
 hamming select) captured, and B3 over B4's pairs with their bytes read as
 i8 rows (l2sq; the s8 product at B4's steps, to hold the b1 product's rate
-against). The variants replace the same lines for every
+against); and at the i8 index's `pair` and `bin` searches, B6 whole and
+in its three steps (the pairs' sort `pair_cells`, the lists `pair_lists`
+on `grouped_wgmma`, the fold `pair_fold` of csrc/pair.cu) and B7. The
+variants replace the same lines for every
 storage type (b1 differs from i8 in its product alone): the full kernel;
 no fold or stores (B3's merges into the lanes' lists, so the lists
-never fill and never prune a row, and B5's stores of the bins' lists); no
-selection (the rows are scored, but no thread keeps a list and the quads
-merge none); no epilogue (nothing after
+never fill and never prune a row, and B5's and B7's stores of the bins'
+lists); no selection (the rows are scored, but no thread keeps a list and
+the quads merge none; B7 takes no round); no epilogue (nothing after
 the product); the product alone (no waits for, and no refills of, the
 table ring, no epilogue: the product runs on whatever the slots hold); the
 table stream alone (no product, no epilogue). Each variant computes
@@ -35,7 +39,8 @@ kernel. With ``--against CHECKOUT`` it also builds that checkout's
 csrc/probe.cu (e.g. the parent commit's, unpacked with `git archive`),
 checks that it gives the same results on the same inputs, and times it as
 one more variant, first and last: ``other``, ``full``, the parts, ``full``
-again, ``other`` again. Needs a CUDA card and nvcc; the copies are built
+again, ``other`` again (B6's lists and steps only where that checkout has
+``usearch_pair_lists``). Needs a CUDA card and nvcc; the copies are built
 into usearch_torch/_build/.
 """
 
@@ -63,13 +68,19 @@ N, W, Q, K, PARTITIONS, SPILL, EXPANSION = 1_000_000, 256, 16384, 10, 1024, 0.05
 BITS, BIT_Q, TEMPLATES, FLIP, BIT_PARTITIONS = 1024, 4096, 400, 0.08, 976
 #: the small batch of chip_smoke.py's B3 row: the first SMALL_Q queries
 SMALL_Q = 1024
+#: the tag of B6's cases, which need B6's lists in the probe library
+B6 = "B6 i8 ip"
 #: source lines of csrc/probe.cu and what each variant puts in their place
-_FOLD_STORES = [("      if (m > 0) {\n", "      if (m > 0 && cv[0] == 12345.0f) {\n"),
-                ("              if (j >= p.bin_m || bi[u][j] == INT_MAX) break;\n",
-                 "              if (j >= p.bin_m || bi[u][j] == INT_MAX || bv[u][j] != 12345.0f) break;\n")]
-_SELECTION = [("              if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u][kM - 1])) continue;\n",
-               "              if (!act[h] || !in || v != 12345.0f) continue;\n"),
-              ("          quad_merge<kM>(bv[u], bi[u]);\n", "")]
+_FOLD_STORES = [("        if (m > 0) {\n", "        if (m > 0 && cv[0] == 12345.0f) {\n"),
+                ("                if (j >= p.bin_m || bi[u][j] == INT_MAX) break;\n",
+                 "                if (j >= p.bin_m || bi[u][j] == INT_MAX || bv[u][j] != 12345.0f) break;\n"),
+                ("              const bool writer = act[h] && (l & (sharing - 1)) == (t & (sharing - 1));\n",
+                 "              const bool writer =\n"
+                 "                  act[h] && (l & (sharing - 1)) == (t & (sharing - 1)) && bk[h][0] == 12345;\n")]
+_SELECTION = [("                if (!act[h] || !in || !(v <= thr[u]) || !(v < bv[u][kM - 1])) continue;\n",
+               "                if (!act[h] || !in || v != 12345.0f) continue;\n"),
+              ("            quad_merge<kM>(bv[u], bi[u]);\n", ""),
+              ("          for (int t = 0; t < p.keep; ++t) {\n", "          for (int t = 0; t < 0; ++t) {\n")]
 _EPILOGUE = ("      if (!warp_active) continue;\n",
              "      if (dot_value<kSmall>(acc[0]) == 12345.0f && warp_active) p.out_d[0] = 1.0f;\n      continue;\n")
 _PRODUCT = ("        for (int k = 0; k < kKB / 32; ++k) {\n"
@@ -124,6 +135,11 @@ def cases(dev):
     b3 = capture(index, queries, "group", "grouped_probe")
     b5 = capture(index, queries, "nofold", "grouped_probe_nofold")
     small = capture(index, queries[:SMALL_Q], "group", "grouped_probe")
+    b6 = capture(index, queries, "pair", "pair_probe")
+    b7 = capture(index, queries, "bin", "binned_probe")
+    metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m = b6
+    cells = probe.pair_cells(starts, offs, lens, table.shape[0], w_pad)
+    lists = probe.pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k, min(bin_m, k))
     b4, b5_b1 = bit_cases(dev, gen)
     # B4's pairs over the same bytes read as i8 rows (l2sq): the s8 product
     # at B4's steps, beside which `product_only` times the b1 product
@@ -135,6 +151,12 @@ def cases(dev):
         f"B4 b1 hamming, P={b4[1].shape[0]:,}, k={b4[8]}": lambda: probe.grouped_probe(*b4),
         f"B5 b1 tanimoto, P={b5_b1[1].shape[0]:,}, {b5_b1[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5_b1),
         f"B3 i8 l2sq over B4's bytes, P={b4[1].shape[0]:,}": lambda: probe.grouped_probe(*b4_s8),
+        f"B7 i8 bin, P={b7[0].shape[0]:,}, {b7[4]} rows x {b7[5]} {b7[6]}": lambda: probe.binned_probe(*b7),
+        f"{B6} pair, Q={q.shape[0]:,} x {starts.shape[1]}, k={k}": lambda: probe.pair_probe(*b6),
+        f"{B6} sort, P={cells[1].shape[0]:,}": lambda: probe.pair_cells(starts, offs, lens, table.shape[0], w_pad),
+        f"{B6} lists, {min(bin_m, k)} per bin": lambda: probe.pair_lists(metric, q, q_sq, table, t_sq, penalty, cells,
+                                                                         k, min(bin_m, k)),
+        f"{B6} fold": lambda: probe.pair_fold(metric, *lists, cells[3], q_sq, k),
     }
 
 
@@ -172,8 +194,9 @@ def build_other(checkout: Path):
         raise RuntimeError(f"nvcc failed for {csrc / 'probe.cu'}:\n{proc.stdout}{proc.stderr}")
     loaded = ctypes.CDLL(str(lib))
     for fn, argtypes in build.SIGNATURES["probe"].items():
-        getattr(loaded, fn).argtypes = argtypes
-        getattr(loaded, fn).restype = ctypes.c_int
+        if hasattr(loaded, fn):  # an older checkout may lack an entry point
+            getattr(loaded, fn).argtypes = argtypes
+            getattr(loaded, fn).restype = ctypes.c_int
     return loaded
 
 
@@ -194,8 +217,10 @@ def main(argv=None) -> int:
         # the other checkout's kernels must give this one's results
         want = {tag: fn() for tag, fn in runs.items()}
         build._libs["probe"] = libs["other"]
+        mine = {tag: fn for tag, fn in runs.items()
+                if hasattr(libs["other"], "usearch_pair_lists") or not tag.startswith(B6)}
         try:
-            for tag, fn in runs.items():
+            for tag, fn in mine.items():
                 got = fn()
                 same = all(torch.equal(a, b) for a, b in zip(got, want[tag]))
                 print(f"{'other':26s} {tag:45s} {'the same results' if same else 'OTHER RESULTS'}", flush=True)
@@ -203,7 +228,10 @@ def main(argv=None) -> int:
             build._libs.pop("probe", None)
         # timed in turns with this checkout's full kernel, around the parts
         other = libs.pop("other")
-        libs = {"other": other, **libs, "full again": libs["full"], "other again": other}
+        run({"other": other}, "probe", mine, dev)
+        run({**libs, "full again": libs["full"]}, "probe", runs, dev)
+        run({"other again": other}, "probe", mine, dev)
+        return 0
     run(libs, "probe", runs, dev)
     return 0
 

@@ -9,8 +9,10 @@ together, reads each library's SASS (`cuobjdump -sass`), normalises the
 names of anonymous namespaces (they carry a hash of the file) and the
 padding between an instruction and its encoding, and prints
 per source how many functions are the same instruction for instruction,
-which differ (with their first differing lines), and which only one side
-has. Needs nvcc and cuobjdump (the
+which differ (with their first differing lines), which only one side has
+by name but the other has under another name, instruction for instruction
+(`renamed`: a template argument that changed type or name), and which only
+one side has. Needs nvcc and cuobjdump (the
 card's machine); builds into usearch_torch/_build/sass_diff/.
 """
 
@@ -46,7 +48,23 @@ def functions(lib: Path) -> dict:
     # cuobjdump pads each line to the module's widest instruction: compare
     # the text with runs of blanks collapsed
     sass = re.sub(r"[ \t]+", " ", normalise(sass))
-    return dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    # the last function's block runs to the end of the dump: drop the
+    # trailing blanks so it compares as any other
+    return {name: body.rstrip() for name, body in (block.split("\n", 1) for block in sass.split("Function : ")[1:])}
+
+
+def renamed(mine: dict, theirs: dict) -> list:
+    """Pairs (name here, name in the other) of functions that only one
+    side has by name and whose SASS is the same instruction for instruction;
+    each function pairs at most once."""
+    free = {}
+    for f in sorted(theirs.keys() - mine.keys()):
+        free.setdefault(theirs[f], []).append(f)
+    pairs = []
+    for f in sorted(mine.keys() - theirs.keys()):
+        if free.get(mine[f]):
+            pairs.append((f, free[mine[f]].pop(0)))
+    return pairs
 
 
 def main(argv=None) -> int:
@@ -73,8 +91,11 @@ def main(argv=None) -> int:
         mine, theirs = functions(procs[name, "this"][0]), functions(procs[name, "other"][0])
         same = sorted(f for f in mine.keys() & theirs.keys() if mine[f] == theirs[f])
         differ = sorted(f for f in mine.keys() & theirs.keys() if mine[f] != theirs[f])
-        print(f"{name}.cu: {len(same)} functions the same, {len(differ)} differ, {len(mine.keys() - theirs.keys())} "
-              f"only here, {len(theirs.keys() - mine.keys())} only in the other", flush=True)
+        moved = renamed(mine, theirs)
+        here = sorted(mine.keys() - theirs.keys() - {a for a, _ in moved})
+        there = sorted(theirs.keys() - mine.keys() - {b for _, b in moved})
+        print(f"{name}.cu: {len(same)} functions the same, {len(moved)} the same under another name, "
+              f"{len(differ)} differ, {len(here)} only here, {len(there)} only in the other", flush=True)
         for f in differ:
             a, b = mine[f].splitlines(), theirs[f].splitlines()
             pairs = [(x, y) for x, y in zip(a, b) if x != y]
@@ -82,8 +103,9 @@ def main(argv=None) -> int:
                   f"{min(len(a), len(b))} differ)", flush=True)
             for x, y in pairs[:3]:
                 print(f"    here:  {x.strip()[:150]}\n    other: {y.strip()[:150]}", flush=True)
-        for label, group in (("only here", sorted(mine.keys() - theirs.keys())),
-                             ("only in the other", sorted(theirs.keys() - mine.keys()))):
+        for a, b in moved:
+            print(f"  renamed: {b.strip()} -> {a.strip()}", flush=True)
+        for label, group in (("only here", here), ("only in the other", there)):
             for f in group:
                 print(f"  {label}: {f.strip()}", flush=True)
     return 0

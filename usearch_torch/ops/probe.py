@@ -6,7 +6,7 @@ Counterparts of the probe kernels in `usearch_tpu/ops/pallas_probe.py`:
 |---|---|---|---|
 | B3 | `_make_grouped_kernel`; `pallas_ivf_probe_grouped` | `grouped_probe` | csrc/probe.cu |
 | B5 | `_make_grouped_nofold_kernel`; `pallas_ivf_probe_grouped_nofold` | `grouped_probe_nofold` | csrc/probe.cu |
-| B6 | `_make_probe_kernel`; `pallas_ivf_probe` | `pair_probe` | csrc/pair.cu |
+| B6 | `_make_probe_kernel`; `pallas_ivf_probe` | `pair_probe` | csrc/probe.cu, csrc/pair.cu |
 | B7 | `_make_binned_probe_kernel`; `pallas_ivf_probe_binned` | `binned_probe` | csrc/probe.cu |
 
 B3, B5 and B7 take a list of (query, partition) pairs, sorted by partition
@@ -40,7 +40,11 @@ B6 (`pair_probe`, the ``pair`` flavour) takes no pairs: each query scores
 its own ``nprobe`` windows in the coarse selection's order, steps 1-2 over
 each padded window (bins counted from its DMA start), and folds each
 window's candidates into the query's running top-k, so equal distances
-keep the order (window, round, bin). Nothing is shared between queries.
+keep the order (window, round, bin). Restricted to one window that order is
+B3's, and a window gives at most ``k`` of the result, so on the card B6 is
+B3 over the (query, window) pairs (`pair_cells`), each pair's list kept in
+rank form (``usearch_pair_lists``), then a fold of each query's lists in
+window order (csrc/pair.cu ``usearch_pair_fold``, `pair_fold_plain`).
 
 B7 (`binned_probe`, the ``bin`` flavour, i8 only) takes the pairs but no
 window masks, stats or penalty: for every row of the padded window the raw
@@ -228,11 +232,13 @@ def _bin_candidates(metric, q, q_sq, table, t_sq, penalty, r0: int, r1: int, st:
     return _round_major(d.view(-1, n_bins, LANES), rows.view(n_bins, LANES)[:, 0], bin_m)
 
 
-def grouped_probe_plain(metric, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k: int,
-                        bin_m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def grouped_probe_plain(metric, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k: int, bin_m: int,
+                        rank_form: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """What kernel B3 computes, in plain torch: ``[P, k]`` f32 distances
-    and i32 global row ids. Pairs that share a window are scored together,
-    one window at a time, so the memory held is one window's scores."""
+    and i32 global row ids; with ``rank_form`` the distances before
+    `rank_epilogue` (B6's lists). Pairs that share a window are scored
+    together, one window at a time, so the memory held is one window's
+    scores."""
     n_pairs, n_rows = q_g.shape[0], table.shape[0]
     k_pad = max(k, 8)
     bin_m = min(bin_m, k_pad)
@@ -248,7 +254,7 @@ def grouped_probe_plain(metric, q_g, q_sq, table, t_sq, penalty, win_start, win_
         v, sel = stable_topk(cand_v, k)
         ids = cand_i.gather(1, sel)
         kk = v.shape[1]
-        out_d[pairs, :kk] = rank_epilogue(metric, v, qs)
+        out_d[pairs, :kk] = v if rank_form else rank_epilogue(metric, v, qs)
         out_i[pairs, :kk] = torch.where(v >= MASKED / 2, -1, ids).to(torch.int32)
     return out_d, out_i
 
@@ -427,33 +433,101 @@ def pair_probe_plain(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, 
     return out_d, out_i
 
 
+def pair_cells(starts, offs, lens, n_rows: int, w_pad: int):
+    """B6's ``[Q, nprobe]`` windows as B3's pairs: flattened, sorted stably by
+    the window's first row so that the pairs reading a window share a cell
+    (a padded window's windows stay together, empty ones last), and padded
+    to cells of 128 with empty pairs. A window that does not lie inside its
+    padded window, or a padded window that is not 128-aligned inside the
+    table, gets length 0. Returns each pair's query, window start and length
+    (int32), and ``inv [Q, nprobe]``, the pair of each (query, window)."""
+    n_q, nprobe = starts.shape
+    p0 = n_q * nprobe
+    p_total = -(-p0 // LANES) * LANES
+    st, off, ln = (x.reshape(-1).long() for x in (starts, offs, lens))
+    ok = (ln > 0) & (st >= 0) & (st % LANES == 0) & (st <= n_rows - w_pad) & (off >= 0) & (off <= w_pad - ln)
+    first = torch.where(ok, st + off, 0)
+    order = torch.argsort(torch.where(ok, first, n_rows), stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(p0, device=order.device)
+    pad = torch.zeros(p_total - p0, dtype=torch.long, device=order.device)
+    qid = torch.cat([order // nprobe, pad])
+    win_start = torch.cat([first[order], pad]).int()
+    win_len = torch.cat([torch.where(ok, ln, 0)[order], pad]).int()
+    return qid, win_start, win_len, inv.view(n_q, nprobe).int()
+
+
+def pair_fold_plain(metric, lists_d, lists_i, inv, q_sq, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What B6's fold computes, in plain torch: per query the ``k`` best
+    entries of its ``nprobe`` pairs' rank-form lists (``[P, k]``), taken in
+    window order through ``inv [Q, nprobe]``, the earlier window and then the
+    earlier place first among equal values; `rank_epilogue` applied, ``-1``
+    where the distance is at least ``MASKED / 2``."""
+    n_q = inv.shape[0]
+    d = lists_d[inv.long()].reshape(n_q, -1)
+    v, sel = stable_topk(d, k)
+    out_d = rank_epilogue(metric, v, q_sq)
+    return out_d, torch.where(out_d >= MASKED / 2, -1, lists_i[inv.long()].reshape(n_q, -1).gather(1, sel))
+
+
+def pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k: int, bin_m: int):
+    """Step 2 of B6 on the card (csrc/probe.cu ``usearch_pair_lists``): B3
+    over `pair_cells`' pairs, each pair's first ``k`` in rank form, ``bin_m
+    <= k`` per bin."""
+    from .. import build
+
+    qid, win_start, win_len, _ = cells
+    (n_rows, width), n_pairs = table.shape, win_start.shape[0]
+    q_g, qs = q[qid].contiguous(), q_sq[qid].contiguous()
+    out_d = torch.empty((n_pairs, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((n_pairs, k), dtype=torch.int32, device=q.device)
+    lib = build.load("probe")
+    with torch.cuda.device(q.device):
+        _launch(
+            lib.usearch_pair_lists, _ptr(q_g), _ptr(qs), _ptr(table), _ptr(t_sq), _ptr(penalty), _ptr(win_start),
+            _ptr(win_len), _ptr(out_d), _ptr(out_i), n_pairs, n_rows, width, DTYPE_CODES[q.dtype],
+            METRIC_CODES[metric], k, bin_m, _stream(),
+        )
+    return out_d, out_i
+
+
+def pair_fold(metric, lists_d, lists_i, inv, q_sq, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 3 of B6 on the card (csrc/pair.cu ``usearch_pair_fold``)."""
+    from .. import build
+
+    n_q, nprobe = inv.shape
+    out_d = torch.empty((n_q, k), dtype=torch.float32, device=inv.device)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=inv.device)
+    lib = build.load("pair")
+    with torch.cuda.device(inv.device):
+        _launch(
+            lib.usearch_pair_fold, _ptr(lists_d), _ptr(lists_i), _ptr(inv), _ptr(q_sq), _ptr(out_d), _ptr(out_i),
+            n_q, nprobe, k, METRIC_CODES[metric], _stream(),
+        )
+    return out_d, out_i
+
+
 def pair_probe(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k: int, w_pad: int,
                bin_m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B6 (csrc/pair.cu `usearch_pair_probe`), or its plain version
-    for CPU tensors. ``q [Q, W]`` are the queries and ``q_sq [Q]`` their
-    squared norms (popcounts for b1); ``starts``, ``offs`` and ``lens`` are
-    ``[Q, nprobe]`` int32: each probed window's 128-aligned DMA start, the
-    window's offset inside it and its length. Bins keep ``min(bin_m, k)``
-    candidates (``pallas_ivf_probe``'s clamp), up to 128."""
+    """Kernel B6, or its plain version for CPU tensors. ``q [Q, W]`` are
+    the queries and ``q_sq [Q]`` their squared norms (popcounts for b1);
+    ``starts``, ``offs`` and ``lens`` are ``[Q, nprobe]`` int32: each probed
+    window's 128-aligned DMA start, the window's offset inside it and its
+    length. Bins keep ``min(bin_m, k)`` candidates (``pallas_ivf_probe``'s
+    clamp), up to 128. On the card: `pair_cells`, then B3's tensor-core
+    kernel (i8, bf16, b1; f32 on its SIMT kernel) for each pair's list in
+    rank form (`pair_lists`), then `pair_fold`; one launch of B6 a call."""
     _check_pair(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m)
     if q.device.type == "cpu":
         return pair_probe_plain(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m)
-    from .. import build
-
-    (n_q, nprobe), (n_rows, width) = starts.shape, table.shape
-    out_d = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    if n_q == 0:
-        return out_d, out_i
-    lib = build.load("pair")
-    with torch.cuda.device(q.device):
-        _launch(
-            lib.usearch_pair_probe, _ptr(q), _ptr(q_sq), _ptr(table), _ptr(t_sq), _ptr(penalty), _ptr(starts),
-            _ptr(offs), _ptr(lens), _ptr(out_d), _ptr(out_i), n_q, n_rows, width, DTYPE_CODES[q.dtype],
-            METRIC_CODES[metric], nprobe, w_pad, k, min(bin_m, k), _stream(),
-        )
+    if q.shape[0] == 0:
+        empty = torch.empty((0, k), device=q.device)
+        return empty, empty.int()
+    cells = pair_cells(starts, offs, lens, table.shape[0], w_pad)
+    lists_d, lists_i = pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k, min(bin_m, k))
+    out = pair_fold(metric, lists_d, lists_i, cells[3], q_sq, k)
     pair_probe.launches += 1
-    return out_d, out_i
+    return out
 
 
 pair_probe.launches = 0
