@@ -98,16 +98,22 @@ Phases, each fatal on failure:
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
    counters zeroed just before each and read just after (its own kernel
-   and no other must launch); then B11 (loop-carried mma.sync products) in
-   its four modes at small shapes, one past 2**24, and at the script's
-   (256 x 256 x 8192, 512 steps), bit for bit; B12 (selection loop) in its
-   eight variants at three shapes, the last the script's, bit for bit (the
-   two f32 sums of group minima within 1e-6 relative), its time per pass
-   (a 1-pass launch's time taken out) at 200 and 400 passes within 10%; B13 (probe-select bisection) in its
-   five variants, and dot_only from 0 as well as from MASKED, on a
-   64-partition table and at the script's shape (10M x 128 i8 rows, 1,024
-   queries x 16 probes), bit for bit; each timed beside its bound, its
-   plain version and, for B11, one library product times the steps.
+   and no other must launch); then B11 (loop-carried `wgmma` products, a
+   flag a step in place of a grid barrier) in its four modes at small
+   shapes, one past 2**24, at LOOP_EDGES (rows padded inside a 64-row tile,
+   K = N, K over two and sixteen lead blocks, 64-column warpgroups) and at
+   the script's (256 x 256 x 8192, 512 steps), bit for bit, with its chain
+   alone (the product taken out) timed beside it; B12 (selection loop) in
+   its eight variants at three shapes, the last the script's, bit for bit
+   (the two f32 sums of group minima within 1e-6 relative), its time per
+   pass (a 1-pass launch's time taken out) at 200 and 400 passes within 10%;
+   B13 (probe-select bisection on `wgmma`) in its five variants, and from 0
+   as well as from MASKED, on a 64-partition table, at BISECT_EDGES (a half
+   last tile, rows of 384 and 640 bytes, planted equal dots, windows outside
+   the table, own windows at or past n_win) and at the script's shape (10M
+   x 128 i8 rows, 1,024 queries x 16 probes), bit for bit, each select's
+   time also beside dot_only's; each timed beside its bound, its plain
+   version and, for B11, one library product times the steps.
 
 The line before the last is a JSON object with a row per kernel (B1/B2's
 and B8-B10's rows also say whether the tensor cores or SIMT FMAs ran the
@@ -245,6 +251,18 @@ ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS + MICRO_KERNELS
 LOOP_CHECK = ((32, 64, 128, 512), (64, 128, 256, 40), (256, 256, 1024, 24))
 SELECT_CHECK = ((256, 64, 5), (1536, 32, 3), (1408, 128, 200))
 BISECT_CHECK = dict(n=64 * 1220, c=64, d=128, q=256, nprobe=16)
+#: B11's edges of its tensor-core design: rows padded inside a 64-row tile
+#: (48, 80), K = N, K spanning two lead blocks (512) and sixteen (1,024: A
+#: through a ring of K-blocks, bf16's a0 left in device memory), 64-column
+#: warpgroups (N = 192)
+LOOP_EDGES = ((48, 512, 512, 64), (80, 64, 192, 100), (16, 1024, 1024, 8), (80, 128, 128, 30))
+#: B13's edges on BISECT_CHECK's table: w_pad ending in a half 128-row tile
+#: (1,344), rows of 384 bytes (three K-blocks) and 640 (query K-blocks
+#: streamed beside the table's), rows copying a window's row 0 inside a
+#: thread's rows and across the quad (offsets), windows outside the table
+#: (cell 0: past the end, negative) and lanes whose own window is at or past
+#: n_win or skipped
+BISECT_EDGES = dict(w_pads=(1408, 1344), widths=(128, 384, 640), offsets=(1, 2, 8, 34), own=(200, 2, 5))
 #: B12: f32 sums of group minima may follow another order (none does here)
 SELECT_RTOL = 1e-6
 SELECT_F32_SUMS = ("f32_min32", "f32_minarg32")
@@ -1791,13 +1809,23 @@ def plain_timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def loop_route(m: int, k: int, n: int, mode: str) -> str:
+    """B11's tensor-core route at a shape: the wgmma form and the blocks."""
+    knw, wgs, slots, resident = microbench.loop_layout(m, k, n, mode, torch.cuda.get_device_properties(0).multi_processor_count)
+    form = f"m64n{knw}k32 s8" if mode in ("i8", "i8f32") else f"m64n{knw}k16 bf16"
+    lead = -(-k // (knw * wgs))
+    return (f"wgmma {form}, {-(-m // 64) * n // (knw * wgs)} blocks of 64 x {knw * wgs}, {lead} lead block(s) a "
+            f"row tile, {slots} A K-block slot(s), a0 in {'shared' if resident else 'device'} memory, no grid barrier")
+
+
 def loop_rows(dev, launches: int) -> list:
-    """Phase 5, B11: every mode at LOOP_CHECK's shapes, then at the script's,
-    bit for bit against the plain version; timed beside its bound (the
-    products at the tensor cores' i8 or bf16 rate) and one library product
-    of the same operands times REPS (torch._int_mm in i8, torch.matmul in
-    bf16)."""
-    for m, k, n, reps in LOOP_CHECK:
+    """Phase 5, B11: every mode at LOOP_CHECK's and LOOP_EDGES' shapes,
+    then at the script's, bit for bit against the plain version; timed beside
+    its bound (the products at the tensor cores' i8 or bf16 rate), the chain
+    alone (`microbench.loop_chain`: the same steps and handshake, the product
+    taken out) and one library product of the same operands times REPS
+    (torch._int_mm in i8, torch.matmul in bf16)."""
+    for m, k, n, reps in LOOP_CHECK + LOOP_EDGES:
         a8, b8 = i8_matmul_probe.operands((m, k), (n, k), SEED + m, dev)
         for _, mode, dtype in i8_matmul_probe.LOOP_LINES:
             a, b = a8.to(dtype), b8.to(dtype)
@@ -1814,6 +1842,7 @@ def loop_rows(dev, launches: int) -> list:
         plain, plain_ms = plain_timed(lambda: microbench.loop_matmul_plain(a, b, mode, reps))
         err = hold_equal(tag, "B11", microbench.loop_matmul(a, b, mode, reps), plain)
         ms = time_once(lambda: microbench.loop_matmul(a, b, mode, reps), dev, reps=5) * 1e3
+        chain = time_once(lambda: microbench.loop_chain(a, b, mode, reps), dev, reps=5) * 1e3
         peak = "bf16" if mode in ("bf16", "cast") else "i8"
         nbytes = (m + n) * k * a.element_size() + m * n * 4
         b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
@@ -1822,12 +1851,15 @@ def loop_rows(dev, launches: int) -> list:
         else:
             ab, bb = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
             lib_name, lib = "bf16 torch.matmul", time_once(lambda: torch.matmul(ab, bb.t()), dev, reps=20) * 1e3 * reps
-        log(f"  {tag}: {ms:.4f} ms = {ops / ms / 1e9:.1f} T(FL)OPS on mma.sync, bound {b_ms:.4f} ms ({b_by}, "
-            f"{peak} peak), plain {plain_ms:.1f} ms, library {lib:.4f} ms ({lib_name} of one product x {reps} = "
-            f"{ops / lib / 1e9:.1f} T(FL)OPS), launches on its path {launches}, max abs err {err:.3g}")
+        log(f"  loop_chain {mode} M={m} K={k} N={n} REPS={reps}: {chain:.4f} ms, the product taken out "
+            f"({chain / reps * 1e3:.3f} us a step)")
+        log(f"  {tag}: {ms:.4f} ms = {ops / ms / 1e9:.1f} T(FL)OPS on {loop_route(m, k, n, mode)}; bound "
+            f"{b_ms:.4f} ms ({b_by}, {peak} peak), chain alone {chain:.4f} ms, library {lib:.4f} ms ({lib_name} of "
+            f"one product x {reps} = {ops / lib / 1e9:.1f} T(FL)OPS), plain {plain_ms:.1f} ms, launches on its "
+            f"path {launches}, max abs err {err:.3g}")
         rows.append(dict(name=f"loop_matmul[{mode}]", route="cuda", source=MICRO["i8_matmul_probe"][2],
                          replaces=MICRO["i8_matmul_probe"][3], launches=launches, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib, chain_ms=chain))
     return rows
 
 
@@ -1893,14 +1925,43 @@ def bisect_cases(lay, dev):
     return table, [torch.from_numpy(x).to(dev) for x in (meta, q_g, qa)], windows
 
 
+def bisect_edges(small, table, meta, q_g, qa, dev) -> None:
+    """B13 at BISECT_EDGES on BISECT_CHECK's arrays, every variant from
+    MASKED and from 0, bit for bit against the plain version."""
+    meta, qa = meta.clone(), qa.clone()
+    n_rows = table.shape[0]
+    meta[0, 0, 1] = n_rows - min(BISECT_EDGES["w_pads"]) + 1  # past the end at every w_pad
+    meta[0, 0, 3] = -5
+    qa[: len(BISECT_EDGES["own"]), 2] = torch.tensor(BISECT_EDGES["own"], dtype=qa.dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    starts = meta[:, 0][torch.arange(probe_v2_bisect.G, device=dev)[None, :] < meta[:, 3, :1]]
+    starts = starts[(starts >= 0) & (starts < n_rows - 64)].long()
+    for width in BISECT_EDGES["widths"]:
+        if width == table.shape[1]:
+            tw, qw = table.clone(), q_g
+        else:
+            tw = torch.randint(-127, 128, (n_rows, width), generator=gen, device=dev, dtype=torch.int8)
+            qw = torch.randint(-127, 128, (q_g.shape[0], width), generator=gen, device=dev, dtype=torch.int8)
+        for off in BISECT_EDGES["offsets"]:
+            tw[starts + off] = tw[starts]
+        for w_pad in BISECT_EDGES["w_pads"]:
+            for v in microbench.BISECT_VARIANTS:
+                for init in (MASKED, 0.0):
+                    args = (meta, qw, qa, tw, v, w_pad, small.out_pad, init)
+                    hold_equal(f"{v} init={init:g} width={width} w_pad={w_pad} planted", "B13",
+                               microbench.bisect_probe(*args), microbench.bisect_probe_plain(*args))
+
+
 def bisect_rows(dev, launches: int) -> list:
     """Phase 5, B13: every variant, and dot_only from init 0 (from MASKED
-    every entry stays MASKED), on BISECT_CHECK's 64-partition table, then at
-    the script's shape, bit for bit against the plain version; timed beside
-    its bound: the table rows the windows touch read once, the queries and
-    aux, the output written once; operations for the dots the output needs
-    (rows 0-7 of every window for every lane in dot_only, each lane's own
-    window otherwise). No one PyTorch call computes it."""
+    every entry stays MASKED), on BISECT_CHECK's 64-partition table and at
+    BISECT_EDGES, then at the script's shape, bit for bit against the plain
+    version; timed beside its bound: the table rows the windows touch read
+    once, the queries and aux, the output written once; operations for the
+    dots the output needs (rows 0-7 of every window for every lane in
+    dot_only, each lane's own window otherwise); and each select's time
+    beside dot_only's, their difference the select's cost on the tensor-core
+    kernel's register layout. No one PyTorch call computes it."""
     small = probe_v2_bisect.Layout(**BISECT_CHECK)
     table, (meta, q_g, qa), _ = bisect_cases(small, dev)
     cases = [(v, MASKED) for v in microbench.BISECT_VARIANTS] + [("dot_only", 0.0)]
@@ -1908,6 +1969,7 @@ def bisect_rows(dev, launches: int) -> list:
         args = (meta, q_g, qa, table, v, small.w_pad, small.out_pad, init)
         hold_equal(f"{v} init={init:g} C={small.c} P={q_g.shape[0]} w_pad={small.w_pad}", "B13",
                    microbench.bisect_probe(*args), microbench.bisect_probe_plain(*args))
+    bisect_edges(small, table, meta, q_g, qa, dev)
     lay = probe_v2_bisect.script_layout()
     table, (meta, q_g, qa), windows = bisect_cases(lay, dev)
     starts = meta[:, 0][torch.arange(probe_v2_bisect.G, device=dev)[None, :] < meta[:, 3, :1]]
@@ -1928,13 +1990,15 @@ def bisect_rows(dev, launches: int) -> list:
         ms = time_once(lambda: microbench.bisect_probe(*args), dev, reps=3) * 1e3
         ops = 2.0 * d * (windows * 8 * probe_v2_bisect.G if v == "dot_only" else n_pairs * lay.w_pad)
         b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
-        log(f"  {tag}: {ms:.3f} ms = {ms / windows * 1e3:.3f} us/window, bound {b_ms:.4f} ms ({b_by}; {touched} "
-            f"table rows touched, {nbytes / 1e9:.3f} GB), plain {plain_ms:.1f} ms, library none, launches on its "
-            f"path {launches}, max abs err {err:.3g}")
+        dot_ms = rows[0]["ms"] if rows else ms
+        log(f"  {tag}: {ms:.3f} ms = {ms / windows * 1e3:.3f} us/window on wgmma m64n128k32 s8 (one cell a block), "
+            f"{ms - dot_ms:+.4f} ms beside dot_only, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
+            f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.1f} ms, library none, launches on its path {launches}, max "
+            f"abs err {err:.3g}")
         rows.append(dict(name=f"bisect_probe[{v}]", route="cuda", source=MICRO["probe_v2_bisect"][2],
                          replaces=MICRO["probe_v2_bisect"][3], launches=launches, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         us_per_window=ms / windows * 1e3))
+                         us_per_window=ms / windows * 1e3, minus_dot_only_ms=ms - dot_ms))
     return rows
 
 

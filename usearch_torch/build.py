@@ -57,7 +57,8 @@ SIGNATURES = {
         "usearch_binned_scan_lanes": [_P] * 7 + [_I] * 5 + [_P],
     },
     "matmul_probe": {
-        "usearch_loop_matmul": [_P] * 4 + [_I] * 5 + [_P],
+        "usearch_loop_matmul": [_P] * 5 + [_I] * 9 + [_P],
+        "usearch_loop_chain": [_P] * 5 + [_I] * 9 + [_P],
     },
     "select": {
         "usearch_select_loop": [_P] * 2 + [_I] * 4 + [_P],

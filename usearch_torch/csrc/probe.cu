@@ -122,7 +122,7 @@
 //
 // The dot products, the rank-form distances, the staging loop and the
 // window stream are csrc/probe_common.cuh's, shared with B6's fold
-// (csrc/pair.cu) and B13 (csrc/bisect.cu); the tensor-core blocks
+// (csrc/pair.cu); the tensor-core blocks
 // (descriptors, TMA, mbarriers, `mma_k`) csrc/wgmma_common.cuh's. The
 // entry points launch on the stream they are given, allocate nothing, and
 // return cudaGetLastError() after the launch.

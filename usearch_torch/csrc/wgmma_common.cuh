@@ -7,8 +7,9 @@
 //   (`query_values`);
 // - mbarrier, TMA and matrix-descriptor helpers, the s8 and bf16 `wgmma`
 //   m64n256 products (`mma_k`; m64n128 for the probe kernels of
-//   csrc/probe.cu, which include this header too, and their b1 and-popc
-//   product `mma_popc`) and the accumulator fence;
+//   csrc/probe.cu and csrc/bisect.cu, which include this header too, and
+//   their b1 and-popc product `mma_popc`; m64n128 and m64n64 for the
+//   loop-carried product of csrc/matmul_probe.cu) and the accumulator fence;
 // - the register epilogue: per query and 128-row bin the first row reaching
 //   the minimum (`tile_minima`, over `bin_min`/`keyed_bin_min`), with the
 //   distances of csrc/scan_common.cuh's `epilogue`, so every kernel that
@@ -185,6 +186,30 @@ __device__ __forceinline__ void mma_popc(int (&d)[64], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+#define D32(C, i) D8(C, i), D8(C, i + 8), D8(C, i + 16), D8(C, i + 24)
+#define D_REGS32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"           \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= a[64 x 32 s8] . b[64 x 32 s8]^T: the loop-carried product
+// of csrc/matmul_probe.cu where its columns come in 64s.
+__device__ __forceinline__ void mma_k(int (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " D_REGS32 ", %32, %33, p;\n}\n"
+      : D32("+r", 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= a[64 x 16 bf16] . b[64 x 16 bf16]^T, in f32.
+__device__ __forceinline__ void mma_k(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D32("+f", 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous product's fence and wait.
 __device__ __forceinline__ void fence_acc(int (&d)[128]) {
@@ -202,6 +227,14 @@ __device__ __forceinline__ void fence_acc(int (&d)[64]) {
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Norms inside [2^-30, 2^30] keep the cos preselection's products normal.

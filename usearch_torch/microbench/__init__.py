@@ -9,8 +9,10 @@
 
 `scan_breakdown`, `fused_breakdown` and `probe_breakdown` are the port's
 own: the flat-scan kernels B1/B2, B8-B10 and the grouped probe B3/B5 rebuilt
-with parts of them taken out, to see where their time goes; `sass_diff`
-compares the kernels' SASS with another checkout's (card only).
+with parts of them taken out, to see where their time goes;
+`loop_breakdown` rebuilds B11 with clock stamps in its step loop and
+splits a step into its phases; `sass_diff` compares the kernels' SASS with
+another checkout's (card only).
 
 Each runs with ``python -m usearch_torch.microbench.<name>`` and prints its
 TPU script's lines. Nothing runs at import. Each ``main`` runs at its

@@ -68,8 +68,13 @@ SELECT_VARIANTS = {"astype_only": 0, "i32_min128": 1, "i32_min32": 2, "f32_min32
                    "pack_min32": 5, "f32_minarg128": 6, "f32_minarg32": 7}
 #: B13's variants, by code of csrc/bisect.cu
 BISECT_VARIANTS = {"dot_only": 0, "sel_none": 1, "sel8": 2, "sel32": 3, "sel32f": 4}
-#: B11: rows at most (16 per warp tile, two tiles a warp), columns a block
+#: B11: rows at most (four 64-row tiles), and the multiple of K and N
 LOOP_MAX_M, LOOP_COLS = 256, 64
+#: B11's blocks, in order of preference: (columns a warpgroup, warpgroups);
+#: 64-column warpgroups where N is no multiple of 128, or K too wide
+LOOP_BLOCKS = ((128, 2), (64, 3), (128, 1), (64, 1))
+#: shared memory a block may use (csrc/wgmma_common.cuh kSmem)
+SMEM_BYTES = 232448
 #: B12: columns a block; its rows are staged whole in shared memory
 SELECT_COLS, SELECT_MAX_W = 32, 1536
 #: B13: lanes a cell, and the widest accumulator its shared memory holds
@@ -127,32 +132,80 @@ def loop_matmul_plain(a: torch.Tensor, b: torch.Tensor, mode: str, reps: int) ->
     return acc
 
 
+def loop_layout(m: int, k: int, n: int, mode: str, sms: int) -> tuple:
+    """B11's blocks on a card of ``sms`` SMs: ``(columns a warpgroup,
+    warpgroups a block, A K-blocks in shared memory, a0 in shared memory)``.
+    A block owns 64 rows of ``acc`` and the columns of its warpgroups; the
+    first of `LOOP_BLOCKS` whose columns divide N, whose blocks (``ceil(M /
+    64) x N / columns``) fit one an SM, and whose slice of b0 leaves room for
+    two K-blocks of A (or all of them) in shared memory; the tile's rows of
+    a0 stay there too where they fit beside all K-blocks of A (or two)."""
+    elem = 2 if mode in ("bf16", "cast") else 1
+    n_kb = -(-k * elem // 128)  # 128-byte K-blocks of a row
+    tiles = -(-m // 64)
+    a0_bytes = 64 * k * (2 if mode == "bf16" else 1)
+    for knw, wgs in LOOP_BLOCKS:
+        cols = knw * wgs
+        if n % cols or tiles * (n // cols) > sms:
+            continue
+        room = SMEM_BYTES - 1024 - cols * n_kb * 128 - 2 * 64 * (k // 32) * 4
+        need = min(n_kb, 2) * 64 * 128
+        if room < need:
+            continue
+        resident = room - a0_bytes >= need
+        return knw, wgs, min(n_kb, (room - a0_bytes * resident) // (64 * 128)), int(resident)
+    raise ValueError(f"no block layout of B11 fits M={m}, K={k}, N={n} ({mode}) on {sms} SMs: the "
+                     f"ceil(M / 64) x N / columns blocks of {LOOP_BLOCKS} must fit one an SM")
+
+
+def _loop_launch(entry: str, a: torch.Tensor, b: torch.Tensor, mode: str, reps: int) -> torch.Tensor:
+    """One launch of csrc/matmul_probe.cu's ``entry`` on CUDA tensors."""
+    from .. import build
+
+    (m, k), n = a.shape, b.shape[0]
+    if m % 16 or m > LOOP_MAX_M or k % LOOP_COLS or n % LOOP_COLS or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"the kernel takes M % 16 == 0, M <= {LOOP_MAX_M}, K and N multiples of {LOOP_COLS} and "
+                         f"16-byte aligned operands, got {m}, {k}, {n}")
+    knw, wgs, slots, resident = loop_layout(m, k, n, mode,
+                                            torch.cuda.get_device_properties(a.device).multi_processor_count)
+    mp = -(-m // 64) * 64
+    out = torch.empty((m, n), dtype=torch.int32 if mode == "i8" else torch.float32, device=a.device)
+    bits = torch.empty((reps, mp, k // 32), dtype=torch.int32, device=a.device)
+    flags = torch.zeros((mp // 64, reps), dtype=torch.int32, device=a.device)
+    lib = build.load("matmul_probe")
+    with torch.cuda.device(a.device):
+        _launch(getattr(lib, entry), _ptr(a), _ptr(b), _ptr(out), _ptr(bits), _ptr(flags), m, k, n, reps,
+                LOOP_MODES[mode], knw, wgs, slots, resident, _stream())
+    return out
+
+
 def loop_matmul(a: torch.Tensor, b: torch.Tensor, mode: str, reps: int) -> torch.Tensor:
     """Kernel B11 (csrc/matmul_probe.cu `usearch_loop_matmul`), or its plain
     version for CPU tensors: ``acc`` after ``reps`` loop-carried products,
     ``[M, N]`` i32 (``i8``) or f32. On the card ``M`` is a multiple of 16 up
-    to 256, ``K`` of 64 and ``N`` of 64, and the ``N / 64`` blocks must fit
-    on the card at once (one per SM)."""
+    to 256, ``K`` and ``N`` multiples of 64, and the blocks of
+    `loop_layout` must fit on the card at once (one per SM)."""
     _check_loop(a, b, mode, reps)
     if a.device.type == "cpu":
         return loop_matmul_plain(a, b, mode, reps)
-    from .. import build
-
-    (m, k), n = a.shape, b.shape[0]
-    if m % 16 or m > LOOP_MAX_M or k % LOOP_COLS or n % LOOP_COLS:
-        raise ValueError(f"the kernel takes M % 16 == 0, M <= {LOOP_MAX_M}, K and N multiples of {LOOP_COLS}, "
-                         f"got {m}, {k}, {n}")
-    out = torch.empty((m, n), dtype=torch.int32 if mode == "i8" else torch.float32, device=a.device)
-    bits = torch.empty((2, m, k // 32), dtype=torch.int32, device=a.device)
-    lib = build.load("matmul_probe")
-    with torch.cuda.device(a.device):
-        _launch(lib.usearch_loop_matmul, _ptr(a), _ptr(b), _ptr(out), _ptr(bits), m, k, n, reps,
-                LOOP_MODES[mode], _stream())
+    out = _loop_launch("usearch_loop_matmul", a, b, mode, reps)
     loop_matmul.launches += 1
     return out
 
 
 loop_matmul.launches = 0
+
+
+def loop_chain(a: torch.Tensor, b: torch.Tensor, mode: str, reps: int) -> torch.Tensor:
+    """B11 with its product taken out (csrc/matmul_probe.cu
+    `usearch_loop_chain`), on the card only: the same blocks, steps and
+    step-to-step handshake, ``acc`` 0 throughout. Its time is the floor of
+    B11's step chain without the product; not a kernel of any path, so it
+    counts no launches and has no plain version."""
+    _check_loop(a, b, mode, reps)
+    if a.device.type != "cuda":
+        raise ValueError("loop_chain times the card's handshake: it takes CUDA tensors")
+    return _loop_launch("usearch_loop_chain", a, b, mode, reps)
 
 
 # ---------------------------------------------------------------------------
