@@ -10,12 +10,14 @@ Phases, each fatal on failure:
    usearch_torch/csrc (one nvcc per source, all started together), and the
    SASS of the scan and fused libraries (cuobjdump -sass): every wgmma
    instantiation of B1/B2 and of B8/B9/B10 must hold its tensor-core
-   product, IGMMA for i8 and HGMMA for bf16 and compact f32, and B1/B2's
-   SIMT f32 kernel FFMA and no tensor-core product (no TF32 on the exact
-   path); and the probe library's: every i8, bf16 and b1 instantiation of
-   the tensor-core probe kernel (B3, B5, B6's lists; B7 over i8) holds
-   IGMMA, HGMMA or BGMMA (the b1 and-popc product), and the SIMT probe
-   kernel is left for f32 alone;
+   product, IGMMA for i8, HGMMA for bf16 and compact f32, an HGMMA of TF32
+   for B8/B9/B10 over f32 (the three-pass TF32 product), and B1/B2's SIMT
+   f32 kernel FFMA and no tensor-core product (no TF32 on the exact path);
+   and the probe library's: every i8, bf16, f32 and b1 instantiation of the
+   tensor-core probe kernel (B3, B5, B6's lists; B7 over i8) holds IGMMA,
+   HGMMA, an HGMMA of TF32 or BGMMA (the b1 and-popc product); no SIMT
+   kernel of f32 rows (`grouped_probe_kernel`, `fused_kernel`,
+   `lanes_kernel`) is left;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -30,7 +32,8 @@ Phases, each fatal on failure:
    segment across lanes 60-70, windows mid-bin, empty and ending at the
    table's last row, W=128, 384 and 1,024 bytes, k 1-128 with bin_m 1-16,
    B5 over b1 at 1-16 per bin, ties across a bin edge and between lanes 63
-   and 64; i8 and b1 bit for bit); B6 (per-query probe: B3's kernel over
+   and 64; f32 too, W elements; i8 and b1 bit for bit); B6 (per-query
+   probe: B3's kernel over
    its pairs, then its fold) on such windows for {i8, bf16, f32} x {ip,
    cos, l2sq} and b1 hamming, with and without the penalty row, k 10 and
    128 at 4 and k per bin, and on a narrow surface (windows shared by many
@@ -44,15 +47,21 @@ Phases, each fatal on failure:
    top-k) and B9 (its streamed form) at k 10 and 128 and B10 (lane-layout
    surface); the three again on rows too wide to stay in shared memory
    (f32 W=512, i8 W=2,048) in 509 bins (a partial last merge group for B9);
-   B8/B9 on an i8 table of 3 live bins at k=10; B8/B9 at FUSED_EDGES: i8
-   and bf16 tables with equal bin minima planted across a 256-row tile
+   B8/B9 on an i8 table of 3 live bins at k=10; over f32 B8/B9 bit for bit
+   against the top-k of B10's minima; B8/B9 at FUSED_EDGES: i8, bf16 and
+   f32 tables with equal bin minima planted across a 256-row tile
    edge, an 8-bin merge-group edge and in a half last tile, 40 and 300
    queries, k 1, 10 and 128, ties held to the earlier bin, and a table
    with fewer live bins than k; and B10 at LANES_EDGES: the same planted
    tables in i8, bf16 and f32 (24, 19 and 1,023 bins, 40 and 300 queries)
-   and wide planted rows, i8 bit for bit, bf16 and f32 bit for bit against
-   B1's surface (the same product and epilogue) and within the float
-   tolerance of the plain version (bf16's scaled by the squared norms);
+   and wide planted rows, i8 bit for bit, i8 and bf16 bit for bit against
+   B1's surface (the same product and epilogue), f32 within `tf32_atol` of
+   it (B1's f32 is exact), and each within the float tolerance of the plain
+   version (bf16's scaled by the squared norms, f32's by `tf32_atol`). The
+   f32 flavours of B3/B5/B6 and B8-B10 (the three-pass TF32 product) hold
+   their plain versions within FLOAT_RTOL and `tf32_atol`: FLOAT_ATOL and
+   the dot bound tests/test_torch_tf32_split.py proves at the row width
+   plus TERMS_ATOL, times the largest q_sq + t_sq (2 for cos);
 3. the main paths through the public entry points, at the shape of
    bench.py: `Index(ndim=256, metric="ip", dtype="i8")`, 1M unit rows added
    on the card, 16,384 member queries at k=10 (recall@1 >= 0.99), 1,024
@@ -75,7 +84,14 @@ Phases, each fatal on failure:
    with recall@1 >= 0.99 over the members still live, distances equal bit
    for bit to `search_binned`'s (B1) and ids equal apart from ties, each
    launching its own kernel once and no other (and no earlier path any of
-   them).
+   them); the same on the f32 cos table with 1% of its rows masked as
+   removed, distances within `tf32_atol` of B1's exact search and equal bit
+   for bit among the three. The f32 IVF path: `Index(ndim=256, metric="cos",
+   dtype="f32")` over the IVF path's 1M unit rows, the same build and
+   16,384 member queries (recall@1 >= 0.99, recall@10 printed), the plain
+   probe's search within `tf32_atol` (keys equal apart from near ties),
+   then `pair` (B6) and `nofold` (B5) each against its plain version; B3
+   and no flat kernel must launch.
    The binary paths, at the shape of scripts/tpu_binary_ivf_bench.py: 1M
    packed 1024-bit rows of a clustered corpus (400 template rows, 8% of
    the bits flipped), 4,096 member queries, k=10; per metric (hamming, then
@@ -91,9 +107,13 @@ Phases, each fatal on failure:
    time and one library call's time as a yardstick (none for the probe
    kernels B3-B7); B3 also over the IVF pairs with queries and table in
    bf16, and at the pairs of a batch of 1,024 queries (that search through
-   B3's plain version held equal to the kernel's); and a profile of one warm
-   search of each path and flavour, the flat-scan flavours and both exact
-   paths included;
+   B3's plain version held equal to the kernel's); B3, B5 (`nofold`) and B6
+   (`pair`) over f32 at the f32 IVF path's arguments and B8/B9/B10 over f32
+   on the f32 cos table, bound at the three-pass TF32 rate (PEAK_OPS
+   "tf32x3", the SIMT f32 bound printed beside it), the f32 flat rows beside
+   f32 `torch.matmul` (TF32 off); and a profile of one warm search of each
+   path and flavour, the f32 IVF path, the flat-scan flavours over i8 and
+   f32 and both exact paths included;
 5. the TPU micro-benchmarks of scripts/, each a path of its own: the
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
@@ -116,8 +136,8 @@ Phases, each fatal on failure:
    version and, for B11, one library product times the steps.
 
 The line before the last is a JSON object with a row per kernel (B1/B2's
-and B8-B10's rows also say whether the tensor cores or SIMT FMAs ran the
-product); the last
+and B8-B10's rows also say whether the tensor cores, in TF32 passes or not,
+or SIMT FMAs ran the product); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -140,7 +160,7 @@ from torch.profiler import ProfilerActivity, profile
 from usearch_torch import Index, build, ivf
 from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
-from usearch_torch.ops import microbench, probe, scan
+from usearch_torch.ops import microbench, probe, scan, tf32
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits
@@ -165,8 +185,12 @@ SCAN_EDGES = ((512, {"i8": 128, "bf16": 128, "f32": 128}, (100, 1)),
 SCAN_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "f": "HGMMA"}
 #: the wgmma instantiations of B8/B9/B10 in csrc/fused.cu: storage type's
 #: mangled name -> the `kSmall` flags it has (i8 rows of at most 256 bytes);
-#: the flavour (`Flavour`) by its code
-FUSED_SASS = {"a": ("0", "1"), "13__nv_bfloat16": ("0",)}
+#: the flavour (`Flavour`) by its code; f32 ("f") takes the three-pass TF32
+#: product (an HGMMA of TF32 operands, `TF32_SASS`)
+FUSED_SASS = {"a": ("0", "1"), "13__nv_bfloat16": ("0",), "f": ("0",)}
+#: the product instruction of the f32 instantiations of fused.cu and
+#: probe.cu: an HGMMA whose operands are TF32
+TF32_SASS = ("HGMMA", "TF32")
 FUSED_FLAVOURS = {"0": "B8", "1": "B9", "2": "B10"}
 #: B1/B2's SIMT f32 kernel (modes kBinned, kMinima): the FMA it must hold
 #: and the tensor-core products it must not
@@ -185,32 +209,42 @@ PROBE_EDGES = dict(n=4096, w_pad=768, widths=(128, 384, 1024), ks=(1, 3, 10, 128
 #: and product, its metric codes (b1: hamming as l2sq's rank form), kSmall
 #: values and (kernel, list length) pairs of B3, B5 and B6's lists, the one
 #: instantiation of B7 (i8, no metric, integer keys), the flavours by their
-#: code (csrc/probe.cu `Flavour`), and the SIMT kernel's instantiations,
-#: which i8, bf16 and b1 no longer have
-PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "h": "BGMMA"}
-PROBE_METRICS = {"a": (0, 1, 2), "13__nv_bfloat16": (0, 1, 2), "h": (2,)}
-PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",), "h": ("1",)}
+#: code (csrc/probe.cu `Flavour`); f32 ("f") takes the three-pass TF32
+#: product
+PROBE_SASS = {"a": "IGMMA", "13__nv_bfloat16": "HGMMA", "h": "BGMMA", "f": TF32_SASS}
+PROBE_METRICS = {"a": (0, 1, 2), "13__nv_bfloat16": (0, 1, 2), "h": (2,), "f": (0, 1, 2)}
+PROBE_SMALL = {"a": ("0", "1"), "13__nv_bfloat16": ("0",), "h": ("1",), "f": ("0",)}
 PROBE_LISTS = {"a": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8), ("B6", 4)),
                "13__nv_bfloat16": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8), ("B6", 4)),
-               "h": (("B3", 4), ("B3", 16), ("B5", 8), ("B5", 16), ("B6", 4))}
+               "h": (("B3", 4), ("B3", 16), ("B5", 8), ("B5", 16), ("B6", 4)),
+               "f": (("B3", 4), ("B3", 16), ("B5", 4), ("B5", 8), ("B6", 4))}
 PROBE_B7 = "a/metric 0/B7 lists 4/small 0"
 PROBE_FLAVOURS = {"0": "B5", "1": "B3", "2": "B6", "3": "B7"}
-PROBE_SIMT = ("f",)
+#: the SIMT kernels that once took f32 rows, which must be gone
+SIMT_GONE = ("grouped_probe_kernel", "fused_kernel", "lanes_kernel")
 #: phase 4: the small batch of B3's row at the IVF path's index
 SMALL_Q = 1024
 #: phase 3/4: the IVF path of bench.py
 IVF = dict(n=1_000_000, w=256, q=16384, k=10, partitions=1024, spill=0.05, expansion=1024, gt_q=2048,
            fresh=4096, removed=0.01)
+#: phase 3/4: the f32 IVF path: IVF's build over the same rows in f32 with
+#: cos, and the probe flavours it also runs ("bin" is i8-only)
+F32_IVF = dict(metric="cos", modes=("pair", "nofold"))
+#: phase 3/4: the share of the f32 cos table's rows masked as removed for
+#: the f32 flat-scan flavours
+F32_REMOVED = 0.01
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
 #: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s;
+#: f32 products to f32 accuracy on the tensor cores ("tf32x3") at a third of
+#: the TF32 rate (three products each), beside SIMT f32 FMAs ("f32");
 #: b1 (two operations per bit pair) at eight times the int8 rate: the b1
 #: `wgmma` with and-popc (m64n128k256) issues at the s8 form's (m64n128k32)
 #: rate per instruction, 256 bit pairs where s8 takes 32 byte pairs
 #: (`python -m usearch_torch.microbench.probe_breakdown`: B4's product alone
 #: beside the s8 product over the same bytes at the same steps)
-PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12, "b1": 8 * 1979e12}
+PEAK_OPS = {"i8": 1979e12, "bf16": 989e12, "f32": 67e12, "b1": 8 * 1979e12, "tf32x3": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 #: float bin minima: f32 sums of W products in another order
 FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
@@ -323,6 +357,23 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def tf32_atol(metric, q: torch.Tensor, table: torch.Tensor) -> float:
+    """The atol of an f32 flavour's distances (the three-pass TF32 product
+    of B3/B5/B6 and B8-B10) against its plain version's (f32 FMAs), beside
+    FLOAT_RTOL: FLOAT_ATOL, and the bound tests/test_torch_tf32_split.py
+    proves for the product's dots of W columns (ops/tf32.dot_rtol(W): the
+    split's error a product and one f32 rounding a k-step and pass) plus
+    TERMS_ATOL for the plain version's sums in another order, as bf16's,
+    times the largest q_sq + t_sq: a dot's terms sum |q_i t_i| <= (q_sq +
+    t_sq) / 2, and l2sq takes -2 dot; cos divides its dots by both norms, so
+    2 in place of q_sq + t_sq."""
+    if metric == MetricKind.Cos:
+        scale = 2.0
+    else:
+        scale = float((q.float() ** 2).sum(1).max() + (table.float() ** 2).sum(1).max())
+    return FLOAT_ATOL + (tf32.dot_rtol(q.shape[1]) + TERMS_ATOL) * scale
+
+
 def make_rows(n: int, w: int, dtype, gen, dev) -> torch.Tensor:
     """Random rows in storage dtype; i8 through the port's quantizer."""
     x = torch.randn(n, w, generator=gen, device=dev)
@@ -409,13 +460,21 @@ def sass_functions(name: str) -> dict:
     return dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
 
 
+def products(body: str, op) -> int:
+    """Product instructions of one function's SASS: lines of the opcode
+    ``op``, or of every word of a tuple (TF32_SASS: an HGMMA of TF32)."""
+    words = (op,) if isinstance(op, str) else op
+    return sum(all(w in line for w in words) for line in body.splitlines())
+
+
 def check_scan_sass() -> dict:
     """Phase 1: the SASS of the built scan library holds a wgmma
     instantiation of B1/B2 for every storage type and mode, and the fused
     library one of B8/B9/B10 for every storage type, metric and flavour;
     each instantiation holds its tensor-core product: IGMMA for i8, HGMMA
-    for bf16 and f32 compact. B1/B2's SIMT f32 kernel, in both its modes,
-    holds FFMA and no tensor-core product. Returns the count of product
+    for bf16 and f32 compact, HGMMA of TF32 for B8/B9/B10 over f32. B1/B2's
+    SIMT f32 kernel, in both its modes, holds FFMA and no tensor-core
+    product; fused.cu's SIMT kernels are gone. Returns the count of product
     instructions by wgmma instantiation."""
     found = {}
     for name, body in sass_functions("scan").items():
@@ -438,44 +497,43 @@ def check_scan_sass() -> dict:
     if set(simt) != {"simt mode 0", "simt mode 2"} or any(
             c[SIMT_SASS[0]] == 0 or any(c[op] for op in SIMT_SASS[1]) for c in simt.values()):
         fail(f"scan.cu's SIMT f32 kernel lacks FFMA or holds a tensor-core product: {simt}")
-    fused = {}
+    fused, gone = {}, []
     for name, body in sass_functions("fused").items():
-        m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16)Li(\d)ELb(\d)ELi(\d)E", name)
+        m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16|f)Li(\d)ELb(\d)ELi(\d)E", name)
         if m:
             kind, metric, small, flavour = m.groups()
-            fused[f"{kind}/metric {metric}/small {small}/{FUSED_FLAVOURS[flavour]}"] = body.count(SCAN_SASS[kind])
+            op = TF32_SASS if kind == "f" else SCAN_SASS[kind]
+            fused[f"{kind}/metric {metric}/small {small}/{FUSED_FLAVOURS[flavour]}"] = products(body, op)
+        gone += [k for k in SIMT_GONE if k in name]
     want = {f"{t}/metric {m}/small {small}/{b}" for t in FUSED_SASS for m in (0, 1, 2) for small in FUSED_SASS[t]
             for b in FUSED_FLAVOURS.values()}
     log(f"fused.cu SASS, tensor-core products by B8/B9/B10 wgmma instantiation: {fused}")
-    if set(fused) != want or any(n == 0 for n in fused.values()):
-        fail(f"fused.cu's B8/B9/B10 wgmma instantiations lack their tensor-core product: {fused}")
+    if set(fused) != want or any(n == 0 for n in fused.values()) or gone:
+        fail(f"fused.cu's B8/B9/B10 wgmma instantiations lack their tensor-core product: {fused}; SIMT {gone}")
     return {**found, **fused}
 
 
 def check_probe_sass() -> dict:
     """Phase 1: the SASS of the built probe library holds the tensor-core
     kernel (`grouped_wgmma`) of B3, B5 and B6's lists for i8 (rows up to 256
-    bytes and wider), bf16 and packed b1 (hamming; B5 with lists of 8 and
-    16), every metric and list length, and of B7 over i8, each with its
-    product (IGMMA, HGMMA, BGMMA: the b1 and-popc product); the SIMT
-    `grouped_probe_kernel` is left for f32 alone (B3, B5 and B6's lists).
-    Returns the count of product instructions by instantiation."""
-    found, simt = {}, set()
+    bytes and wider), bf16, f32 and packed b1 (hamming; B5 with lists of 8
+    and 16), every metric and list length, and of B7 over i8, each with its
+    product (IGMMA, HGMMA, HGMMA of TF32, BGMMA: the b1 and-popc product);
+    no SIMT `grouped_probe_kernel` is left. Returns the count of product
+    instructions by instantiation."""
+    found, simt = {}, []
     for name, body in sass_functions("probe").items():
-        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h)Li(\d)ELi(\d+)ELi(\d)ELb(\d)E", name)
+        m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h|f)Li(\d)ELi(\d+)ELi(\d)ELb(\d)E", name)
         if m:
             kind, metric, lists, flavour, small = m.groups()
             key = f"{kind}/metric {metric}/{PROBE_FLAVOURS[flavour]} lists {lists}/small {small}"
-            found[key] = body.count(PROBE_SASS[kind])
-        m = re.search(r"grouped_probe_kernelI(\w+?)Li", name)
-        if m:
-            simt.add(m.group(1))
+            found[key] = products(body, PROBE_SASS[kind])
+        simt += [k for k in SIMT_GONE if k in name]
     want = {f"{t}/metric {m}/{kind} lists {n}/small {small}" for t in PROBE_SASS for m in PROBE_METRICS[t]
             for kind, n in PROBE_LISTS[t] for small in PROBE_SMALL[t]} | {PROBE_B7}
-    log(f"probe.cu SASS, tensor-core products by B3/B5/B6/B7 wgmma instantiation: {found}; SIMT kernel over "
-        f"{sorted(simt)}")
-    if set(found) != want or any(n == 0 for n in found.values()) or simt != set(PROBE_SIMT):
-        fail(f"probe.cu's B3/B5/B6/B7 instantiations are not the expected ones: {found}, SIMT {sorted(simt)}")
+    log(f"probe.cu SASS, tensor-core products by B3/B5/B6/B7 wgmma instantiation: {found}; SIMT kernels {simt}")
+    if set(found) != want or any(n == 0 for n in found.values()) or simt:
+        fail(f"probe.cu's B3/B5/B6/B7 instantiations are not the expected ones: {found}, SIMT {simt}")
     return found
 
 
@@ -587,19 +645,24 @@ def check_probe(dev) -> None:
 
 def hold_probe(tag: str, args, kern, plain, name: str = "B3") -> float:
     """A probe kernel's results against its plain version's (B3's [P, k],
-    B5's [P, out_pad], B6's [Q, k]): i8 and b1 bit for bit; float distances
-    within FLOAT_RTOL/FLOAT_ATOL, ids equal except where the distances at
-    that place agree within it (near ties). Fails on a mismatch; returns the
-    max abs error of the distances."""
+    B5's [P, out_pad], B6's [Q, k]; B8/B9's [Q, k] too): i8 and b1 bit for
+    bit; bf16 distances within FLOAT_RTOL/FLOAT_ATOL, f32 within FLOAT_RTOL
+    and `tf32_atol`, ids equal except where the distances at that place
+    agree within it (near ties). ``args``: the kernel's, the queries second
+    and the table next (flat scans) or after their norms (probes). Fails on
+    a mismatch; returns the max abs error of the distances."""
     (kd, ki), (pd, pi) = kern, plain
     torch.cuda.synchronize()
     differ = ki != pi
     if args[1].dtype in (torch.int8, torch.uint8):
         ok, detail = torch.equal(kd, pd) and not bool(differ.any()), "bit for bit"
     else:
-        ok = torch.allclose(kd, pd, rtol=FLOAT_RTOL, atol=FLOAT_ATOL) and torch.allclose(
-            kd[differ], pd[differ], rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
-        detail = f"distances within rtol {FLOAT_RTOL}, {int(differ.sum())} ids differ on near ties"
+        atol = FLOAT_ATOL
+        if args[1].dtype == torch.float32:
+            atol = tf32_atol(args[0], args[1], args[2] if args[2].dim() == 2 else args[3])
+        ok = torch.allclose(kd, pd, rtol=FLOAT_RTOL, atol=atol) and torch.allclose(
+            kd[differ], pd[differ], rtol=FLOAT_RTOL, atol=atol)
+        detail = f"distances within rtol {FLOAT_RTOL} atol {atol:.3g}, {int(differ.sum())} ids differ on near ties"
     err = float((kd - pd).abs().max())
     log(f"  {tag}: {name} vs plain {'ok' if ok else 'MISMATCH'}, {detail} ({int((ki >= 0).sum())} found, "
         f"max abs err {err:.3g})")
@@ -626,13 +689,14 @@ def check_probe_edges(dev) -> None:
     a table with rows 127/128 and 255/256 equal (a tie across each bin
     edge) and equal queries in lanes 63 and 64 of every cell (a tie across
     the warpgroups); i8 rows and queries in -5..5 (many exact ties, queries
-    a third random, the rest table rows), bf16 rows and queries random
-    normal; every width, metric and dtype at k=10, 4 per bin (ip with and
-    without the penalty row), B5 at 8 per bin, and at W=128 every k and
-    bin_m of PROBE_EDGES on l2sq; packed b1 rows of bytes drawn from a few
-    values (`few_bytes`, many equal hamming distances; queries drawn as the
-    i8 ones) with hamming at every width, k and bin_m, B5 at every b1 bin_m;
-    i8 and b1 bit for bit, bf16 within the float tolerance."""
+    a third random, the rest table rows), bf16 and f32 rows and queries
+    random normal (f32: W elements, so its rows stream their queries);
+    every width, metric and dtype at k=10, 4 per bin (ip with and without
+    the penalty row), B5 at 8 per bin, and at W=128 every k and bin_m of
+    PROBE_EDGES on l2sq; packed b1 rows of bytes drawn from a few values
+    (`few_bytes`, many equal hamming distances; queries drawn as the i8
+    ones) with hamming at every width, k and bin_m, B5 at every b1 bin_m; i8
+    and b1 bit for bit, bf16 and f32 within the float tolerances."""
     spec = PROBE_EDGES
     n, w_pad = spec["n"], spec["w_pad"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -644,7 +708,7 @@ def check_probe_edges(dev) -> None:
     valid = torch.rand(n, generator=gen, device=dev) >= spec["deleted"]
     penalty = torch.where(valid, 0.0, MASKED)
     count = 0
-    for name in ("i8", "bf16", "b1"):
+    for name in ("i8", "bf16", "b1", "f32"):
         for w in spec["widths"]:
             if name == "i8":
                 table = torch.randint(-5, 6, (n, w), generator=gen, device=dev, dtype=torch.int8)
@@ -655,8 +719,8 @@ def check_probe_edges(dev) -> None:
                 q_g = table[torch.randint(0, n, (n_pairs,), generator=gen, device=dev)]
                 q_g[::3] = few_bytes((q_g[::3].shape[0], w), gen, dev)
             else:
-                table = torch.randn(n, w, generator=gen, device=dev).to(torch.bfloat16)
-                q_g = torch.randn(n_pairs, w, generator=gen, device=dev).to(torch.bfloat16)
+                table = torch.randn(n, w, generator=gen, device=dev).to(DTYPES[name])
+                q_g = torch.randn(n_pairs, w, generator=gen, device=dev).to(DTYPES[name])
             table[128], table[256] = table[127], table[255]
             q_g[64::128] = q_g[63::128]
             q_g = q_g.contiguous()
@@ -906,12 +970,12 @@ def check_fused_edges(dev) -> None:
     and in a half last tile), ragged Q, k 1, 10 and 128, every metric; then
     an l2sq table with fewer live bins than k=10, whose tail must be
     (MASKED, -1) after the live bins in bin order. Held against the plain
-    version (i8 bit for bit, bf16 within FLOAT_RTOL/FLOAT_ATOL), and ties to
-    the earlier bin."""
+    version (i8 bit for bit, bf16 within FLOAT_RTOL/FLOAT_ATOL, f32 within
+    FLOAT_RTOL and `tf32_atol`), and ties to the earlier bin."""
     spec = FUSED_EDGES
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     ties = checks = 0
-    for name in ("i8", "bf16"):
+    for name in ("i8", "bf16", "f32"):
         for n_bins in spec["bins"]:
             for nq in spec["qs"]:
                 t, q, valid = planted_table(name, n_bins, nq, gen, dev)
@@ -953,13 +1017,14 @@ def check_lanes_edges(dev) -> None:
     minima across a 256-row tile edge, at merge-group edges and in a half
     last tile) in every dtype at FUSED_EDGES' bin and query counts, and
     planted rows too wide to stay in shared memory, every metric. i8 bit for
-    bit against the plain version; f32 within FLOAT_RTOL/FLOAT_ATOL of it
-    and bf16 within FLOAT_RTOL and FLOAT_ATOL plus TERMS_ATOL times the
-    largest q_sq + t_sq (f32 sums in another order); every dtype bit for
-    bit, rows included, against B1's surface transposed, which has the same
-    product and epilogue (wgmma for i8 and bf16, one FMA chain a dot for
-    f32). At an odd bin count, outputs one bin longer keep their sentinel
-    past the last bin. The planted equal minima must be there."""
+    bit against the plain version; bf16 within FLOAT_RTOL and FLOAT_ATOL
+    plus TERMS_ATOL times the largest q_sq + t_sq (f32 sums in another
+    order), f32 within FLOAT_RTOL and `tf32_atol` (the three-pass TF32
+    product); i8 and bf16 bit for bit, rows included, against B1's surface
+    transposed, which has the same product and epilogue (wgmma), f32 within
+    `tf32_atol` of it (B1's f32 is the exact SIMT product). At an odd bin
+    count, outputs one bin longer keep their sentinel past the last bin. The
+    planted equal minima must be there."""
     spec = FUSED_EDGES
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     shapes = [(name, n_bins, nq, spec["w"]) for name in DTYPES for n_bins in spec["bins"] for nq in spec["qs"]]
@@ -978,9 +1043,13 @@ def check_lanes_edges(dev) -> None:
             atol = FLOAT_ATOL
             if name == "bf16":
                 atol += TERMS_ATOL * float((q.float() ** 2).sum(1).max() + stats[:, 0].max())
+            elif name == "f32":
+                atol = tf32_atol(metric, q, t)
             hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10", atol)
             bv, bi = scan.binned_scan(*args)
-            if not (torch.equal(kv, bv.T) and torch.equal(ki, bi.T)):
+            if name == "f32":
+                hold_b1(tag, args, False, (kv.T, ki.T), (bv, bi), "B10 against B1's surface", atol)
+            elif not (torch.equal(kv, bv.T) and torch.equal(ki, bi.T)):
                 fail(f"B10 differs from B1's surface at {tag}")
             if n_bins % 2 and not lanes_guard_kept(args):
                 fail(f"B10 stored past the last bin at {tag}")
@@ -1008,13 +1077,17 @@ def lanes_guard_kept(args) -> bool:
 
 def check_flavour_kernels(tag: str, args) -> None:
     """B8 and B9 at each k of FUSED_CHECK, and B10, against their plain
-    versions."""
+    versions; over f32 B8 and B9 also bit for bit against the top-k of
+    B10's minima (one product and epilogue)."""
+    (kv, ki), (pv, pi) = scan.binned_scan_lanes(*args), scan.binned_scan_lanes_plain(*args)
+    f32 = args[1].dtype == torch.float32
+    hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10", tf32_atol(*args[:3]) if f32 else FLOAT_ATOL)
     for k in FUSED_CHECK["ks"]:
         plain = scan.fused_topk_plain(*args, k)
-        hold_probe(f"{tag} k={k}", args, scan.fused_topk(*args, k), plain, "B8")
-        hold_probe(f"{tag} k={k}", args, scan.fused_topk_stream(*args, k), plain, "B9")
-    (kv, ki), (pv, pi) = scan.binned_scan_lanes(*args), scan.binned_scan_lanes_plain(*args)
-    hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), "B10")
+        for name, out in (("B8", scan.fused_topk(*args, k)), ("B9", scan.fused_topk_stream(*args, k))):
+            hold_probe(f"{tag} k={k}", args, out, plain, name)
+            if f32 and not all(torch.equal(a, b) for a, b in zip(out, scan.topk_of_minima(kv.T, ki.T, k))):
+                fail(f"{name} over f32 differs from the top-k of B10's minima at {tag} k={k}")
 
 
 def few_bytes(shape, gen, dev) -> torch.Tensor:
@@ -1161,19 +1234,45 @@ def drive(dev, spec, metric, dtype, gen, removed: float = 0.0) -> dict:
                 launches=launches)
 
 
-def drive_flavours(run) -> dict:
-    """Phase 3, the flat-scan flavours on the i8 index of ``run`` after its
-    removal, on its member queries: recall@1 over the members still live,
-    distances equal bit for bit to `search_binned`'s (B1) and ids equal
-    apart from ties; the launch counters are zeroed just before each
+def flavour_args(run, valid=None):
+    """The flat-scan flavours' search arguments on ``run``'s index and
+    member queries: (metric, queries, table, stats, valid), ``valid`` the
+    index's unless given."""
+    ix = run["index"]
+    q = ix._cast_device(run["queries"], ScalarKind.F32)
+    return ix.metric, q, ix._table, ix._stats, ix._valid if valid is None else valid
+
+
+def f32_removal(run, gen):
+    """The f32 cos table's valid rows with F32_REMOVED of them masked as
+    removed (the index keeps them), and the keys of those rows."""
+    ix = run["index"]
+    n = len(ix)
+    slots = torch.randperm(n, generator=gen, device=ix._valid.device)[: int(n * F32_REMOVED)]
+    valid = ix._valid.clone()
+    valid[slots] = False
+    return valid, ix._slot_keys[slots.cpu().numpy()]
+
+
+def drive_flavours(run, valid=None, gone=None) -> dict:
+    """Phase 3, the flat-scan flavours on the index of ``run`` after its
+    removal (the i8 index), or with ``valid`` masking the ``gone`` keys (the
+    f32 cos table), on its member queries: recall@1 over the members still
+    live, distances equal bit for bit to `search_binned`'s (B1) and ids
+    equal apart from ties; over f32 (the three-pass TF32 product against
+    B1's exact SIMT one) distances within FLOAT_RTOL and `tf32_atol` of
+    B1's, ids equal apart from near ties, and bit for bit equal among the
+    three flavours; the launch counters are zeroed just before each
     flavour's search (after a warm one) and read just after: its own kernel
     once, no other."""
     ix, k = run["index"], MAIN["k"]
-    q8 = ix._cast_device(run["queries"], ScalarKind.F32)
-    args = (ix.metric, q8, ix._table, ix._stats, ix._valid)
+    args = flavour_args(run, valid)
+    q8 = args[1]
+    f32 = ix._table.dtype == torch.float32
+    atol = tf32_atol(ix.metric, q8, ix._table) if f32 else 0.0
     ref_d, ref_i = scan.search_binned(*args, k)
-    live = ~np.isin(run["want"], run["gone"])
-    out = {}
+    live = ~np.isin(run["want"], run["gone"] if gone is None else gone)
+    out, first_d = {}, None
     for name, (search, kern, _, _) in FLAVOURS.items():
         search(*args, k)  # warm
         torch.cuda.synchronize()
@@ -1186,12 +1285,19 @@ def drive_flavours(run) -> dict:
         top = ix._slot_keys[np.clip(i[:, 0].cpu().numpy(), 0, None)]
         recall1 = float(np.mean(top[live] == run["want"][live]))
         differ = i != ref_i
-        same_d = torch.equal(d, ref_d)
+        if f32:
+            same_d = torch.allclose(d, ref_d, rtol=FLOAT_RTOL, atol=atol) and torch.allclose(
+                d[differ], ref_d[differ], rtol=FLOAT_RTOL, atol=atol)
+            same_d = same_d and (first_d is None or torch.equal(d, first_d))
+            first_d = d if first_d is None else first_d
+            same = f"within rtol {FLOAT_RTOL} atol {atol:.3g} of B1's search and equal among the flavours"
+        else:
+            same_d, same = torch.equal(d, ref_d), "equal to B1's search"
         log(f"  {name}: {q8.shape[0]} queries {search_s * 1e3:.1f} ms = {q8.shape[0] / search_s:.0f} QPS, recall@1 "
-            f"{recall1:.4f} over {int(live.sum())} live members; distances {'equal' if same_d else 'UNEQUAL'} to "
-            f"B1's search, {int(differ.sum())} ids differ on ties; launches {launches}")
+            f"{recall1:.4f} over {int(live.sum())} live members; distances {same if same_d else 'NOT ' + same}, "
+            f"{int(differ.sum())} ids differ on ties; launches {launches}")
         if not bool(torch.isfinite(d).all()) or d.shape != (q8.shape[0], k) or recall1 < 0.99 or not same_d:
-            fail(f"the {name} search: recall@1 {recall1:.4f}, distances equal to B1's search: {same_d}")
+            fail(f"the {name} search: recall@1 {recall1:.4f}, distances {same}: {same_d}")
         check_launches(f"{name} flat", launches, kern.__name__)
         if launches[kern.__name__] != 1:
             fail(f"the {name} search launched {kern.__name__} {launches[kern.__name__]} times")
@@ -1232,11 +1338,20 @@ def check_launches(label: str, launches: dict, kern: str) -> None:
         fail(f"the {label} searches did not go through {kern} alone: {launches}")
 
 
-def drive_mode(index, mode: str, spec, x, member, want, gt_keys, gen, dev) -> dict:
+def searches_agree(got, want, atol: float) -> bool:
+    """Two searches' matches: distances within FLOAT_RTOL and ``atol``, and
+    keys equal except where the distances at that place agree within it
+    (near ties)."""
+    close = np.abs(got.distances - want.distances) <= atol + FLOAT_RTOL * np.abs(want.distances)
+    return bool(close.all()) and bool(np.all(close[got.keys != want.keys]))
+
+
+def drive_mode(index, mode: str, spec, x, member, want, gt_keys, gen, dev, atol=None) -> dict:
     """Phase 3, one probe flavour on the built IVF: warm on another batch,
     the member queries (recall@1 >= 0.99, recall@10 printed, QPS), the same
-    search through the flavour's plain kernel (keys and distances equal),
-    the launch counters zeroed just before and read just after."""
+    search through the flavour's plain kernel (keys and distances equal; an
+    f32 index within ``atol``, `searches_agree`), the launch counters zeroed
+    just before and read just after."""
     kern = MODES[mode]
     nq, k = spec["q"], spec["k"]
     zero_counters()
@@ -1253,9 +1368,13 @@ def drive_mode(index, mode: str, spec, x, member, want, gt_keys, gen, dev) -> di
     mp, args = plain_probe_search(index, x[member], k, kern)
     plain_s = time.perf_counter() - t0
     differ = mp.keys != m.keys
-    if not np.array_equal(mp.distances, m.distances) or differ.any():
+    if atol is None:
+        ok, same = np.array_equal(mp.distances, m.distances) and not differ.any(), "keys and distances equal"
+    else:
+        ok, same = searches_agree(m, mp, atol), f"within atol {atol:.3g}, {int(differ.sum())} keys differ on near ties"
+    if not ok:
         fail(f"the plain {kern}'s search differs from the kernel's in {mode} mode at {int(differ.sum())} places")
-    log(f"  {mode}: the same search through {kern}'s plain version ({plain_s:.2f} s): keys and distances equal")
+    log(f"  {mode}: the same search through {kern}'s plain version ({plain_s:.2f} s): {same}")
     check_launches(f"{mode}-mode IVF", launches, kern)
     log(f"  {mode}: kernel launches: {launches}")
     ivf.PROBE_MODE = "group"
@@ -1359,6 +1478,61 @@ def drive_ivf(dev) -> dict:
     for mode in MODES:
         after = mode_after_updates(index, mode, new, new_keys, probe_q, gone, k)
         modes[mode]["launches"] = {name: count + modes[mode]["launches"][name] for name, count in after.items()}
+    return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes)
+
+
+def drive_f32_ivf(dev) -> dict:
+    """Phase 3, the f32 IVF path: an f32 cos index of the IVF path's 1M
+    unit rows (the same seed), `optimize(n_partitions=1024, reorder=True,
+    spill=0.05)`, `expansion_search = 1024`, 16,384 member queries at k=10
+    (recall@1 >= 0.99, recall@10 against the exact answer printed), the same
+    search through the plain probe (keys equal apart from near ties,
+    distances within `tf32_atol`), then the flavours of F32_IVF each against
+    its plain version; B3 (its f32 instantiations) must launch in the
+    default flavour and no flat kernel."""
+    spec = IVF
+    n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = unit_rows(n, w, gen, dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    index = Index(ndim=w, metric=F32_IVF["metric"], dtype="f32", device=dev)
+    keys = index.add(None, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.optimize(n_partitions=spec["partitions"], reorder=True, spill=spec["spill"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index.expansion_search = spec["expansion"]
+    iv = index._ivf
+    nprobe = iv.nprobe_for(index.expansion_search, index.connectivity)
+    log(f"  f32 cos IVF {n} x {w}: optimize({spec['partitions']} partitions, reorder, spill {spec['spill']}) "
+        f"{build_s:.2f} s: {iv._shape()[0]} chunks, longest {iv.p_win} rows, capacity {index.capacity}")
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
+    m, search_s = search_timed(index, x[member], k)
+    want = keys[member.cpu().numpy()]
+    gq = spec["gt_q"]
+    _, gt_slots = ground_truth(index, x[member[:gq]], k)
+    gt_keys = index._slot_keys[np.clip(gt_slots, 0, None)]
+    recall1, recall10 = recall_at(m, want, gt_keys, k)
+    log(f"  f32 IVF search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
+        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}, recall@10 against the exact answer ({gq} queries) "
+        f"{recall10:.4f}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"f32 IVF search: recall@1 {recall1:.4f}")
+    mp, args = plain_probe_search(index, x[member], k, "grouped_probe")
+    atol = tf32_atol(index.metric, args[1], args[3])
+    if not searches_agree(m, mp, atol):
+        fail("the plain probe's f32 search differs from the kernel's beyond the tolerance")
+    log(f"  the same search through B3's plain version: within atol {atol:.3g}, {int((mp.keys != m.keys).sum())} "
+        f"keys differ on near ties ({args[1].shape[0]} padded pairs, k {args[8]}, {args[9]} per bin)")
+    launches = counters()
+    log(f"  kernel launches on the f32 IVF path (group flavour): {launches}")
+    check_launches("f32 IVF", launches, "grouped_probe")
+    modes = {mode: drive_mode(index, mode, spec, x, member, want, gt_keys, gen, dev, atol)
+             for mode in F32_IVF["modes"]}
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
                 nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes)
 
@@ -1615,11 +1789,21 @@ def b3_row(run, args=None, label: str = "i8 ip IVF", peak: str = "i8") -> dict:
     ops = 2.0 * w * float(win_len.sum())
     b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
-        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations), plain {plain_ms:.1f} ms, library none, "
-        f"launches on its path {run['launches']['grouped_probe']}, max abs err {err:.3g}")
+        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations){simt_bound(peak, ops, nbytes)}, plain "
+        f"{plain_ms:.1f} ms, library none, launches on its path {run['launches']['grouped_probe']}, max abs err "
+        f"{err:.3g}")
     return dict(name=f"grouped_probe[{label}]", route="cuda", source="usearch_torch/csrc/probe.cu",
                 replaces="usearch_tpu/ops/pallas_probe.py:265", launches=run["launches"]["grouped_probe"],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def simt_bound(peak: str, ops: float, nbytes: float) -> str:
+    """For an f32 row bound at the three-pass TF32 rate: the bound at the
+    SIMT f32 FMA rate beside it."""
+    if peak != "tf32x3":
+        return ""
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["f32"], nbytes)
+    return f"; at the SIMT f32 rate {b_ms:.4f} ms ({b_by})"
 
 
 def bf16_probe_args(args):
@@ -1678,7 +1862,7 @@ def binary_row(run) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def mode_row(run, mode: str) -> dict:
+def mode_row(run, mode: str, label: str = "i8 ip IVF", peak: str = "i8") -> dict:
     """Phase 4 row of the kernel of one probe flavour (B6 for ``pair``, B7
     ``pack`` for ``bin``, B5 over i8 for ``nofold``) at the IVF path's
     arguments, captured in phase 3: held against its plain version, timed
@@ -1686,8 +1870,9 @@ def mode_row(run, mode: str) -> dict:
     the kernel's windows touch, read once (with the aux rows it takes), its
     other inputs and its outputs; operations: 2 W per row it multiplies
     (B6, B5: the rows of each window; B7: every row of each pair's padded
-    window), at the int8 tensor-core rate. No one PyTorch call computes a
-    per-window, per-bin selection, so there is no library time."""
+    window), at the int8 tensor-core rate (f32: ``peak`` "tf32x3"). No one
+    PyTorch call computes a per-window, per-bin selection, so there is no
+    library time."""
     res = run["modes"][mode]
     args, name = res["probe_args"], res["kern"]
     kern, plain = getattr(probe, name), getattr(probe, name + "_plain")
@@ -1708,64 +1893,70 @@ def mode_row(run, mode: str) -> dict:
             starts, offs, lens, k, w_pad, bin_m = args[6:]
             win_start, win_len = (starts + offs).flatten(), lens.flatten()
             in_bytes, out_cols = 4 * 3 * starts.numel(), k
-            tag = f"{name} i8 ip IVF Q={q.shape[0]} nprobe={starts.shape[1]} k={k} bin_m={bin_m}"
+            tag = f"{name} {label} Q={q.shape[0]} nprobe={starts.shape[1]} k={k} bin_m={bin_m}"
             source, replaces = "usearch_torch/csrc/pair.cu", "usearch_tpu/ops/pallas_probe.py:144"
         else:
             _, win_start, win_len, w_pad, bin_m = args[6:]
             in_bytes, out_cols = 4 * 3 * q.shape[0], probe.nofold_width(bin_m, w_pad)
-            tag = f"{name} i8 ip IVF P={q.shape[0]} w_pad={w_pad} bin_m={bin_m}"
+            tag = f"{name} {label} P={q.shape[0]} w_pad={w_pad} bin_m={bin_m}"
             source, replaces = "usearch_torch/csrc/probe.cu", "usearch_tpu/ops/pallas_probe.py:453"
         err = hold_probe(tag, args, kern(*args), plain(*args), {"pair_probe": "B6"}.get(name, "B5"))
-        row_bytes = w + 4 * sum(x is not None for x in (t_sq, penalty))
+        row_bytes = w * table.element_size() + 4 * sum(x is not None for x in (t_sq, penalty))
         touched = touched_rows(n_rows, win_start, win_len)
-        nbytes = touched * row_bytes + q.numel() + 4 * q_sq.numel() + in_bytes + q.shape[0] * out_cols * 8
+        nbytes = (touched * row_bytes + q.numel() * q.element_size() + 4 * q_sq.numel() + in_bytes
+                  + q.shape[0] * out_cols * 8)
         ops = 2.0 * w * float(win_len.sum())
     ms = time_ms(lambda: kern(*args), 3)
     plain_ms = time_ms(lambda: plain(*args), 1)
-    b_ms, b_by = bound_ms(ops, PEAK_OPS["i8"], nbytes)
+    b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
-        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations), plain {plain_ms:.1f} ms, library none (no one "
-        f"PyTorch call selects per window and bin), launches on its path {res['launches'][name]} "
-        f"({res['launches_per_search']} per search), max abs err {err:.3g}")
-    return dict(name=f"{name}[i8 ip IVF {mode}]", route="cuda", source=source, replaces=replaces,
+        f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations){simt_bound(peak, ops, nbytes)}, plain "
+        f"{plain_ms:.1f} ms, library none (no one PyTorch call selects per window and bin), launches on its path "
+        f"{res['launches'][name]} ({res['launches_per_search']} per search), max abs err {err:.3g}")
+    return dict(name=f"{name}[{label} {mode}]", route="cuda", source=source, replaces=replaces,
                 launches=res["launches"][name], max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
 
-def flavour_row(name: str, run, launches: int, lib_ms: float) -> dict:
-    """Phase 4 row of one flat-scan flavour's kernel at the phase-3 shape:
+def flavour_row(name: str, run, launches: int, lib_ms: float, valid=None, label: str = "i8 ip",
+                peak: str = "i8") -> dict:
+    """Phase 4 row of one flat-scan flavour's kernel at the phase-3 shape
+    (over f32: the cos table with ``valid`` masking the removed rows):
     held against its plain version as in phase 2, then timed beside its
-    bound and the plain version's time. Its work is B1's product; the bytes
-    are the table, queries and aux read once and its own output written
-    once. No one PyTorch call computes bin minima and a top-k; ``lib_ms`` is
-    B1's yardstick, one library product of the same operands. ``product``:
-    the tensor cores (B8/B9/B10 over i8 run `fused_wgmma`)."""
+    bound (f32: at the three-pass TF32 rate, the SIMT f32 one beside it) and
+    the plain version's time. Its work is B1's product; the bytes are the
+    table, queries and aux read once and its own output written once. No one
+    PyTorch call computes bin minima and a top-k; ``lib_ms`` is B1's
+    yardstick, one library product of the same operands (f32: f32
+    `torch.matmul`, TF32 off). ``product``: the tensor cores (`fused_wgmma`:
+    s8, or TF32 in three passes)."""
     _, kern, tag_name, replaces = FLAVOURS[name]
-    ix, k = run["index"], MAIN["k"]
-    q8 = ix._cast_device(run["queries"], ScalarKind.F32)
-    metric, table = ix.metric, ix._table
-    args = (metric, q8, table, *scan.scan_aux(metric, q8, ix._stats, ix._valid))
+    metric, q8, table, stats, valid = flavour_args(run, valid)
+    k = MAIN["k"]
+    args = (metric, q8, table, *scan.scan_aux(metric, q8, stats, valid))
     nq, (n, w) = q8.shape[0], table.shape
-    tag = f"{kern.__name__} i8 ip Q={nq} N={n}"
+    tag = f"{kern.__name__} {label} Q={nq} N={n}"
     if kern is scan.binned_scan_lanes:
         call, plain = (lambda: kern(*args)), (lambda: scan.binned_scan_lanes_plain(*args))
         (kv, ki), (pv, pi) = call(), plain()
-        err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name)
+        atol = tf32_atol(*args[:3]) if table.dtype == torch.float32 else FLOAT_ATOL
+        err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name, atol)
         out_bytes = nq * (n // 128) * 8
     else:
         call, plain = (lambda: kern(*args, k)), (lambda: scan.fused_topk_plain(*args, k))
         err = hold_probe(tag, args, call(), plain(), tag_name)
         out_bytes = nq * k * 8
-    product = "wgmma"
+    product = "wgmma tf32x3" if table.dtype == torch.float32 else "wgmma"
     ms = time_ms(call, 3)
     plain_ms = time_ms(plain, 1)
     nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + out_bytes
-    b_ms, b_by = bound_ms(2.0 * nq * n * w, PEAK_OPS["i8"], nbytes)
+    ops = 2.0 * nq * n * w
+    b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; bytes alone {nbytes / PEAK_BYTES * 1e3:.3f} ms, "
-        f"of them the output's {out_bytes / 1e9:.4f} GB {out_bytes / PEAK_BYTES * 1e3:.3f} ms), plain "
-        f"{plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), launches on its path {launches} "
-        f"(1 per search), product {product}, max abs err {err:.3g}")
-    return dict(name=f"{kern.__name__}[i8 ip flat]", route="cuda", source="usearch_torch/csrc/fused.cu",
+        f"of them the output's {out_bytes / 1e9:.4f} GB {out_bytes / PEAK_BYTES * 1e3:.3f} ms)"
+        f"{simt_bound(peak, ops, nbytes)}, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms (B1's product), "
+        f"launches on its path {launches} (1 per search), product {product}, max abs err {err:.3g}")
+    return dict(name=f"{kern.__name__}[{label} flat]", route="cuda", source="usearch_torch/csrc/fused.cu",
                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, product=product)
 
@@ -2070,7 +2261,10 @@ def main() -> int:
     log("== phase 3: main paths")
     head, comp = run_main_path(dev)
     flavours = drive_flavours(head)
+    f32_valid, f32_gone = f32_removal(comp, torch.Generator(device=dev).manual_seed(SEED + 12))
+    f32_flavours = drive_flavours(comp, f32_valid, f32_gone)
     ivf_run = drive_ivf(dev)
+    f32_ivf = drive_f32_ivf(dev)
     binary = run_binary_paths(dev)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
@@ -2085,28 +2279,34 @@ def main() -> int:
     before = probe.grouped_probe.launches
     ivf_run["index"].search(ivf_run["queries"], IVF["k"])
     log(f"  launches per search, i8 ip IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
-    for mode, res in ivf_run["modes"].items():
-        kern = getattr(probe, res["kern"])
-        before = kern.launches
-        ivf.PROBE_MODE = mode
-        ivf_run["index"].search(ivf_run["queries"], IVF["k"])
-        ivf.PROBE_MODE = "group"
-        res["launches_per_search"] = kern.launches - before
-        log(f"  launches per search, i8 ip IVF {mode}: {{'{res['kern']}': {res['launches_per_search']}}}")
+    before = probe.grouped_probe.launches
+    f32_ivf["index"].search(f32_ivf["queries"], IVF["k"])
+    log(f"  launches per search, f32 cos IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
+    for label, run in (("i8 ip IVF", ivf_run), ("f32 cos IVF", f32_ivf)):
+        for mode, res in run["modes"].items():
+            kern = getattr(probe, res["kern"])
+            before = kern.launches
+            ivf.PROBE_MODE = mode
+            run["index"].search(run["queries"], IVF["k"])
+            ivf.PROBE_MODE = "group"
+            res["launches_per_search"] = kern.launches - before
+            log(f"  launches per search, {label} {mode}: {{'{res['kern']}': {res['launches_per_search']}}}")
     for metric, run in binary.items():
         kern = getattr(probe, run["kern"])
         before = kern.launches
         run["index"].search(run["queries"], BINARY["k"])
         run["launches_per_search"] = kern.launches - before
         log(f"  launches per search, b1 {metric} IVF: {{'{run['kern']}': {run['launches_per_search']}}}")
-    per_search = {FLAVOURS[name][1].__name__: res["launches"] for name, res in flavours.items()}
-    log(f"  launches per search, the flat-scan flavours: {per_search}")
+    for label, runs in (("i8", flavours), ("f32", f32_flavours)):
+        per_search = {FLAVOURS[name][1].__name__: res["launches"] for name, res in runs.items()}
+        log(f"  launches per search, the {label} flat-scan flavours: {per_search}")
     ix, cx = head["index"], comp["index"]
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
     profile_search(cx, comp["queries"], COMPACT["k"], exact=False)
     profile_search(cx, comp["queries"][: COMPACT["exact_q"]], COMPACT["k"], exact=True)
     profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
+    profile_search(f32_ivf["index"], f32_ivf["queries"], IVF["k"], exact=False, label="f32 cos IVF")
     for mode in MODES:
         ivf.PROBE_MODE = mode
         profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label=f"IVF {mode}")
@@ -2117,6 +2317,9 @@ def main() -> int:
     for name, (search, _, _, _) in FLAVOURS.items():
         profile_call(lambda: search(ix.metric, q8, ix._table, ix._stats, ix._valid, MAIN["k"]),
                      f"{name} search of {q8.shape[0]} queries")
+    f32_args = flavour_args(comp, f32_valid)
+    for name, (search, _, _, _) in FLAVOURS.items():
+        profile_call(lambda: search(*f32_args, COMPACT["k"]), f"{name} f32 cos search of {q8.shape[0]} queries")
     qf = cx._cast_device(comp["queries"], ScalarKind.F32)
     hl, cl = head["launches"], comp["launches"]
     rows = [
@@ -2132,8 +2335,13 @@ def main() -> int:
         b3_row(ivf_run, bf16_probe_args(ivf_run["probe_args"]), "bf16 ip IVF pairs", "bf16"),
         b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
+    rows += [b3_row(f32_ivf, label="f32 cos IVF", peak="tf32x3")]
+    rows += [mode_row(f32_ivf, mode, "f32 cos IVF", "tf32x3") for mode in F32_IVF["modes"]]
     i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands
     rows += [flavour_row(name, head, res["launches"], i8_lib_ms) for name, res in flavours.items()]
+    f32_lib_ms = library_ms(qf, cx._table)
+    rows += [flavour_row(name, comp, res["launches"], f32_lib_ms, f32_valid, "f32 cos", "tf32x3")
+             for name, res in f32_flavours.items()]
 
     log("== phase 5: micro-benchmarks, " + card)
     micro = drive_micro()

@@ -43,15 +43,14 @@ def test_probe_breakdown_variants_apply(part):
 @pytest.mark.parametrize("part", [p for p in probe_breakdown.PARTS if p != "full"])
 def test_probe_breakdown_variants_reach_the_tensor_core_kernel(part):
     """Every replaced line lies in `grouped_wgmma` or in `probe_release`,
-    which it alone calls; none in the SIMT kernel of f32 and b1."""
+    which it alone calls; no SIMT probe kernel is left for f32 or b1: every
+    storage type runs the tensor-core kernel."""
     text = (CSRC / "probe.cu").read_text()
     kernel = _body(text, "grouped_wgmma(const __grid_constant__")
     release = _body(text, "void probe_release(")
-    simt = _body(text, "grouped_probe_kernel(const Params p)")
     for old, _ in probe_breakdown.PARTS[part]:
         assert old in kernel or old in release, old
-        assert old not in simt, old
-    assert "probe_release(" not in simt
+    assert "grouped_probe_kernel" not in text
 
 
 def test_probe_breakdown_needs_a_card(monkeypatch):
@@ -106,6 +105,6 @@ def test_b1_dispatches_to_the_tensor_core_kernel():
     for n in (8, 16):
         assert f"launch_wgmma<uint8_t, {n}, false>" in text
     fold = _body(text, "int launch_fold(")
-    assert "constexpr bool kTC = !std::is_same<T, float>::value;" in fold
+    assert "launch_wgmma<T, 4, true>" in fold and "launch_typed" not in text
     header = (CSRC / "wgmma_common.cuh").read_text()
     assert ".m64n128k256.s32.b1.b1.and.popc" in _body(header, "void mma_popc(")

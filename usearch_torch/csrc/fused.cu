@@ -20,15 +20,18 @@
 // [n_q, k] output rows; entries at or above MASKED / 2 get the id -1.
 //
 // Dots are exact where B1's are: i8 x i8 in i32 (the TPU's B9 sums i8 in
-// f32, equal while W <= 1024), bf16 and f32 in f32 (no TF32), and every
-// distance comes from B1's own epilogue, so B8/B9's distances equal B1's.
+// f32, equal while W <= 1024), bf16 in f32, and every distance comes from
+// B1's own epilogue, so B8/B9's distances equal B1's over i8 and bf16. f32
+// rows take the three-pass TF32 product (below), so B8/B9's f32 distances
+// equal B10's f32 minima and hold B1's (the exact SIMT `simt_scan`) within
+// the product's bound, 2^-22 (3 + 2^-10) |q_i t_i| a product.
 //
 // Bound on this card: the same [n_q, W] x [W, N] product as B1, so the
 // tensor cores' rate bounds it (8.8e12 operations at N = 2^20, W = 256,
 // Q = 16384: 4.4 ms at the int8 rate).
 //
-// B8/B9/B10 for i8 and bf16 (`fused_wgmma`) run on the tensor cores with B1's
-// building blocks (csrc/wgmma_common.cuh): `wgmma` m64n256 s8 or bf16,
+// B8/B9/B10 (`fused_wgmma`) run on the tensor cores with B1's building
+// blocks (csrc/wgmma_common.cuh): `wgmma` m64n256 s8, bf16 or (f32) tf32,
 // both operands K-major from 128-byte-swizzled TMA boxes, and B1's register
 // epilogue (`tile_minima`). B1's loop order is flipped, since a running
 // per-query list needs its queries to stay in one block:
@@ -64,29 +67,21 @@
 // (32 GiB, from L2). What holds it back on the card (PERF.md, Findings):
 // product and stream overlap, and the epilogue and merges add to them.
 //
-// f32 keeps a SIMT product (no TF32 on an f32 table): thread
-// (tx, ty) of 256 owns rows ty + 16 i (i < 8) of the bin and queries
-// tx + 16 j. Rows stay as they lie in memory, 16 words (64 bytes) of each
-// at a time (a slab), with a pitch of 18 words, so 16 neighbouring queries
-// read 16 distinct bank pairs and a copy can fill a slab 8 bytes at a time.
-// - B8/B9 f32 (`fused_kernel`): one block per 64 queries walks every bin;
-//   each slab is loaded, synchronised and multiplied in turn (B8), or slab
-//   s + 1 is in flight (__pipeline_memcpy_async, i.e. cp.async) while slab
-//   s is multiplied and the bins' minima wait in shared memory for the
-//   merge (B9).
-// - B10 f32 (`lanes_kernel`): one block per 128 queries and 16 bins stages
-//   the queries' whole rows once (rows of at most kMaxRowWords words; wider
-//   rows are staged slab by slab beside the table's), then streams its
-//   bins' slabs and reduces each bin as soon as its product is done (the
-//   TPU's split_dot schedule); the store of a bin's minima is coalesced
-//   along queries.
+// f32 rows: `mma_tf32x3` (csrc/wgmma_common.cuh), a . b as a_hi . b_lo +
+// a_lo . b_hi + a_hi . b_hi, each half rounded to TF32, split in the
+// kernel so an f32 table is held once. The queries always stream; per
+// K-block both warpgroups split the slot's table K-block (hi in place, lo
+// into the slot's 32 KB lo buffer) while the K-block before is multiplied,
+// meet at a block-wide barrier, and each then loads its 64 query rows from
+// the slot into registers, split (the `wgmma` RS form), once the K-block
+// before is waited for. Two slots of 48 KB and their lo buffers fit beside
+// lists of 16 and 8-bin merge groups.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() after its launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,110 +92,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kGroups = 16;     // row groups = query groups
-constexpr int kTM = 8;          // rows per thread, strided by kGroups
-constexpr int kSW = 16;         // 4-byte words of a row per slab
-constexpr int kSP = kSW + 2;    // slab pitch in words
-constexpr int kFusedQJ = 4;     // B8/B9 f32: queries per thread (64 per block)
-constexpr int kLanesQJ = 8;     // B10 f32: queries per thread (128 per block)
-constexpr int kLanesBins = 16;  // B10 f32: bins per block
-constexpr int kMaxRowWords = 384;  // B10 f32: widest row, in words, whose queries are staged once
 constexpr int kMaxK = 128;
 constexpr int kMaxMerge = 64;
-
-// Copies words [w0, w0 + kSW) of rows [0, n_rows) of `src` (row_words words
-// a row) into `dst` (pitch kSP), 8 bytes a copy, asynchronously when kAsync;
-// rows past `last` repeat row `last` (a ragged query tile).
-template <bool kAsync>
-__device__ __forceinline__ void copy_slab(uint32_t* dst, const uint32_t* __restrict__ src, int row_words,
-                                          int n_rows, int last, int w0, int tid) {
-  for (int e = tid; e < n_rows * (kSW / 2); e += kThreads) {
-    const int r = e / (kSW / 2);
-    const int c = (e % (kSW / 2)) * 2;
-    const uint32_t* g = src + (size_t)min(r, last) * row_words + w0 + c;
-    uint32_t* s = dst + r * kSP + c;
-    if constexpr (kAsync) {
-      __pipeline_memcpy_async(s, g, 8);
-    } else {
-      *reinterpret_cast<uint2*>(s) = __ldg(reinterpret_cast<const uint2*>(g));
-    }
-  }
-}
-
-// acc[i][j] += the f32 dots of one slab: rows ty + 16 i of `a` (first row
-// of this thread, pitch pa) with queries tx + 16 j of `b` (pitch pb), words
-// in ascending order.
-template <int QJ>
-__device__ __forceinline__ void slab_mac(float (&acc)[kTM][QJ], const uint32_t* a, int pa, const uint32_t* b,
-                                         int pb) {
-#pragma unroll
-  for (int w = 0; w < kSW; w += 2) {
-    uint2 av[kTM], bv[QJ];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) av[i] = *reinterpret_cast<const uint2*>(a + i * kGroups * pa + w);
-#pragma unroll
-    for (int j = 0; j < QJ; ++j) bv[j] = *reinterpret_cast<const uint2*>(b + j * kGroups * pb + w);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) {
-        acc[i][j] = __fmaf_rn(__uint_as_float(av[i].x), __uint_as_float(bv[j].x), acc[i][j]);
-        acc[i][j] = __fmaf_rn(__uint_as_float(av[i].y), __uint_as_float(bv[j].y), acc[i][j]);
-      }
-  }
-}
-
-// The epilogue of this thread's dots and its part of the bin reduction:
-// for each of its queries the minimum over its rows (ascending, strict '<')
-// and that row within the bin, into red_v/red_i [kGroups][QT]; then zeroes
-// the accumulators.
-template <int QJ>
-__device__ __forceinline__ void bin_epilogue(float (&acc)[kTM][QJ], const float (&qs)[QJ], int metric,
-                                             const float* __restrict__ t_sq,
-                                             const float* __restrict__ penalty, int row0, float* red_v,
-                                             int* red_i, int tx, int ty) {
-  constexpr int QT = kGroups * QJ;
-  float ts[kTM], pen[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + kGroups * i;
-    pen[i] = __ldg(penalty + r);
-    ts[i] = metric == kIP ? 0.0f : __ldg(t_sq + r);
-  }
-#pragma unroll
-  for (int j = 0; j < QJ; ++j) {
-    float best = __int_as_float(0x7f800000);  // +inf
-    int arg = ty;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const float d = epilogue(metric, false, acc[i][j], qs[j], ts[i], pen[i]);
-      if (d < best) {
-        best = d;
-        arg = ty + kGroups * i;
-      }
-      acc[i][j] = 0.0f;
-    }
-    red_v[ty * QT + tx + kGroups * j] = best;
-    red_i[ty * QT + tx + kGroups * j] = arg;
-  }
-}
-
-// Across the row groups: the minimum of query `c`, the lowest row on ties.
-template <int QT>
-__device__ __forceinline__ void group_min(const float* red_v, const int* red_i, int c, float& best, int& arg) {
-  best = red_v[c];
-  arg = red_i[c];
-#pragma unroll
-  for (int s = 1; s < kGroups; ++s) {
-    const float v = red_v[s * QT + c];
-    const int r = red_i[s * QT + c];
-    if (v < best || (v == best && r < arg)) {
-      best = v;
-      arg = r;
-    }
-  }
-}
 
 // Inserts one candidate into a query's sorted list of k (entry j at
 // j * ls) when it beats the list's last value `thr`; an entry already there
@@ -224,112 +117,6 @@ __device__ __forceinline__ void merge(float* list_d, int* list_i, int k, int ls,
   for (int c = 0; c < n; ++c) insert(list_d, list_i, k, ls, thr, cand_v[c * stride], cand_i[c * stride]);
 }
 
-template <int QJ>
-__device__ __forceinline__ void load_q_sq(float (&qs)[QJ], const float* __restrict__ q_sq, int metric, int q0,
-                                          int q_rows, int tx) {
-#pragma unroll
-  for (int j = 0; j < QJ; ++j) {
-    const int c = tx + kGroups * j;
-    qs[j] = (metric != kIP && c < q_rows) ? __ldg(q_sq + q0 + c) : 0.0f;
-  }
-}
-
-// B8 f32 (kStream false: synchronous slabs, a merge after every bin) and B9
-// f32 (kStream true: a two-slot ring of asynchronous copies, a merge every
-// merge_every bins); f32 only, i8 and bf16 run `fused_wgmma`. One block per
-// kFusedQJ * 16 queries walks every bin.
-template <bool kStream>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
-             const float* __restrict__ q_sq, const float* __restrict__ t_sq,
-             const float* __restrict__ penalty, float* __restrict__ out_d, int* __restrict__ out_i,
-             int n_q, int n_bins, int row_words, int metric, int k, int merge_every) {
-  constexpr int QJ = kFusedQJ;
-  constexpr int QT = kGroups * QJ;
-  constexpr int kSlot = (kBin + QT) * kSP;  // words of one slot: the bin's rows, then the queries
-  constexpr int kSlots = kStream ? 2 : 1;
-  extern __shared__ __align__(16) uint32_t smem[];
-  float* red_v = reinterpret_cast<float*>(smem + kSlots * kSlot);
-  int* red_i = reinterpret_cast<int*>(red_v + kGroups * QT);
-  float* cand_v = reinterpret_cast<float*>(red_i + kGroups * QT);  // [merge_every][QT]
-  int* cand_i = reinterpret_cast<int*>(cand_v + merge_every * QT);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kGroups;
-  const int ty = tid / kGroups;
-  const int q0 = blockIdx.x * QT;
-  const int q_rows = min(QT, n_q - q0);
-  const uint32_t* q_base = q + (size_t)q0 * row_words;
-  float* list_d = out_d + (size_t)(q0 + tid) * k;
-  int* list_i = out_i + (size_t)(q0 + tid) * k;
-  float thr = kMasked;
-  if (tid < q_rows) {
-    for (int j = 0; j < k; ++j) {
-      list_d[j] = kMasked;
-      list_i[j] = -1;
-    }
-  }
-  float qs[QJ];
-  load_q_sq(qs, q_sq, metric, q0, q_rows, tx);
-
-  const int per_bin = row_words / kSW;
-  const int n_slabs = n_bins * per_bin;
-  auto fetch = [&](int s, uint32_t* slot) {
-    const int bin = s / per_bin;
-    const int w0 = (s % per_bin) * kSW;
-    copy_slab<kStream>(slot, table + (size_t)bin * kBin * row_words, row_words, kBin, kBin - 1, w0, tid);
-    copy_slab<kStream>(slot + kBin * kSP, q_base, row_words, QT, q_rows - 1, w0, tid);
-  };
-
-  float acc[kTM][QJ];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < QJ; ++j) acc[i][j] = 0.0f;
-
-  if constexpr (kStream) {
-    fetch(0, smem);
-    __pipeline_commit();
-  }
-  int n_cand = 0;
-  for (int s = 0; s < n_slabs; ++s) {
-    uint32_t* slot = smem + (kStream ? (s & 1) * kSlot : 0);
-    if constexpr (kStream) {
-      if (s + 1 < n_slabs) fetch(s + 1, smem + ((s + 1) & 1) * kSlot);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);  // slab s has landed; s + 1 may still be in flight
-    } else {
-      fetch(s, slot);
-    }
-    __syncthreads();
-    slab_mac<QJ>(acc, slot + ty * kSP, kSP, slot + kBin * kSP + tx * kSP, kSP);
-    __syncthreads();
-    if ((s + 1) % per_bin) continue;
-
-    const int bin = s / per_bin;
-    bin_epilogue(acc, qs, metric, t_sq, penalty, bin * kBin, red_v, red_i, tx, ty);
-    __syncthreads();
-    if (tid < q_rows) {
-      float best;
-      int arg;
-      group_min<QT>(red_v, red_i, tid, best, arg);
-      cand_v[n_cand * QT + tid] = best;
-      cand_i[n_cand * QT + tid] = bin * kBin + arg;
-    }
-    if (++n_cand == merge_every || bin == n_bins - 1) {
-      if (tid < q_rows) merge(list_d, list_i, k, 1, thr, cand_v + tid, cand_i + tid, n_cand, QT);
-      n_cand = 0;
-    }
-  }
-  if (tid < q_rows) {
-    for (int j = 0; j < k; ++j)
-      if (list_d[j] >= kMasked / 2) list_i[j] = -1;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B8/B9/B10 on the tensor cores: i8 and bf16
-
 // What `fused_wgmma` does with each tile's bin minima.
 enum Flavour {
   kInsert = 0,  // B8: insert them into the query's list
@@ -344,31 +131,36 @@ constexpr int kSmemK = 16;       // lists of at most this many results live in s
 
 // Shared memory of one block: the resident query tile (or none), the ring
 // of `stages` slots (a table K-block, then the two query K-blocks when the
-// queries stream), two Aux buffers per warpgroup, each warpgroup's
+// queries stream, as TMA fills them), for f32 rows (kTF32, whose queries
+// always stream) a buffer per slot for its table K-block's lo half, two Aux
+// buffers per warpgroup, each warpgroup's
 // candidates [merge_every][64] (values, then rows), for k <= kSmemK each
 // warpgroup's lists [k][64] (values, then rows), and the barriers: a full
 // barrier per slot and one for the query tile, then a counter per slot.
 // B10 (kStore) has neither candidates nor lists. Every buffer starts on
 // 1 KB; the ring takes what is left.
 struct FusedLayout {
-  int n_kb, stages, stage_bytes, ring_off, aux_off, cand_off, list_off, bar_off, bytes;
+  int n_kb, stages, stage_bytes, ring_off, lo_off, aux_off, cand_off, list_off, bar_off, bytes;
   bool resident;
 };
 
-template <int kFlavour>
+template <int kFlavour, bool kTF32 = false>
 __host__ __device__ __forceinline__ FusedLayout fused_layout(int n_kb, int merge_every, int k) {
   constexpr bool kLists = kFlavour != kStore;
   FusedLayout L;
   L.n_kb = n_kb;
-  L.resident = n_kb <= kQResidentKB;
+  L.resident = !kTF32 && n_kb <= kQResidentKB;
   L.stage_bytes = kTStage + (L.resident ? 0 : 2 * kQStage);
   L.ring_off = L.resident ? 2 * n_kb * kQStage : 0;
   const int aux_bytes = 4 * static_cast<int>(sizeof(Aux));
   const int cand_bytes = kLists ? 2 * merge_every * kQT * 8 : 0;
   const int list_bytes = kLists && k <= kSmemK ? 2 * kSmemK * kQT * 8 : 0;
   const int room = kSmem - 1024 - 256 - aux_bytes - cand_bytes - list_bytes - L.ring_off;
-  L.stages = room / L.stage_bytes < kFMaxStages ? room / L.stage_bytes : kFMaxStages;
-  L.aux_off = L.ring_off + L.stages * L.stage_bytes;
+  const int lo_bytes = kTF32 ? kTStage : 0;  // a slot's lo half
+  const int slots = room / (L.stage_bytes + lo_bytes);
+  L.stages = slots < kFMaxStages ? slots : kFMaxStages;
+  L.lo_off = L.ring_off + L.stages * L.stage_bytes;
+  L.aux_off = L.lo_off + L.stages * lo_bytes;
   L.cand_off = L.aux_off + aux_bytes;
   L.list_off = L.cand_off + cand_bytes;
   L.bar_off = L.list_off + list_bytes;
@@ -434,8 +226,8 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ t_sq, const 
 // B9 (kMerge: the bins' minima gathered in shared memory and merged every
 // merge_every bins) and B10 (kStore: the bins' minima and rows stored to
 // out_d/out_i [n_bins, n_q]; k and merge_every unused), on `wgmma`. T:
-// int8_t or bf16; kSmall: i8 rows of at most 256 bytes (B1's exact dot
-// conversion and keyed ip).
+// int8_t, bf16 or float (the three-pass TF32 product); kSmall: i8 rows of
+// at most 256 bytes (B1's exact dot conversion and keyed ip).
 template <typename T, int kMetric, bool kSmall, int kFlavour>
 __global__ void __launch_bounds__(kBlock, 1)
 fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap t_map,
@@ -443,9 +235,10 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
             float* __restrict__ out_d, int* __restrict__ out_i, int n_q, int n_rows, int row_bytes, int k,
             int merge_every) {
   using A = typename Acc<T>::type;
+  constexpr bool kTF32 = std::is_same<T, float>::value;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const FusedLayout L = fused_layout<kFlavour>(row_bytes / kKB, merge_every, k);
+  const FusedLayout L = fused_layout<kFlavour, kTF32>(row_bytes / kKB, merge_every, k);
   uint8_t* ring = smem + L.ring_off;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   uint64_t* q_bar = full + L.stages;
@@ -511,23 +304,54 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = A(0);
   int n_cand = 0;
+  uint32_t qh[16], ql[16];  // f32: the query K-block's split A fragments
   for (int i = 0; i < n_tiles; ++i) {
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    for (int kb = 0; kb < L.n_kb; ++kb) {
-      const int n = i * L.n_kb + kb;
-      const int slot = n % L.stages;
-      mbar_wait(full + slot, (n / L.stages) & 1);
-      const uint32_t ta = smem_addr(ring + slot * L.stage_bytes);
-      const uint32_t qb = L.resident ? smem_addr(smem + (g * L.n_kb + kb) * kQStage) : ta + kTStage + g * kQStage;
-      const uint64_t da = sw128_desc(qb), db = sw128_desc(ta);
+    if constexpr (kTF32) {
+      // f32: both warpgroups split the table K-block (hi in place, lo into
+      // the slot's lo buffer) while the K-block before is multiplied; once
+      // that is waited for, the warpgroup's query rows split into registers
+      // (the `wgmma` RS form), then three products a k-step
+      for (int kb = 0; kb < L.n_kb; ++kb) {
+        const int n = i * L.n_kb + kb;
+        const int slot = n % L.stages;
+        uint8_t* buf = ring + slot * L.stage_bytes;
+        uint8_t* lo = smem + L.lo_off + slot * kTStage;
+        mbar_wait(full + slot, (n / L.stages) & 1);
+        split_tile(buf, lo, kTStage, tid, kBlock);
+        fence_proxy_async();
+        block_sync();
+        if (kb > 0) {
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+          fence_frags(qh);
+          fence_frags(ql);
+          fused_release(L, ring, full, taken, &q_map, &t_map, n - 1, steps, q0, t);
+        }
+        tf32_frags(buf + kTStage + g * kQStage, t, qh, ql);
+        const uint64_t db = sw128_desc(smem_addr(buf)), dl = sw128_desc(smem_addr(lo));
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-      for (int s = 0; s < kKB / 32; ++s) mma_k(acc, da + 2 * s, db + 2 * s, kb | s);
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      if (kb > 0) {
-        // the previous K-block's product is done: release its slot
-        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-        fused_release(L, ring, full, taken, &q_map, &t_map, n - 1, steps, q0, t);
+        for (int s = 0; s < kKB / 32; ++s) mma_tf32x3(acc, qh, ql, s, db + 2 * s, dl + 2 * s, kb | s);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      }
+    } else {
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      for (int kb = 0; kb < L.n_kb; ++kb) {
+        const int n = i * L.n_kb + kb;
+        const int slot = n % L.stages;
+        mbar_wait(full + slot, (n / L.stages) & 1);
+        const uint32_t ta = smem_addr(ring + slot * L.stage_bytes);
+        const uint32_t qb = L.resident ? smem_addr(smem + (g * L.n_kb + kb) * kQStage) : ta + kTStage + g * kQStage;
+        const uint64_t da = sw128_desc(qb), db = sw128_desc(ta);
+#pragma unroll
+        for (int s = 0; s < kKB / 32; ++s) mma_k(acc, da + 2 * s, db + 2 * s, kb | s);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        if (kb > 0) {
+          // the previous K-block's product is done: release its slot
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+          fused_release(L, ring, full, taken, &q_map, &t_map, n - 1, steps, q0, t);
+        }
       }
     }
     // The tile's row values, while its product runs, from the registers
@@ -547,6 +371,10 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
     flag = warpgroup_or(flag, 1 + g);
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
     fence_acc(acc);
+    if constexpr (kTF32) {
+      fence_frags(qh);
+      fence_frags(ql);
+    }
     fused_release(L, ring, full, taken, &q_map, &t_map, (i + 1) * L.n_kb - 1, steps, q0, t);
 
     bool exact_all[2];
@@ -589,96 +417,20 @@ fused_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ C
   }
 }
 
-// B10 f32: one block per 128 queries and kLanesBins bins. The queries' rows
-// are staged once (pitch row_words + 2, so 16 neighbouring queries read 16
-// distinct bank pairs), or, for rows wider than kMaxRowWords, slab by slab
-// with the table's; the bins' slabs stream past them, and each bin's minima
-// and rows are written to [n_bins, n_q] as soon as its product is done.
-__global__ void __launch_bounds__(kThreads)
-lanes_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ table,
-             const float* __restrict__ q_sq, const float* __restrict__ t_sq,
-             const float* __restrict__ penalty, float* __restrict__ out_v, int* __restrict__ out_i,
-             int n_q, int n_bins, int row_words, int metric) {
-  constexpr int QJ = kLanesQJ;
-  constexpr int QT = kGroups * QJ;
-  extern __shared__ __align__(16) uint32_t smem[];
-  const bool once = row_words <= kMaxRowWords;
-  const int pq = once ? row_words + 2 : kSP;
-  uint32_t* q_s = smem;                // [QT][pq]
-  uint32_t* t_s = q_s + QT * pq;       // [kBin][kSP]
-  float* red_v = reinterpret_cast<float*>(t_s + kBin * kSP);
-  int* red_i = reinterpret_cast<int*>(red_v + kGroups * QT);
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kGroups;
-  const int ty = tid / kGroups;
-  const int q0 = blockIdx.y * QT;
-  const int q_rows = min(QT, n_q - q0);
-  const int bin0 = blockIdx.x * kLanesBins;
-  const int bin1 = min(bin0 + kLanesBins, n_bins);
-  const uint32_t* q_base = q + (size_t)q0 * row_words;
-  for (int e = tid; once && e < QT * (row_words / 2); e += kThreads) {
-    const int r = e / (row_words / 2);
-    const int c = (e % (row_words / 2)) * 2;
-    *reinterpret_cast<uint2*>(q_s + r * pq + c) =
-        __ldg(reinterpret_cast<const uint2*>(q_base + (size_t)min(r, q_rows - 1) * row_words + c));
-  }
-  float qs[QJ];
-  load_q_sq(qs, q_sq, metric, q0, q_rows, tx);
-
-  float acc[kTM][QJ];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < QJ; ++j) acc[i][j] = 0.0f;
-
-  for (int bin = bin0; bin < bin1; ++bin) {
-    const uint32_t* t_base = table + (size_t)bin * kBin * row_words;
-    for (int w0 = 0; w0 < row_words; w0 += kSW) {
-      copy_slab<false>(t_s, t_base, row_words, kBin, kBin - 1, w0, tid);
-      if (!once) copy_slab<false>(q_s, q_base, row_words, QT, q_rows - 1, w0, tid);
-      __syncthreads();
-      slab_mac<QJ>(acc, t_s + ty * kSP, kSP, q_s + tx * pq + (once ? w0 : 0), pq);
-      __syncthreads();
-    }
-    bin_epilogue(acc, qs, metric, t_sq, penalty, bin * kBin, red_v, red_i, tx, ty);
-    __syncthreads();
-    if (tid < q_rows) {
-      float best;
-      int arg;
-      group_min<QT>(red_v, red_i, tid, best, arg);
-      out_v[(size_t)bin * n_q + q0 + tid] = best;
-      out_i[(size_t)bin * n_q + q0 + tid] = bin * kBin + arg;
-    }
-  }
-}
-
 int elem_bytes(int dtype) { return dtype == kI8 ? 1 : dtype == kBF16 ? 2 : dtype == kF32 ? 4 : 0; }
 
+// The rows' bytes, a multiple of the 128-byte K-block, are checked by
+// launch_fused_wgmma.
 bool valid_shape(int n_q, int n_rows, int width, int dtype, int metric) {
   return n_q > 0 && n_rows > 0 && n_rows % kBin == 0 && metric >= kIP && metric <= kL2sq &&
-         elem_bytes(dtype) > 0 && width > 0 && (width * elem_bytes(dtype)) % (4 * kSW) == 0;
-}
-
-template <bool kStream>
-int launch_fused(const void* q, const void* table, const float* q_sq, const float* t_sq, const float* penalty,
-                 float* out_d, int* out_i, int n_q, int n_bins, int row_words, int metric, int k,
-                 int merge_every, cudaStream_t s) {
-  constexpr int QT = kGroups * kFusedQJ;
-  const size_t smem = 4 * ((kStream ? 2 : 1) * (kBin + QT) * kSP + 2 * kGroups * QT + 2 * merge_every * QT);
-  auto kern = fused_kernel<kStream>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  kern<<<(n_q + QT - 1) / QT, kThreads, smem, s>>>(
-      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(table), q_sq, t_sq, penalty, out_d, out_i,
-      n_q, n_bins, row_words, metric, k, merge_every);
-  return static_cast<int>(cudaGetLastError());
+         elem_bytes(dtype) > 0 && width > 0;
 }
 
 template <typename T, int kMetric, bool kSmall, int kFlavour>
 int run_fused_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const float* q_sq, const float* t_sq,
                     const float* penalty, float* out_d, int* out_i, int n_q, int n_rows, int row_bytes, int k,
                     int merge_every, cudaStream_t s) {
-  const FusedLayout L = fused_layout<kFlavour>(row_bytes / kKB, merge_every, k);
+  const FusedLayout L = fused_layout<kFlavour, std::is_same<T, float>::value>(row_bytes / kKB, merge_every, k);
   if (L.stages < 2) return cudaErrorInvalidValue;
   const auto kernel = fused_wgmma<T, kMetric, kSmall, kFlavour>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -701,7 +453,8 @@ int fused_metric(const CUtensorMap& q_map, const CUtensorMap& t_map, const float
                                                       row_bytes, k, merge_every, s);
 }
 
-// B8/B9/B10 over i8 or bf16 rows of `row_bytes` bytes, on the tensor cores.
+// B8/B9/B10 over i8, bf16 or f32 rows of `row_bytes` bytes, on the tensor
+// cores.
 template <typename T, int kFlavour>
 int launch_fused_wgmma(const void* q, const void* table, const float* q_sq, const float* t_sq, const float* penalty,
                        float* out_d, int* out_i, int n_q, int n_rows, int row_bytes, int metric, int k,
@@ -731,7 +484,6 @@ int fused(const void* q, const void* table, const float* q_sq, const float* t_sq
       merge_every > kMaxMerge)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_bins = n_rows / kBin;
   constexpr int kFlavour = kStream ? kMerge : kInsert;
   switch (dtype) {
     case kI8:
@@ -741,21 +493,9 @@ int fused(const void* q, const void* table, const float* q_sq, const float* t_sq
       return launch_fused_wgmma<__nv_bfloat16, kFlavour>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
                                                          2 * width, metric, k, merge_every, s);
     default:
-      return launch_fused<kStream>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_bins, width, metric, k,
-                                   merge_every, s);
+      return launch_fused_wgmma<float, kFlavour>(q, table, q_sq, t_sq, penalty, out_d, out_i, n_q, n_rows,
+                                                 4 * width, metric, k, merge_every, s);
   }
-}
-
-int launch_lanes(const void* q, const void* table, const float* q_sq, const float* t_sq, const float* penalty,
-                 float* out_v, int* out_i, int n_q, int n_bins, int row_words, int metric, cudaStream_t s) {
-  constexpr int QT = kGroups * kLanesQJ;
-  const size_t smem = 4 * (QT * (row_words <= kMaxRowWords ? row_words + 2 : kSP) + kBin * kSP + 2 * kGroups * QT);
-  auto kern = lanes_kernel;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  const dim3 grid((n_bins + kLanesBins - 1) / kLanesBins, (n_q + QT - 1) / QT);
-  kern<<<grid, kThreads, smem, s>>>(static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(table), q_sq,
-                                    t_sq, penalty, out_v, out_i, n_q, n_bins, row_words, metric);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -778,8 +518,8 @@ int usearch_fused_topk_stream(const void* q, const void* table, const float* q_s
                      merge_every, stream);
 }
 
-// B10. out_v/out_i are [n_rows / 128, n_q]; i8 and bf16 rows must be a
-// multiple of 128 bytes.
+// B10. out_v/out_i are [n_rows / 128, n_q]; rows must be a multiple of 128
+// bytes.
 int usearch_binned_scan_lanes(const void* q, const void* table, const float* q_sq, const float* t_sq,
                               const float* penalty, float* out_v, int* out_i, int n_q, int n_rows, int width,
                               int dtype, int metric, void* stream) {
@@ -793,7 +533,8 @@ int usearch_binned_scan_lanes(const void* q, const void* table, const float* q_s
       return launch_fused_wgmma<__nv_bfloat16, kStore>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows,
                                                        2 * width, metric, 0, 0, s);
     default:
-      return launch_lanes(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows / kBin, width, metric, s);
+      return launch_fused_wgmma<float, kStore>(q, table, q_sq, t_sq, penalty, out_v, out_i, n_q, n_rows, 4 * width,
+                                               metric, 0, 0, s);
   }
 }
 

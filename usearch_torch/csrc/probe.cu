@@ -52,11 +52,11 @@
 // the same order. It is a flavour of the tensor-core kernel below: lanes
 // with one padded window are one segment, and B3's bound holds.
 //
-// Design over i8, bf16 and b1 rows (`grouped_wgmma`, the tensor cores). A
+// Design (`grouped_wgmma`, the tensor cores, every storage type). A
 // block of two warpgroups takes a cell; warpgroup g owns lanes [64 g,
 // 64 g + 64), the M side and A operand of `wgmma`. The cell's 128 query rows
-// are loaded once by TMA when their rows are at most 512 bytes (wider rows
-// stream their query K-blocks beside the table's). Lanes that share a
+// are loaded once by TMA when their rows are at most 512 bytes (wider rows,
+// and f32 rows always, stream their query K-blocks beside the table's). Lanes that share a
 // window are a contiguous run of the cell (a segment, found by a ballot of
 // the lanes whose window differs from the previous lane's); the block walks
 // every segment's 128-row bins (tiles) in order, and one ring of TMA slots,
@@ -65,8 +65,9 @@
 // slot refills it (a counter per slot). A warpgroup with no lane
 // in a segment only waits and releases, so a one-lane segment costs one
 // warpgroup's product. For each tile the warpgroup runs `wgmma` m64n128,
-// k32 s8 or k256 b1 and-popc (exact int32) or k16 bf16 (f32, no TF32), over
-// the bin's K-blocks (a 1024-bit row is one);
+// k32 s8 or k256 b1 and-popc (exact int32), k16 bf16 or, over f32 rows,
+// three k8 tf32 products a k-step (below), over the bin's K-blocks (a
+// 1024-bit row is one);
 // each thread then holds 32 rows of each of two lanes (four threads, a
 // quad, hold a lane's 128). The epilogue stays in registers: each thread
 // scores its rows in rank form in place of their dots (+inf outside the
@@ -91,22 +92,19 @@
 // the sub-bin (shuffles), stored by one of them and removed by its holder;
 // only the columns no round reaches are filled with MASKED/-1.
 //
-// Design over f32 rows (`grouped_probe_kernel`, SIMT). One
-// block of 128 threads per cell, one thread per pair (lane). The block
-// walks its segments in order, and for each 128-row bin of the segment's
-// window streams the rows through shared memory, 64 rows and 128 bytes of
-// the width at a time, beside the same slice of the segment's query rows.
-// Only the segment's lanes compute: each thread keeps the dots of its query
-// against the 64 rows in registers (f32 FMAs, no TF32), parks them in
-// shared memory, then folds the rows in
-// ascending order into a sorted list of the bin's best (strict '<', so the
-// lower row wins ties). After each bin, B3 merges the bin's list into the
-// lane's own sorted top-k_pad, kept lane-major in shared memory with each
-// entry's extraction round; B5 writes the bin's list to its columns instead,
-// after the block has filled its [128, out_pad] outputs with MASKED/-1 in
-// coalesced stores (as the tensor-core kernel does). B6's lists over f32
-// run B3 here in rank form, in passes of kMaxBinM rounds past kMaxBinM,
-// each pass computing the bin's dots again.
+// f32 rows take the three-pass TF32 product (csrc/wgmma_common.cuh
+// `mma_tf32x3`: a . b as a_hi . b_lo + a_lo . b_hi + a_hi . b_hi, each half
+// rounded to TF32; within 2^-22 (3 + 2^-10) |a b| a product), the f32
+// accuracy the TPU kernel's f32 dots get from the MXU's multi-pass mode.
+// The split is made in the kernel, so an f32 index holds no second table:
+// per K-block each warpgroup loads its 64 query rows from the slot into
+// registers, split (the `wgmma` RS form), then both warpgroups split the
+// bin's K-block, hi in place and lo over the slot's two query K-blocks,
+// which are free by then (so lists of 128 still fit beside a two-slot ring);
+// two block-wide barriers a K-block order the split after the loads and
+// before the products, and the fragments wait for the K-block before
+// (`wgmma.wait_group 0`). A warpgroup with no lane in a segment still does
+// its half of each split. The epilogue is bf16's, on f32 accumulators.
 //
 // Bound on this card: each pair's window is a [w_pad, W] x [W] product,
 // 2 x P x w_pad x W operations (a b1 row of B bytes counts as 8 B one-bit
@@ -120,10 +118,9 @@
 // product or the stream (PERF.md, Findings; `python -m
 // usearch_torch.microbench.probe_breakdown`).
 //
-// The dot products, the rank-form distances, the staging loop and the
-// window stream are csrc/probe_common.cuh's, shared with B6's fold
-// (csrc/pair.cu); the tensor-core blocks
-// (descriptors, TMA, mbarriers, `mma_k`) csrc/wgmma_common.cuh's. The
+// The rank-form distances are csrc/probe_common.cuh's, shared with B6's
+// fold (csrc/pair.cu); the tensor-core blocks (descriptors, TMA, mbarriers,
+// `mma_k`, the TF32 split) csrc/wgmma_common.cuh's. The
 // entry points launch on the stream they are given, allocate nothing, and
 // return cudaGetLastError() after the launch.
 
@@ -158,200 +155,6 @@ enum Flavour {
   kB7Keys = 3,   // the keep best raw keys of each bw-row sub-bin written out
 };
 
-template <typename T, int kMaxBinM, int kFlavour>
-__global__ void __launch_bounds__(kLanes) grouped_probe_kernel(const Params p) {
-  using A = typename Acc<T>::type;
-  constexpr bool kFold = kFlavour != kB5Store;  // B3 and B6; the SIMT kernel has no B7
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* t_s = smem;                                   // [kRows][kStride]
-  uint32_t* q_s = t_s + kRows * kStride;                  // [kLanes][kStride]
-  float* aux_t = reinterpret_cast<float*>(q_s + kLanes * kStride);  // [kBin]
-  float* aux_p = aux_t + kBin;                            // [kBin]
-  int* seg_st = reinterpret_cast<int*>(aux_p + kBin);     // [kLanes]
-  int* seg_ln = seg_st + kLanes;                          // [kLanes]
-  int* seg_bs = seg_ln + kLanes;                          // [kLanes]
-  int* seg_lo = seg_bs + kLanes;                          // [kLanes + 1]
-  int* n_seg = seg_lo + kLanes + 1;                       // [1]
-  float* lst_v = reinterpret_cast<float*>(n_seg + 3);     // B3 [k_pad][kLanes]
-  int* lst_i = reinterpret_cast<int*>(lst_v + p.k_pad * kLanes);
-  uint8_t* lst_r = reinterpret_cast<uint8_t*>(lst_i + p.k_pad * kLanes);
-  float* dot_s = reinterpret_cast<float*>(lst_r + ((p.k_pad * kLanes + 15) & ~15));  // [kRows][kLanes]
-
-  const int lane = threadIdx.x;
-  const size_t pair = static_cast<size_t>(blockIdx.x) * kLanes + lane;
-  const int row_words = p.width * static_cast<int>(sizeof(T)) / 4;
-  const uint32_t* t_src = static_cast<const uint32_t*>(p.table);
-  const uint32_t* q_src =
-      static_cast<const uint32_t*>(p.q_g) + static_cast<size_t>(blockIdx.x) * kLanes * row_words;
-  int st = p.win_start[pair];
-  int ln = p.win_len[pair];
-  int bs = kFold ? 0 : p.win_base[pair];
-  if (st < 0 || ln < 0 || st > p.n_rows - ln) ln = 0;
-  if (!kFold && (bs < 0 || bs % kBin || bs > p.n_rows - p.w_pad || st < bs || st - bs > p.w_pad - ln)) ln = 0;
-  if (ln == 0) st = bs = 0;
-  const float qs = p.q_sq[pair];
-  if (!kFold) {
-    // MASKED/-1 everywhere first, in coalesced stores; the bins of each
-    // window overwrite their columns below
-    const size_t cell0 = static_cast<size_t>(blockIdx.x) * kLanes * p.out_pad;
-    for (int e = lane; e < kLanes * p.out_pad; e += kLanes) {
-      p.out_d[cell0 + e] = kMasked;
-      p.out_i[cell0 + e] = -1;
-    }
-  }
-  find_segments(lane, st, ln, bs, seg_st, seg_ln, seg_bs, seg_lo, n_seg);
-
-  int cnt = 0;  // B3: entries of this lane's list
-  const int segs = *n_seg;
-  for (int s = 0; s < segs; ++s) {
-    const int lo = seg_lo[s], hi = seg_lo[s + 1];
-    const int w_st = seg_st[lo], w_ln = seg_ln[lo];
-    if (w_ln == 0) continue;
-    const bool owner = lane >= lo && lane < hi;
-    const int w_end = w_st + w_ln;
-    for (int b = w_st / kBin; b * kBin < w_end; ++b) {
-      const int row0 = b * kBin;
-      __syncthreads();  // the previous bin's aux is read
-      if (p.metric != kIP) aux_t[lane] = p.t_sq[row0 + lane];
-      if (p.penalty != nullptr) aux_p[lane] = p.penalty[row0 + lane];
-      // B6: passes of kMaxBinM rounds while a lane has more of its bin_m to
-      // take, each after the last (value, row) of the one before
-      float lb_v = -__int_as_float(0x7f800000);
-      int lb_r = -1;
-      for (int base = 0;; base += kMaxBinM) {
-        float bv[kMaxBinM];
-        int bi[kMaxBinM];
-#pragma unroll
-        for (int j = 0; j < kMaxBinM; ++j) {
-          bv[j] = __int_as_float(0x7f800000);  // +inf
-          bi[j] = -1;
-        }
-        for (int half = 0; half < kBin / kRows; ++half) {
-          const int r0 = row0 + half * kRows;
-          if (r0 + kRows <= w_st || r0 >= w_end) continue;
-          A acc[kRows];
-          segment_dots<T>(acc, t_s, q_s, t_src, q_src, r0, row_words, lo, hi, lane);
-          if (owner) {
-            // this lane's dots, then its rows in ascending order into the
-            // bin's sorted list (strict '<': the lower row keeps its place)
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) dot_s[r * kLanes + lane] = to_float(acc[r]);
-#pragma unroll 1
-            for (int r = 0; r < kRows; ++r) {
-              const int row = r0 + r;
-              if (row < w_st || row >= w_end) continue;
-              const int rr = half * kRows + r;
-              const float ts = p.metric != kIP ? aux_t[rr] : 0.0f;
-              const float pen = p.penalty != nullptr ? aux_p[rr] : 0.0f;
-              float v = window_dist(p.metric, dot_s[r * kLanes + lane], qs, ts, p.penalty != nullptr, pen);
-              if (!(v < kMasked * 0.5f) || !(v < bv[kMaxBinM - 1])) continue;
-              // B6: taken by an earlier pass
-              if (kFlavour == kB6Lists && !(v > lb_v || (v == lb_v && row > lb_r))) continue;
-              int id = row;
-              bool shift = false;  // past the insertion point every entry moves down one
-#pragma unroll
-              for (int j = 0; j < kMaxBinM; ++j) {
-                if (shift || v < bv[j]) {
-                  shift = true;
-                  const float tv = bv[j];
-                  const int ti = bi[j];
-                  bv[j] = v;
-                  bi[j] = id;
-                  v = tv;
-                  id = ti;
-                }
-              }
-            }
-          }
-        }
-        if (owner && !kFold) {
-          // round j of this bin at column j * nb_w + bin of the padded window
-          const int col = (row0 - seg_bs[lo]) / kBin;
-          const int nb_w = p.w_pad / kBin;
-          const size_t out0 = pair * p.out_pad;
-#pragma unroll
-          for (int j = 0; j < kMaxBinM; ++j) {
-            if (j >= p.bin_m || bi[j] < 0) break;
-            const float d = rank_epilogue(p.metric, bv[j], qs);
-            p.out_d[out0 + j * nb_w + col] = d;
-            p.out_i[out0 + j * nb_w + col] = bi[j];
-          }
-        }
-        if (owner && kFold) {
-          // merge the bin's candidates (round base + j = rank within the bin)
-          // into the lane's list, ordered by (distance, round, bin)
-#pragma unroll
-          for (int j = 0; j < kMaxBinM; ++j) {
-            const int round = kFlavour == kB6Lists ? base + j : j;
-            if (round >= p.bin_m || bi[j] < 0) break;
-            const float v = bv[j];
-            int pos = cnt < p.k_pad ? cnt : p.k_pad - 1;
-            if (cnt == p.k_pad) {
-              const float lv = lst_v[pos * kLanes + lane];
-              if (lv < v || (lv == v && lst_r[pos * kLanes + lane] <= round)) break;
-            }
-            while (pos > 0) {
-              const int e = (pos - 1) * kLanes + lane;
-              const float ev = lst_v[e];
-              if (ev < v || (ev == v && lst_r[e] <= round)) break;
-              lst_v[e + kLanes] = ev;
-              lst_i[e + kLanes] = lst_i[e];
-              lst_r[e + kLanes] = lst_r[e];
-              --pos;
-            }
-            lst_v[pos * kLanes + lane] = v;
-            lst_i[pos * kLanes + lane] = bi[j];
-            lst_r[pos * kLanes + lane] = static_cast<uint8_t>(round);
-            if (cnt < p.k_pad) ++cnt;
-          }
-        }
-        if constexpr (kFlavour != kB6Lists) {
-          break;
-        } else {
-          // another pass while an owner's pass was full and rounds remain
-          lb_v = bv[kMaxBinM - 1];
-          lb_r = bi[kMaxBinM - 1];
-          if (!__syncthreads_or(owner && bi[kMaxBinM - 1] >= 0 && base + kMaxBinM < p.bin_m)) break;
-        }
-      }
-    }
-  }
-
-  if (kFold) {
-    for (int j = 0; j < p.k; ++j) {
-      float d = kMasked;
-      int id = -1;
-      if (j < cnt) {
-        if constexpr (kFlavour == kB6Lists) d = lst_v[j * kLanes + lane];  // rank form: B6's fold compares these
-        else d = rank_epilogue(p.metric, lst_v[j * kLanes + lane], qs);
-        id = d >= kMasked * 0.5f ? -1 : lst_i[j * kLanes + lane];
-      }
-      p.out_d[pair * p.k + j] = d;
-      p.out_i[pair * p.k + j] = id;
-    }
-  }
-}
-
-size_t smem_bytes(int k_pad) {
-  return sizeof(uint32_t) * (kRows + kLanes) * kStride + sizeof(float) * 2 * kBin +
-         sizeof(int) * (4 * kLanes + 4) + static_cast<size_t>(k_pad) * kLanes * (4 + 4) +
-         ((static_cast<size_t>(k_pad) * kLanes + 15) & ~size_t(15)) + sizeof(float) * kRows * kLanes;
-}
-
-template <typename T, int kMaxBinM, int kFlavour>
-int launch_typed(const Params& p, int n_pairs, cudaStream_t stream) {
-  auto kernel = grouped_probe_kernel<T, kMaxBinM, kFlavour>;
-  const size_t smem = smem_bytes(p.k_pad);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_pairs / kLanes, kLanes, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// B3 and B5 over i8 and bf16 on the tensor cores
-
 constexpr int kPBlock = 2 * kWG;                 // two warpgroups, 64 lanes each
 constexpr int kBinStage = kBin * kKB;            // 16 KB: one K-block of a bin's rows
 constexpr int kPMaxStages = 8;                   // slots of the block's table ring
@@ -365,19 +168,22 @@ constexpr int kSegBytes = 5 * 1024;              // the lanes' windows, the segm
 // ([k_pad][128] values, rows, rounds), the segment tables, and the
 // barriers: a full barrier per slot and one for the query tile, then a
 // counter per slot. Every buffer starts on 1 KB; the ring takes what is
-// left, up to kPMaxStages slots.
+// left, up to kPMaxStages slots. kStream (f32 rows): the queries always
+// stream, since a slot's two query K-blocks, once in the warpgroups'
+// registers, take the bin's K-block's lo half (16 KB both).
 struct ProbeLayout {
   int n_kb, stages, stage_bytes, ring_off, aux_off, list_off, seg_off, bar_off, bytes;
   bool resident;
 };
 
+template <bool kStream = false>
 __host__ __device__ __forceinline__ ProbeLayout probe_layout(int n_kb, int k_pad) {
   ProbeLayout L;
   L.n_kb = n_kb;
   const int list_bytes = (k_pad * kLanes * 9 + 1023) / 1024 * 1024;
   const int fixed = kAuxBytes + list_bytes + kSegBytes + 256 + 1024;
   const int q_bytes = 2 * n_kb * kQStage;
-  L.resident = n_kb <= kPResidentKB && fixed + q_bytes + 2 * kBinStage <= kSmem;
+  L.resident = !kStream && n_kb <= kPResidentKB && fixed + q_bytes + 2 * kBinStage <= kSmem;
   L.stage_bytes = kBinStage + (L.resident ? 0 : 2 * kQStage);
   L.ring_off = L.resident ? q_bytes : 0;
   const int room = (kSmem - fixed - L.ring_off) / L.stage_bytes;
@@ -462,6 +268,16 @@ __device__ __forceinline__ void probe_release(const ProbeLayout& L, uint8_t* rin
     probe_fill(L, ring, full, q_map, t_map, m, tile_row0(S, cur, m / L.n_kb), q0);
 }
 
+// f32 rows: both warpgroups split step n's bin K-block (slot `buf`) once
+// each has its query K-block's fragments in registers: hi in place, lo over
+// the two query K-blocks, 64 bytes a thread; then a `wgmma` may read both.
+__device__ __forceinline__ void probe_split(uint8_t* buf, int tid) {
+  block_sync();  // both warpgroups hold their query fragments
+  split_tile(buf, buf + kBinStage, kBinStage, tid, kPBlock);
+  fence_proxy_async();
+  block_sync();
+}
+
 // a before b in a bin's order: (value, row)
 __device__ __forceinline__ bool before(float av, int ar, float bv, int br) {
   return av < bv || (av == bv && ar < br);
@@ -508,9 +324,9 @@ __device__ __forceinline__ void quad_merge(float (&v)[M], int (&r)[M]) {
 }
 
 // B3 (a running top-k_pad per lane), B5 (the bins' lists written out) and
-// B6's lists (B3 in rank form) over i8, bf16 or packed b1 (uint8) rows, and
-// B7 (the sub-bins' keys written out) over i8 rows, on `wgmma`; kFlavour
-// says which. kM: entries of a bin's list (4 or 16 for B3; 4 or 8 for B5, 8
+// B6's lists (B3 in rank form) over i8, bf16, f32 (the three-pass TF32
+// product) or packed b1 (uint8) rows, and B7 (the sub-bins' keys written
+// out) over i8 rows, on `wgmma`; kFlavour says which. kM: entries of a bin's list (4 or 16 for B3; 4 or 8 for B5, 8
 // or 16 over b1; 4 for B6, bin_m <= k of them in passes of kM), bin_m <= kM
 // of them kept. kSmall: i8 rows of at most 256 bytes and b1 rows, whose dots
 // convert to f32 exactly without I2F.
@@ -520,10 +336,11 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
   using A = typename Acc<T>::type;
   constexpr bool kFold = kFlavour == kB3Fold || kFlavour == kB6Lists;  // a running list per lane
   constexpr bool kB1 = std::is_same<T, uint8_t>::value;
+  constexpr bool kTF32 = std::is_same<T, float>::value;
   constexpr int kTogether = kM <= 8 ? 2 : 1;  // lanes scored at once: two for ILP, one for 16-entry lists
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const ProbeLayout L = probe_layout(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
+  const ProbeLayout L = probe_layout<kTF32>(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
   uint8_t* ring = smem + L.ring_off;
   float* aux = reinterpret_cast<float*>(smem + L.aux_off);     // [warpgroup][buffer][t_sq, penalty][kBin]
   int2* lst = reinterpret_cast<int2*>(smem + L.list_off);  // B3 [k_pad][kLanes]: (value bits, row)
@@ -666,6 +483,7 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
       // none of this warpgroup's lanes: wait for each step and release it
       for (int e = 0; e < nt * L.n_kb; ++e, ++n) {
         mbar_wait(full + n % L.stages, (n / L.stages) & 1);
+        if constexpr (kTF32) probe_split(ring + n % L.stages * L.stage_bytes, tid);  // its half of the split
         probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n, steps, q0);
       }
       continue;
@@ -682,29 +500,61 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
       ax[kBin + t] = pen_n;
       load_row(b + 1 < S.b0[s] + nt ? row0 + kBin : first_row0(S, s + 1, segs, g));
 
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-      for (int kb = 0; kb < L.n_kb; ++kb, ++n) {
-        const int slot = n % L.stages;
-        mbar_wait(full + slot, (n / L.stages) & 1);
-        const uint32_t ta = smem_addr(ring + slot * L.stage_bytes);
-        const uint32_t qa = L.resident ? smem_addr(smem + (g * L.n_kb + kb) * kQStage) : ta + kBinStage + g * kQStage;
-        const uint64_t da = sw128_desc(qa), db = sw128_desc(ta);
+      if constexpr (kTF32) {
+        // f32: per K-block the warpgroup's query rows split into registers
+        // (RS form), the bin's split by both warpgroups, then three products
+        // a k-step; the fragments are reloaded only once the K-block before
+        // is waited for
+        uint32_t qh[16], ql[16];
+        for (int kb = 0; kb < L.n_kb; ++kb, ++n) {
+          const int slot = n % L.stages;
+          uint8_t* buf = ring + slot * L.stage_bytes;
+          mbar_wait(full + slot, (n / L.stages) & 1);
+          if (kb > 0) {
+            asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+            fence_frags(qh);
+            fence_frags(ql);
+            probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
+          }
+          tf32_frags(buf + kBinStage + g * kQStage, t, qh, ql);
+          probe_split(buf, tid);
+          const uint64_t db = sw128_desc(smem_addr(buf)), dl = sw128_desc(smem_addr(buf + kBinStage));
+          fence_acc(acc);
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int k = 0; k < kKB / 32; ++k) {
-          if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);
-          else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);
+          for (int k = 0; k < kKB / 32; ++k) mma_tf32x3(acc, qh, ql, k, db + 2 * k, dl + 2 * k, kb | k);
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         }
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        if (kb > 0) {
-          // the previous K-block's product is done: release its slot
-          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-          probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_acc(acc);
+        fence_frags(qh);
+        fence_frags(ql);
+        probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
+      } else {
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        for (int kb = 0; kb < L.n_kb; ++kb, ++n) {
+          const int slot = n % L.stages;
+          mbar_wait(full + slot, (n / L.stages) & 1);
+          const uint32_t ta = smem_addr(ring + slot * L.stage_bytes);
+          const uint32_t qa = L.resident ? smem_addr(smem + (g * L.n_kb + kb) * kQStage) : ta + kBinStage + g * kQStage;
+          const uint64_t da = sw128_desc(qa), db = sw128_desc(ta);
+#pragma unroll
+          for (int k = 0; k < kKB / 32; ++k) {
+            if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);
+            else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          if (kb > 0) {
+            // the previous K-block's product is done: release its slot
+            asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+            probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
+          }
         }
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_acc(acc);
+        probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_acc(acc);
-      probe_release(L, ring, full, taken, &q_map, &t_map, S, cur, n - 1, steps, q0);
       wg_sync(1 + g);  // the tile's row values are in ax
       ++used;
       if (!warp_active) continue;
@@ -1016,7 +866,8 @@ grouped_wgmma(const __grid_constant__ CUtensorMap q_map, const __grid_constant__
 template <typename T, int kMetric, int kM, int kFlavour>
 int run_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const Params& p, int n_pairs, cudaStream_t s) {
   constexpr bool kFold = kFlavour == kB3Fold || kFlavour == kB6Lists;
-  const ProbeLayout L = probe_layout(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
+  const ProbeLayout L =
+      probe_layout<std::is_same<T, float>::value>(p.width * static_cast<int>(sizeof(T)) / kKB, kFold ? p.k_pad : 0);
   if (L.stages < 2) return cudaErrorInvalidValue;
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
   constexpr bool kB1 = std::is_same<T, uint8_t>::value;
@@ -1034,7 +885,7 @@ int run_wgmma(const CUtensorMap& q_map, const CUtensorMap& t_map, const Params& 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3/B5/B6/B7 over i8, bf16 or b1 rows on the tensor cores: the tensor maps
+// B3/B5/B6/B7 over i8, bf16, f32 or b1 rows on the tensor cores: the tensor maps
 // (a query box of 64 rows, a table box of one 128-row bin), then the
 // metric's kernel; b1 rows go with hamming alone, l2sq's rank form, and B7
 // takes no metric. kFlavour: B5 (0, false) or B3 (1, true), B6's lists, B7.
@@ -1060,30 +911,17 @@ int launch_wgmma(const Params& p, int n_pairs, cudaStream_t s) {
   }
 }
 
-// B3: i8, bf16 and b1 on the tensor cores, f32 on the SIMT kernel.
+// B3, every storage type on the tensor cores.
 template <typename T>
 int launch_fold(const Params& p, int n_pairs, cudaStream_t stream) {
-  constexpr bool kTC = !std::is_same<T, float>::value;
-  if constexpr (kTC) {
-    if (p.bin_m <= 4) return launch_wgmma<T, 4, true>(p, n_pairs, stream);
-    return launch_wgmma<T, 16, true>(p, n_pairs, stream);
-  } else {
-    if (p.bin_m <= 4) return launch_typed<T, 4, true>(p, n_pairs, stream);
-    return launch_typed<T, 16, true>(p, n_pairs, stream);
-  }
+  if (p.bin_m <= 4) return launch_wgmma<T, 4, true>(p, n_pairs, stream);
+  return launch_wgmma<T, 16, true>(p, n_pairs, stream);
 }
 
-// B6's lists: i8, bf16 and b1 on the tensor cores in passes of 4 rounds,
-// f32 on the SIMT kernel in passes of 4 or 16 (each pass computes the dots
-// again there).
+// B6's lists, every storage type on the tensor cores, in passes of 4 rounds.
 template <typename T>
 int launch_lists(const Params& p, int n_pairs, cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
-    return launch_wgmma<T, 4, kB6Lists>(p, n_pairs, stream);
-  } else {
-    if (p.bin_m <= 4) return launch_typed<T, 4, kB6Lists>(p, n_pairs, stream);
-    return launch_typed<T, 16, kB6Lists>(p, n_pairs, stream);
-  }
+  return launch_wgmma<T, 4, kB6Lists>(p, n_pairs, stream);
 }
 
 bool bad_common(int n_pairs, int n_rows, int width, int dtype, int metric, const float* t_sq) {
@@ -1166,7 +1004,8 @@ int usearch_grouped_probe_nofold(const void* q_g, const float* q_sq, const void*
       if (bin_m <= 4) return launch_wgmma<__nv_bfloat16, 4, false>(p, n_pairs, s);
       return launch_wgmma<__nv_bfloat16, 8, false>(p, n_pairs, s);
     case kF32:
-      return launch_typed<float, 8, false>(p, n_pairs, s);
+      if (bin_m <= 4) return launch_wgmma<float, 4, false>(p, n_pairs, s);
+      return launch_wgmma<float, 8, false>(p, n_pairs, s);
     case kB1:
       if (bin_m <= 8) return launch_wgmma<uint8_t, 8, false>(p, n_pairs, s);
       return launch_wgmma<uint8_t, 16, false>(p, n_pairs, s);

@@ -186,6 +186,109 @@ __device__ __forceinline__ void mma_popc(int (&d)[64], uint64_t a, uint64_t b, i
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The three-pass TF32 product of f32 rows (B3/B5/B6's lists and B8-B10 over
+// f32): x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a . b taken
+// as a_hi . b_lo + a_lo . b_hi + a_hi . b_hi in f32 accumulators, the two
+// cross terms first; a_lo . b_lo (below 2^-21 |a b|) is dropped. Both
+// halves are rounded to TF32 here, to nearest with ties away from zero on
+// the bits (what `cvt.rna.tf32.f32` gives, in integer operations so
+// ops/tf32.py's plain twin gives the same bits), so the tensor cores read
+// exact TF32 values and nothing rests on how they treat the low 13 bits of
+// a raw f32. Each product is then within 2^-22 (3 + 2^-10) |a b| of the
+// exact one, below the f32 range's bottom within 2^-137 (|a| + |b|) besides
+// (tests/test_torch_tf32_split.py states and checks the bound).
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, hi));  // x - hi is exact
+}
+
+// The A operand of one 128-byte K-block of f32 rows from shared memory (64
+// rows of 128 bytes, 128-byte swizzled as TMA writes them, the tile on 1 KB),
+// split into the registers of warpgroup thread t: k-step s, register i holds
+// row 16 w + l / 4 + 8 (i % 2), column 8 s + l % 4 + 4 (i / 2) (w = t / 32,
+// l = t % 32), the m64nNk8 .tf32 fragment; chunk c of row r lies at chunk
+// c ^ (r % 8), and r % 8 = l / 4 for every row a thread holds.
+__device__ __forceinline__ void tf32_frags(const uint8_t* kblock, int t, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+  const int l = t % 32;
+  const uint8_t* row = kblock + (16 * (t / 32) + l / 4) * kKB + (l % 4) * 4;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = (2 * s + i / 2) ^ (l / 4);
+      float h, o;
+      split_tf32(*reinterpret_cast<const float*>(row + 8 * (i % 2) * kKB + chunk * 16), h, o);
+      hi[4 * s + i] = __float_as_uint(h);
+      lo[4 * s + i] = __float_as_uint(o);
+    }
+  }
+}
+
+// The B operand's split of `bytes` bytes of f32 in shared memory (table
+// K-blocks as TMA writes them; elementwise, so any swizzle): hi in place, lo
+// at the same offset from `lo_dst`; thread i of n takes every n-th 16 bytes.
+// The caller fences (`fence_proxy_async`) and synchronises before a `wgmma`
+// reads either.
+__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo_dst, int bytes, int i, int n) {
+  for (int e = 16 * i; e < bytes; e += 16 * n) {
+    const float4 x = *reinterpret_cast<const float4*>(tile + e);
+    float4 h, o;
+    split_tf32(x.x, h.x, o.x);
+    split_tf32(x.y, h.y, o.y);
+    split_tf32(x.z, h.z, o.z);
+    split_tf32(x.w, h.w, o.w);
+    *reinterpret_cast<float4*>(tile + e) = h;
+    *reinterpret_cast<float4*>(lo_dst + e) = o;
+  }
+}
+
+// Both warpgroups of a block at one named barrier (id 3: ids 1 and 2 are
+// the warpgroups' own).
+__device__ __forceinline__ void block_sync() { asm volatile("bar.sync 3, 256;" ::: "memory"); }
+
+// Keeps the compiler from reusing an A fragment's registers before the
+// asynchronous products that read them are waited for.
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d[64 x 128] (+)= a[64 x 8 tf32] . b[128 x 8 tf32]^T in f32, a from the
+// registers of k-step s of a fragment (`tf32_frags`): the probe kernels
+// over f32 rows (csrc/probe.cu).
+__device__ __forceinline__ void mma_k(float (&d)[64], const uint32_t (&a)[16], int s, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " D_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : D64("+f", 0)
+      : "r"(a[4 * s]), "r"(a[4 * s + 1]), "r"(a[4 * s + 2]), "r"(a[4 * s + 3]), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 256] (+)= a[64 x 8 tf32] . b[256 x 8 tf32]^T in f32: B8-B10 over
+// f32 rows (csrc/fused.cu).
+__device__ __forceinline__ void mma_k(float (&d)[128], const uint32_t (&a)[16], int s, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 " D_REGS ", {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : D64("+f", 0), D64("+f", 64)
+      : "r"(a[4 * s]), "r"(a[4 * s + 1]), "r"(a[4 * s + 2]), "r"(a[4 * s + 3]), "l"(b), "r"(accumulate));
+}
+
+// One k-step of the three-pass product: the cross terms, then hi . hi; the
+// first accumulates unless `accumulate` is 0. `b` and `b_lo` address the
+// k-step of the B operand's hi and lo halves.
+template <int N>
+__device__ __forceinline__ void mma_tf32x3(float (&d)[N], const uint32_t (&a_hi)[16], const uint32_t (&a_lo)[16],
+                                           int s, uint64_t b, uint64_t b_lo, int accumulate) {
+  mma_k(d, a_hi, s, b_lo, accumulate);
+  mma_k(d, a_lo, s, b, 1);
+  mma_k(d, a_hi, s, b, 1);
+}
+
 #define D32(C, i) D8(C, i), D8(C, i + 8), D8(C, i + 16), D8(C, i + 24)
 #define D_REGS32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"           \

@@ -23,21 +23,26 @@ hamming select) captured, and B3 over B4's pairs with their bytes read as
 i8 rows (l2sq; the s8 product at B4's steps, to hold the b1 product's rate
 against); and at the i8 index's `pair` and `bin` searches, B6 whole and
 in its three steps (the pairs' sort `pair_cells`, the lists `pair_lists`
-on `grouped_wgmma`, the fold `pair_fold` of csrc/pair.cu) and B7. The
-variants replace the same lines for every
-storage type (b1 differs from i8 in its product alone): the full kernel;
+on `grouped_wgmma`, the fold `pair_fold` of csrc/pair.cu) and B7; and B3,
+B5 and B6 over f32 rows (the three-pass TF32 product) at an f32 cos IVF of
+the same rows and queries, built as the i8 one. The variants replace the
+same lines for every storage type (b1 differs from i8 in its product
+alone, f32 in its K-block loop: the split and three products a k-step):
+the full kernel;
 no fold or stores (B3's merges into the lanes' lists, so the lists
 never fill and never prune a row, and B5's and B7's stores of the bins'
 lists); no selection (the rows are scored, but no thread keeps a list and
 the quads merge none; B7 takes no round); no epilogue (nothing after
 the product); the product alone (no waits for, and no refills of, the
 table ring, no epilogue: the product runs on whatever the slots hold); the
-table stream alone (no product, no epilogue). Each variant computes
-garbage where its part is missing; only its time means anything. It
-prints the card's name and power limit and one line per variant and
-kernel. With ``--against CHECKOUT`` it also builds that checkout's
+table stream alone (no product, no epilogue; over f32 the split stays);
+no split (f32: the bin's K-block is not split; its barriers stay). Each
+variant computes garbage where its part is missing; only its time means
+anything. It prints the card's name and power limit and one line per
+variant and kernel. With ``--against CHECKOUT`` it also builds that checkout's
 csrc/probe.cu (e.g. the parent commit's, unpacked with `git archive`),
-checks that it gives the same results on the same inputs, and times it as
+checks that it gives the same results on the same inputs (over f32, whose
+product the parent took in SIMT FMAs, prints how far apart), and times it as
 one more variant, first and last: ``other``, ``full``, the parts, ``full``
 again, ``other`` again (B6's lists and steps only where that checkout has
 ``usearch_pair_lists``). Needs a CUDA card and nvcc; the copies are built
@@ -46,19 +51,17 @@ into usearch_torch/_build/.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-from .. import Index, build, ivf
+from .. import Index, ivf
 from ..enums import MetricKind
 from ..ops import probe
 from ..ops.packbits import pack_bits
-from .scan_breakdown import build_variants, card_line, run
+from .scan_breakdown import against, build_other, build_variants, card_line, run
 
 SEED = 0
 #: the IVF path of chip_smoke.py
@@ -69,7 +72,7 @@ BITS, BIT_Q, TEMPLATES, FLIP, BIT_PARTITIONS = 1024, 4096, 400, 0.08, 976
 #: the small batch of chip_smoke.py's B3 row: the first SMALL_Q queries
 SMALL_Q = 1024
 #: the tag of B6's cases, which need B6's lists in the probe library
-B6 = "B6 i8 ip"
+B6 = "B6"
 #: source lines of csrc/probe.cu and what each variant puts in their place
 _FOLD_STORES = [("        if (m > 0) {\n", "        if (m > 0 && cv[0] == 12345.0f) {\n"),
                 ("                if (j >= p.bin_m || bi[u][j] == INT_MAX) break;\n",
@@ -83,21 +86,29 @@ _SELECTION = [("                if (!act[h] || !in || !(v <= thr[u]) || !(v < bv
               ("          for (int t = 0; t < p.keep; ++t) {\n", "          for (int t = 0; t < 0; ++t) {\n")]
 _EPILOGUE = ("      if (!warp_active) continue;\n",
              "      if (dot_value<kSmall>(acc[0]) == 12345.0f && warp_active) p.out_d[0] = 1.0f;\n      continue;\n")
-_PRODUCT = ("        for (int k = 0; k < kKB / 32; ++k) {\n"
-            "          if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);\n"
-            "          else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n"
-            "        }\n",
-            "        (void)da;\n        (void)db;\n")
-_LOADS = [("        mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
+_PRODUCT = [("          for (int k = 0; k < kKB / 32; ++k) {\n"
+             "            if constexpr (kB1) mma_popc(acc, da + 2 * k, db + 2 * k, kb | k);\n"
+             "            else mma_k(acc, da + 2 * k, db + 2 * k, kb | k);\n"
+             "          }\n",
+             "          (void)da;\n          (void)db;\n"),
+            ("          for (int k = 0; k < kKB / 32; ++k) "
+             "mma_tf32x3(acc, qh, ql, k, db + 2 * k, dl + 2 * k, kb | k);\n",
+             "          (void)dl;\n")]
+_LOADS = [("          mbar_wait(full + slot, (n / L.stages) & 1);\n", ""),
           ("        mbar_wait(full + n % L.stages, (n / L.stages) & 1);\n", ""),
           ("  if (old % kUsers == kUsers - 1 && m < steps)", "  if (false)")]
+#: f32: the split of the bin's K-block (the barriers stay)
+_SPLIT = [("        if constexpr (kTF32) probe_split(ring + n % L.stages * L.stage_bytes, tid);",
+           "        if constexpr (kTF32) {\n          block_sync();\n          block_sync();\n        }"),
+          ("          probe_split(buf, tid);\n", "          block_sync();\n          block_sync();\n")]
 PARTS = {
     "full": [],
     "no_fold_or_stores": _FOLD_STORES,
     "no_selection": _SELECTION,
     "no_epilogue": [_EPILOGUE],
     "product_only": _LOADS + [_EPILOGUE],
-    "stream_only": [_EPILOGUE, _PRODUCT],
+    "stream_only": [_EPILOGUE] + _PRODUCT,
+    "no_split": _SPLIT,
 }
 
 
@@ -140,6 +151,7 @@ def cases(dev):
     metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m = b6
     cells = probe.pair_cells(starts, offs, lens, table.shape[0], w_pad)
     lists = probe.pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k, min(bin_m, k))
+    f32 = f32_cases(x, queries)
     b4, b5_b1 = bit_cases(dev, gen)
     # B4's pairs over the same bytes read as i8 rows (l2sq): the s8 product
     # at B4's steps, beside which `product_only` times the b1 product
@@ -152,11 +164,31 @@ def cases(dev):
         f"B5 b1 tanimoto, P={b5_b1[1].shape[0]:,}, {b5_b1[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5_b1),
         f"B3 i8 l2sq over B4's bytes, P={b4[1].shape[0]:,}": lambda: probe.grouped_probe(*b4_s8),
         f"B7 i8 bin, P={b7[0].shape[0]:,}, {b7[4]} rows x {b7[5]} {b7[6]}": lambda: probe.binned_probe(*b7),
-        f"{B6} pair, Q={q.shape[0]:,} x {starts.shape[1]}, k={k}": lambda: probe.pair_probe(*b6),
-        f"{B6} sort, P={cells[1].shape[0]:,}": lambda: probe.pair_cells(starts, offs, lens, table.shape[0], w_pad),
-        f"{B6} lists, {min(bin_m, k)} per bin": lambda: probe.pair_lists(metric, q, q_sq, table, t_sq, penalty, cells,
-                                                                         k, min(bin_m, k)),
-        f"{B6} fold": lambda: probe.pair_fold(metric, *lists, cells[3], q_sq, k),
+        f"{B6} i8 ip pair, Q={q.shape[0]:,} x {starts.shape[1]}, k={k}": lambda: probe.pair_probe(*b6),
+        f"{B6} i8 ip sort, P={cells[1].shape[0]:,}":
+            lambda: probe.pair_cells(starts, offs, lens, table.shape[0], w_pad),
+        f"{B6} i8 ip lists, {min(bin_m, k)} per bin":
+            lambda: probe.pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k, min(bin_m, k)),
+        f"{B6} i8 ip fold": lambda: probe.pair_fold(metric, *lists, cells[3], q_sq, k),
+        **f32,
+    }
+
+
+def f32_cases(x, queries) -> dict:
+    """B3, B5 and B6 over f32 rows (the three-pass TF32 product) at an f32
+    cos IVF of the same rows (chip_smoke.py's F32_IVF), each from one
+    search of the queries in its flavour."""
+    index = Index(ndim=W, metric="cos", dtype="f32", device=x.device)
+    index.add(None, x)
+    index.optimize(n_partitions=PARTITIONS, reorder=True, spill=SPILL)
+    index.expansion_search = EXPANSION
+    b3 = capture(index, queries, "group", "grouped_probe")
+    b5 = capture(index, queries, "nofold", "grouped_probe_nofold")
+    b6 = capture(index, queries, "pair", "pair_probe")
+    return {
+        f"B3 f32 cos, IVF pairs P={b3[1].shape[0]:,}, k={b3[8]}": lambda: probe.grouped_probe(*b3),
+        f"B5 f32 cos nofold, P={b5[1].shape[0]:,}, {b5[-1]} per bin": lambda: probe.grouped_probe_nofold(*b5),
+        f"{B6} f32 cos pair, Q={b6[1].shape[0]:,}, k={b6[9]}": lambda: probe.pair_probe(*b6),
     }
 
 
@@ -181,25 +213,6 @@ def bit_cases(dev, gen):
     return out
 
 
-def build_other(checkout: Path):
-    """The probe library of another checkout (e.g. the parent commit,
-    unpacked with `git archive`), built from its own csrc/ and loaded."""
-    csrc = checkout.resolve() / "usearch_torch" / "csrc"
-    out = build.BUILD_DIR / "probe_breakdown"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libother.so"
-    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / "probe.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {csrc / 'probe.cu'}:\n{proc.stdout}{proc.stderr}")
-    loaded = ctypes.CDLL(str(lib))
-    for fn, argtypes in build.SIGNATURES["probe"].items():
-        if hasattr(loaded, fn):  # an older checkout may lack an entry point
-            getattr(loaded, fn).argtypes = argtypes
-            getattr(loaded, fn).restype = ctypes.c_int
-    return loaded
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -209,28 +222,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build_variants(PARTS, "probe.cu")
     if argv[:1] == ["--against"]:
-        libs["other"] = build_other(Path(argv[1]))
+        libs["other"] = build_other(Path(argv[1]), "probe")
     print(f"{card}; {len(libs)} variants built in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
     runs = cases(dev)
     if "other" in libs:
-        # the other checkout's kernels must give this one's results
-        want = {tag: fn() for tag, fn in runs.items()}
-        build._libs["probe"] = libs["other"]
         mine = {tag: fn for tag, fn in runs.items()
                 if hasattr(libs["other"], "usearch_pair_lists") or not tag.startswith(B6)}
-        try:
-            for tag, fn in mine.items():
-                got = fn()
-                same = all(torch.equal(a, b) for a, b in zip(got, want[tag]))
-                print(f"{'other':26s} {tag:45s} {'the same results' if same else 'OTHER RESULTS'}", flush=True)
-        finally:
-            build._libs.pop("probe", None)
-        # timed in turns with this checkout's full kernel, around the parts
-        other = libs.pop("other")
-        run({"other": other}, "probe", mine, dev)
-        run({**libs, "full again": libs["full"]}, "probe", runs, dev)
-        run({"other again": other}, "probe", mine, dev)
+        against(libs, "probe", runs, dev, mine)
         return 0
     run(libs, "probe", runs, dev)
     return 0

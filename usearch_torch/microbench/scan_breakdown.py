@@ -24,6 +24,7 @@ import ctypes
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -104,6 +105,49 @@ def build_variants(parts=None, source: str = "scan.cu") -> dict:
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def build_other(checkout: Path, lib_name: str):
+    """csrc/<lib_name>.cu of another checkout (e.g. the parent commit,
+    unpacked with `git archive`), built from its own csrc/ and loaded."""
+    csrc = checkout.resolve() / "usearch_torch" / "csrc"
+    out = build.BUILD_DIR / f"{lib_name}_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libother.so"
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib), str(csrc / f"{lib_name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {csrc / f'{lib_name}.cu'}:\n{proc.stdout}{proc.stderr}")
+    loaded = ctypes.CDLL(str(lib))
+    for fn, argtypes in build.SIGNATURES[lib_name].items():
+        if hasattr(loaded, fn):  # an older checkout may lack an entry point
+            getattr(loaded, fn).argtypes = argtypes
+            getattr(loaded, fn).restype = ctypes.c_int
+    return loaded
+
+
+def against(libs: dict, lib_name: str, runs: dict, dev, mine: dict) -> None:
+    """``libs["other"]`` (`build_other`) held against this checkout's full
+    kernel on the same inputs (equal results, or for f32 the largest
+    distance difference), then timed in turns around this checkout's
+    variants: ``other``, every variant, ``full again``, ``other again``.
+    ``mine``: the cases the other checkout can run."""
+    want = {tag: fn() for tag, fn in runs.items()}
+    other = libs.pop("other")
+    build._libs[lib_name] = other
+    try:
+        for tag, fn in mine.items():
+            got = fn()
+            if all(torch.equal(a, b) for a, b in zip(got, want[tag])):
+                print(f"{'other':26s} {tag:45s} the same results", flush=True)
+            else:
+                diff = float((got[0].float() - want[tag][0].float()).abs().max())
+                print(f"{'other':26s} {tag:45s} OTHER RESULTS: distances up to {diff:.3g} apart", flush=True)
+    finally:
+        build._libs.pop(lib_name, None)
+    run({"other": other}, lib_name, mine, dev)
+    run({**libs, "full again": libs["full"]}, lib_name, runs, dev)
+    run({"other again": other}, lib_name, mine, dev)
 
 
 def card_line() -> str:

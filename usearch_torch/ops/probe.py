@@ -515,7 +515,7 @@ def pair_probe(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k: int
     window's 128-aligned DMA start, the window's offset inside it and its
     length. Bins keep ``min(bin_m, k)`` candidates (``pallas_ivf_probe``'s
     clamp), up to 128. On the card: `pair_cells`, then B3's tensor-core
-    kernel (i8, bf16, b1; f32 on its SIMT kernel) for each pair's list in
+    kernel (f32 rows through the three-pass TF32 product) for each pair's list in
     rank form (`pair_lists`), then `pair_fold`; one launch of B6 a call."""
     _check_pair(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m)
     if q.device.type == "cpu":

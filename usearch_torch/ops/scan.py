@@ -31,9 +31,11 @@ ops-level functions (no `Index` path), have the same entry points here:
   B1's surface in the JAX orientation ``[N/128, Q]``.
 
 B8 and B9 return the stable top-k, by (value, bin), of the bin minima,
-padded with ``(MASKED, -1)``. For i8 and bf16 the three run one kernel
-with B1's tensor-core product and epilogue (csrc/wgmma_common.cuh), so
-their distances, and B10's rows, are B1's; f32 keeps a SIMT product. Their
+padded with ``(MASKED, -1)``. The three run one kernel with B1's
+tensor-core product and epilogue (csrc/wgmma_common.cuh), so over i8 and
+bf16 their distances, and B10's rows, are B1's; over f32 it is the
+three-pass TF32 product (`ops/tf32.py` is its plain twin), so B8/B9's f32
+distances are B10's and within that product's bound of B1's. Their
 TPU kernels' tile sizes and merge interval, and B10's ``split_dot``, change
 no output and are not parameters here.
 
@@ -212,10 +214,16 @@ def fused_topk_plain(metric, q, table, q_sq, t_sq, penalty, k: int):
     the first ``k`` of ``[MASKED] * k ++ bin minima`` in a stable sort by
     value (ties to the earlier bin), ids -1 where the distance is at least
     ``MASKED / 2``. No ``torch.topk``: its tie order is not the contract."""
-    vals, rows = binned_scan_plain(metric, q, table, q_sq, t_sq, penalty)
-    n_q = q.shape[0]
-    pad_v = torch.full((n_q, k), MASKED, dtype=torch.float32, device=q.device)
-    pad_i = torch.full((n_q, k), -1, dtype=torch.int32, device=q.device)
+    return topk_of_minima(*binned_scan_plain(metric, q, table, q_sq, t_sq, penalty), k)
+
+
+def topk_of_minima(vals: torch.Tensor, rows: torch.Tensor, k: int):
+    """B8/B9's selection over a ``[Q, N/128]`` surface of bin minima and
+    their i32 rows: the first ``k`` of ``[MASKED] * k ++ minima`` in a
+    stable sort by value, ids -1 at or above ``MASKED / 2``."""
+    n_q = vals.shape[0]
+    pad_v = torch.full((n_q, k), MASKED, dtype=torch.float32, device=vals.device)
+    pad_i = torch.full((n_q, k), -1, dtype=torch.int32, device=vals.device)
     d, sel = stable_topk(torch.cat([pad_v, vals], dim=1), k)
     ids = torch.cat([pad_i, rows], dim=1).gather(1, sel)
     return d, torch.where(d >= MASKED / 2, -1, ids)
@@ -281,9 +289,9 @@ def binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty):
 def binned_scan_lanes(metric, q, table, q_sq, t_sq, penalty):
     """Kernel B10 (csrc/fused.cu `usearch_binned_scan_lanes`), or its plain
     version for CPU tensors. The kernel reduces each bin as soon as its
-    product is done, the schedule ``split_dot`` asks the TPU kernel for: for
-    i8 and bf16 B8's tensor-core kernel, which stores each 256-row tile's
-    two bins; for f32 a SIMT kernel."""
+    product is done, the schedule ``split_dot`` asks the TPU kernel for: B8's
+    tensor-core kernel, which stores each 256-row tile's two bins (f32 rows
+    through the three-pass TF32 product)."""
     _check(metric, q, table, q_sq, t_sq, penalty)
     if q.device.type == "cpu":
         return binned_scan_lanes_plain(metric, q, table, q_sq, t_sq, penalty)
