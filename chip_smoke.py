@@ -101,7 +101,27 @@ Phases, each fatal on failure:
    printed), the same search through the kernels' plain versions (keys and
    distances equal), 4,096 rows added after the build and found, 1% of the
    keys removed and never returned. B3 (B4, its b1 instantiation) must
-   launch on hamming, B5 on tanimoto, and neither B1 nor B2 on either;
+   launch on hamming, B5 on tanimoto, and neither B1 nor B2 on either.
+   The index lifecycle (LIFECYCLE, bench.py's width): (a) 2**20 host f32
+   rows added to a new `Index(ndim=256, metric="ip", dtype="i8")`, the host
+   cast, the key map's calls and the rest (upload, scatter, stats) timed,
+   failing unless the native key map and the native i8 cast ran; (b)
+   `optimize(n_partitions=8192, reorder=True)`, past the flat fit's 4,096
+   partitions, its stages timed (level 1, the coarse assignment, level 2's
+   sub-fits, the flat pass, the layout), 16,384 member queries at k=10
+   (recall@1 >= 0.99, recall@10 against the exact answer printed) through
+   B3 alone, equal to B3's plain version; (c) saved to a temporary file
+   (its size equal to `serialized_length`) and to a buffer, and restored
+   three ways (`Index.restore(path)`, with `view=True`, from the buffer),
+   each with its IVF and no k-means fit, searching bit for bit as the saved
+   index through B3; then 1% of the keys removed and 4,096 rows added on a
+   restored index, saved and restored again: no removed key returned, every
+   fresh row found, at least 99% of the queries' results equal bit for bit
+   (the compaction moves rows across B3's 128-row bins); (d) the IVF path's
+   spilled index (after its removals and fresh adds) saved and restored
+   without its shadow rows: recall@1 >= 0.99 over its live member queries,
+   no removed key returned, every fresh row found; (e) `view(stream=True)`
+   refused naming ROADMAP A.8, and the files deleted;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
@@ -113,7 +133,8 @@ Phases, each fatal on failure:
    "tf32x3", the SIMT f32 bound printed beside it), the f32 flat rows beside
    f32 `torch.matmul` (TF32 off); and a profile of one warm search of each
    path and flavour, the f32 IVF path, the flat-scan flavours over i8 and
-   f32 and both exact paths included;
+   f32, both exact paths and the lifecycle's 8,192-partition IVF included
+   (B3 also at that IVF's pairs);
 5. the TPU micro-benchmarks of scripts/, each a path of its own: the
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
@@ -145,10 +166,14 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,14 +182,20 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from usearch_torch import Index, build, ivf
+from usearch_torch import Index, build, ivf, keymap, persist
 from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
-from usearch_torch.ops import microbench, probe, scan, tf32
+from usearch_torch.native import casts_native, keymap_native
+from usearch_torch.ops import casts, microbench, probe, scan, tf32
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits
 from usearch_torch.ops.topk import masked_topk
+
+#: modules whose functions phase 3 times (the package's name `kmeans` is
+#: the clustering function, not its module)
+kmeans = importlib.import_module("usearch_torch.kmeans")
+index_module = importlib.import_module("usearch_torch.index")
 
 SEED = 0
 #: phase 2 shape
@@ -233,6 +264,11 @@ F32_IVF = dict(metric="cos", modes=("pair", "nofold"))
 #: phase 3/4: the share of the f32 cos table's rows masked as removed for
 #: the f32 flat-scan flavours
 F32_REMOVED = 0.01
+#: phase 3/4: the index lifecycle at bench.py's width: 2**20 host f32 rows
+#: added to an i8 ip index, an IVF of 8,192 partitions (the two-level fit),
+#: saved and restored, then 1% of the keys removed and 4,096 rows added
+LIFECYCLE = dict(n=1 << 20, w=256, q=16384, k=10, partitions=8192, expansion=1024, gt_q=2048, removed=0.01,
+                 fresh=4096)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -1479,7 +1515,8 @@ def drive_ivf(dev) -> dict:
         after = mode_after_updates(index, mode, new, new_keys, probe_q, gone, k)
         modes[mode]["launches"] = {name: count + modes[mode]["launches"][name] for name, count in after.items()}
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
-                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes)
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes, want=want,
+                gone=gone, new=new, new_keys=new_keys, probe_q=probe_q)
 
 
 def drive_f32_ivf(dev) -> dict:
@@ -1535,6 +1572,284 @@ def drive_f32_ivf(dev) -> dict:
              for mode in F32_IVF["modes"]}
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
                 nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes)
+
+
+class CallTimer:
+    """Within a with-block, ``owner.name`` is wrapped to count its calls and
+    time each (the device synchronised before and after it); a staticmethod
+    or a class's function is put back as it was."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls, self.seconds = owner, name, 0, []
+        self.saved = owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
+        self.fn = getattr(owner, name)
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.calls += 1
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+    @property
+    def total(self) -> float:
+        return sum(self.seconds)
+
+
+def timed_host_add(index, rows: np.ndarray):
+    """`add` of host rows with its parts timed: the host cast
+    (`exact.prepare_rows`), the key map's inserts and lookups, and the rest
+    (upload, scatter, stats, the duplicate check). Fails unless the native
+    key map and the native i8 cast ran."""
+    with CallTimer(index_module, "prepare_rows") as cast_t, \
+            CallTimer(keymap_native.NativeKeyMap, "insert_many") as km_insert, \
+            CallTimer(keymap_native.NativeKeyMap, "contains_many") as km_lookup, \
+            CallTimer(casts_native, "cast_f32_to_i8") as native_cast:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keys = index.add(None, rows)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    if not (keymap.NATIVE and casts.NATIVE and isinstance(index._keymap, keymap_native.NativeKeyMap)
+            and native_cast.calls and km_insert.calls):
+        fail(f"the host add did not take the native routes: key map {type(index._keymap).__name__}, "
+             f"{native_cast.calls} native casts, {km_insert.calls} native inserts")
+    km_s = km_insert.total + km_lookup.total
+    return keys, dict(total=total, cast=cast_t.total, native_cast=native_cast.total, keymap=km_s,
+                      rest=total - cast_t.total - km_s, native_casts=native_cast.calls)
+
+
+def timed_build(index, **kwargs) -> dict:
+    """`optimize` with the two-level fit's stages timed: level 1 (the first
+    `kmeans_fit`), the coarse assignment, level 2 (the other fits), the flat
+    pass, the rest of the quantizer (the gather of live rows, the chunks)
+    and the layout (the table's permutation after the quantizer)."""
+    with CallTimer(kmeans, "kmeans_fit") as fits, CallTimer(kmeans, "_coarse_assign") as coarse, \
+            CallTimer(kmeans, "_flat_pass") as flat, CallTimer(ivf.IVFPartitions, "_quantize") as quantize:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.optimize(**kwargs)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    if fits.calls < 2 or coarse.calls != 1 or flat.calls != 1:
+        fail(f"optimize({kwargs}) did not take the two-level fit: {fits.calls} fits, {coarse.calls} coarse "
+             f"assignments, {flat.calls} flat passes")
+    level1, level2 = fits.seconds[0], sum(fits.seconds[1:])
+    return dict(total=total, level1=level1, coarse=coarse.total, level2=level2, sub_fits=fits.calls - 1,
+                flat=flat.total, quantize_rest=quantize.total - level1 - coarse.total - level2 - flat.total,
+                layout=total - quantize.total)
+
+
+def same_search(got, want) -> bool:
+    return np.array_equal(got.keys, want.keys) and np.array_equal(got.distances, want.distances)
+
+
+def searched_through_b3(label: str, index, queries, k: int):
+    """One search with the launch counters zeroed just before and read just
+    after: B3 and no other kernel must launch."""
+    zero_counters()
+    m = index.search(queries, k)
+    check_launches(label, counters(), "grouped_probe")
+    return m
+
+
+def restored(label: str, load, want, queries, k: int, card: str):
+    """Phase 3 (c): an index brought back by ``load``: its IVF restored
+    (not dirty), no k-means fit run, and its search through B3 equal to
+    ``want`` bit for bit."""
+    with CallTimer(kmeans, "kmeans_fit") as fits, CallTimer(ivf, "kmeans_fit") as flat_fits, \
+            CallTimer(ivf, "kmeans_hierarchical") as hier_fits:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = load()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        m = searched_through_b3(f"{label} IVF", index, queries, k)
+    refits = fits.calls + flat_fits.calls + hier_fits.calls
+    if index._ivf is None or index._ivf_dirty or refits:
+        fail(f"{label}: the IVF did not come back with the index ({refits} k-means fits)")
+    if not same_search(m, want):
+        fail(f"{label}: the search differs from the saved index's at {int((m.keys != want.keys).sum())} places")
+    log(f"  {label}: loaded in {load_s:.2f} s, its IVF restored with no k-means fit, the {queries.shape[0]} "
+        f"queries' keys and distances through B3 equal bit for bit to the saved index's ({card})")
+    return index, load_s
+
+
+def compacted_as_saved(saved, loaded) -> str:
+    """Phase 3 (c): ``loaded``, restored from a save of ``saved`` (which
+    had removals and fresh rows), holds ``saved``'s live keys and rows in
+    slot order, its centroids, and its chunk starts, lens and fresh slots
+    moved to the live rows' ranks (counted here with a binary search over
+    the live slots). Fails otherwise; returns what was held."""
+    live = saved._live_slots()
+    if not np.array_equal(loaded._live_keys(), saved._live_keys()):
+        fail("the restored index's live keys differ from the saved index's")
+    if not np.array_equal(persist._logical_rows_np(loaded), persist._logical_rows_np(saved)):
+        fail("the restored index's live rows differ from the saved index's")
+    si, li = saved._ivf, loaded._ivf
+    starts, lens = si.starts.cpu().numpy().astype(np.int64), si.lens.cpu().numpy().astype(np.int64)
+    want_starts = np.searchsorted(live, starts)
+    want_lens = np.searchsorted(live, starts + lens) - want_starts
+    fresh = np.asarray(si.fresh_np, dtype=np.int64)
+    want_fresh = np.searchsorted(live, fresh)
+    if not np.array_equal(live[want_fresh], fresh):
+        fail("a fresh row of the saved index is not live")
+    same = dict(centroids=torch.equal(li.centroids.cpu(), si.centroids.cpu()), p_win=li.p_win == si.p_win,
+                starts=np.array_equal(li.starts.cpu().numpy(), want_starts),
+                lens=np.array_equal(li.lens.cpu().numpy(), want_lens),
+                fresh=np.array_equal(np.asarray(li.fresh_np), want_fresh))
+    if not all(same.values()):
+        fail(f"the restored IVF is not the saved one compacted: {same}")
+    return (f"{len(live)} live keys and rows in slot order equal to the saved index's, centroids, p_win, "
+            f"{starts.size} chunk starts and lens and {fresh.size} fresh slots equal to the saved ones moved to "
+            f"the live rows' ranks ({len(starts) - int(np.sum(want_starts == starts))} starts moved)")
+
+
+def drive_lifecycle(dev, ivf_run: dict, card: str) -> dict:
+    """Phase 3, the index lifecycle at bench.py's width (LIFECYCLE): (a)
+    host f32 rows added to an i8 ip index, the add's host cast, key map and
+    the rest timed, through the native routes; (b) `optimize(8192,
+    reorder=True)` past the flat fit's 4,096 partitions, its stages timed,
+    searched (recall@1, recall@10, B3 alone, equal to B3's plain version);
+    (c) saved, and restored three ways (file, view, buffer), each with its
+    IVF and no fit, searching bit for bit as the saved index does; then 1%
+    of the keys removed and 4,096 rows added on a restored index, saved and
+    restored again; (d) the spilled IVF path's index through a save and
+    restore (its shadows stay behind); (e) the streamed view refused, and
+    the files deleted."""
+    spec = LIFECYCLE
+    n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = unit_rows(n, w, gen, dev)
+    host = x.cpu().numpy()
+    index = Index(ndim=w, metric="ip", dtype="i8", device=dev)
+    keys, add = timed_host_add(index, host)
+    log(f"  (a) add of {n} host f32 rows x {w} to an i8 index: host cast {add['cast']:.3f} s, of it "
+        f"{add['native_cast']:.3f} s in {add['native_casts']} native cast calls (the libraries built in phase 1), key map {add['keymap']:.3f} s, upload, scatter and the rest "
+        f"{add['rest']:.3f} s; total {add['total']:.3f} s = {n / add['total']:.0f} rows/s ({card})")
+
+    build_split = timed_build(index, n_partitions=spec["partitions"], reorder=True, spill=0.0)
+    index.expansion_search = spec["expansion"]
+    iv = index._ivf
+    nprobe = iv.nprobe_for(index.expansion_search, index.connectivity)
+    log(f"  (b) optimize({spec['partitions']} partitions, reorder) {build_split['total']:.2f} s: level 1 "
+        f"{build_split['level1']:.2f} s, coarse assignment {build_split['coarse']:.2f} s, level 2 "
+        f"{build_split['level2']:.2f} s ({build_split['sub_fits']} sub-fits), flat pass {build_split['flat']:.2f} s, "
+        f"the quantizer's rest {build_split['quantize_rest']:.2f} s, layout {build_split['layout']:.2f} s; "
+        f"{iv._shape()[0]} chunks of {int(ivf.centroid_groups(iv.centroids)[0].shape[0])} centroids, longest "
+        f"{iv.p_win} rows, capacity {index.capacity} ({card})")
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    queries = x[member]
+    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
+    zero_counters()
+    m, search_s = search_timed(index, queries, k)
+    launches = counters()
+    check_launches("8,192-partition IVF", launches, "grouped_probe")
+    want = keys[member.cpu().numpy()]
+    _, gt_slots = ground_truth(index, queries[: spec["gt_q"]], k)
+    recall1, recall10 = recall_at(m, want, index._slot_keys[np.clip(gt_slots, 0, None)], k)
+    log(f"  IVF search of {nq} member queries, k={k}, nprobe {nprobe}: {search_s * 1e3:.1f} ms = "
+        f"{nq / search_s:.0f} QPS, recall@1 {recall1:.4f}, recall@10 against the exact answer ({spec['gt_q']} "
+        f"queries) {recall10:.4f}; launches {launches}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (nq, k) or recall1 < 0.99:
+        fail(f"the {spec['partitions']}-partition IVF search: recall@1 {recall1:.4f}")
+    mp, args = plain_probe_search(index, queries, k, "grouped_probe")
+    if not same_search(mp, m):
+        fail(f"the plain probe's search differs from B3's at {int((mp.keys != m.keys).sum())} places")
+    log(f"  the same search through B3's plain version: keys and distances equal ({args[1].shape[0]} padded "
+        f"pairs, k {args[8]}, {args[9]} per bin)")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
+    try:
+        buf = index.save()  # no path yet: the bytes
+        path = str(tmp / "ivf8192.usearch")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        if size != index.serialized_length or len(buf) != size:
+            fail(f"the file holds {size} bytes, the buffer {len(buf)}, serialized_length says "
+                 f"{index.serialized_length}")
+        log(f"  (c) saved in {save_s:.2f} s: {size / 1e9:.3f} GB, equal to serialized_length ({card})")
+        loads = {}
+        loaded, loads["restore"] = restored("Index.restore(path)", lambda: Index.restore(path, device=dev), m,
+                                            queries, k, card)
+        _, loads["view"] = restored("Index.restore(path, view=True)",
+                                    lambda: Index.restore(path, view=True, device=dev), m, queries, k, card)
+        _, loads["buffer"] = restored("Index.restore(buffer)", lambda: Index.restore(buf, device=dev), m, queries,
+                                      k, card)
+        del buf
+
+        gone = keys[torch.randperm(n, generator=gen, device=dev)[: int(n * spec["removed"])].cpu().numpy()]
+        loaded.remove(gone)
+        new = unit_rows(spec["fresh"], w, gen, dev)
+        new_keys = loaded.add(None, new)
+        before = searched_through_b3("updated IVF", loaded, queries, k)
+        path2 = str(tmp / "ivf8192_updated.usearch")
+        loaded.save(path2)
+        again = Index.restore(path2, device=dev)
+        held = compacted_as_saved(loaded, again)
+        after = searched_through_b3("updated and restored IVF", again, queries, k)
+        mp, _ = plain_probe_search(again, queries, k, "grouped_probe")
+        if not same_search(mp, after):
+            fail(f"the updated and restored index: B3's plain version differs from B3 at "
+                 f"{int((mp.keys != after.keys).sum())} places")
+        log(f"  the updated index restored: {held}; its search through B3's plain version equal to B3's bit for bit")
+        same_rows = float(np.mean(np.all((after.keys == before.keys) & (after.distances == before.distances),
+                                         axis=1)))
+        probe_q = x[torch.as_tensor(gone[:nq].astype(np.int64), device=dev)]
+        hits = int(np.isin(again.search(probe_q, k).keys, gone).sum())
+        mf = again.search(new, k)
+        found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
+        log(f"  removed {len(gone)} keys and added {spec['fresh']} rows on the restored index, saved and restored "
+            f"again: IVF restored {again._ivf is not None and not again._ivf_dirty} with "
+            f"{again._ivf.fresh_np.size} fresh rows, {same_rows:.4f} of the queries' results equal bit for bit "
+            f"to the updated index's before the save (the compaction moves rows across 128-row bins), "
+            f"{hits} removed keys returned, {found:.4f} of the fresh rows found")
+        if again._ivf is None or again._ivf_dirty or same_rows < 0.99 or hits or found < 1.0:
+            fail("the updated index's round trip")
+
+        spilled = ivf_run["index"]
+        spath = str(tmp / "ivf1024_spilled.usearch")
+        spilled.save(spath)
+        back = Index.restore(spath, device=dev)
+        ms = searched_through_b3("restored spilled IVF", back, ivf_run["queries"], k)
+        live = ~np.isin(ivf_run["want"], ivf_run["gone"])
+        s_recall1 = float(np.mean(ms.keys[live, 0] == ivf_run["want"][live]))
+        s_hits = int(np.isin(back.search(ivf_run["probe_q"], k).keys, ivf_run["gone"]).sum())
+        mf = back.search(ivf_run["new"], k)
+        s_found = float(np.mean([key in row for key, row in zip(ivf_run["new_keys"].tolist(), mf.keys.tolist())]))
+        log(f"  (d) the spilled IVF path's index ({spilled._ivf.shadow_np_pos.size} shadow rows) saved and "
+            f"restored: {back._ivf.shadow_np_pos.size} shadow rows, recall@1 {s_recall1:.4f} over its "
+            f"{int(live.sum())} live member queries, {s_hits} removed keys returned, {s_found:.4f} of its fresh "
+            f"rows found")
+        if back._ivf is None or back._ivf.shadow_np_pos.size or s_recall1 < 0.99 or s_hits or s_found < 1.0:
+            fail("the spilled index's round trip")
+
+        try:
+            Index.restore(path, view=True, stream=True, device=dev)
+        except NotImplementedError as e:
+            if "ROADMAP queue A.8)" not in str(e):
+                fail(f"the streamed view raised without naming A.8: {e}")
+            log(f"  (e) view(stream=True) refused: {e}")
+        else:
+            fail("view(stream=True) loaded the table whole")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  the files deleted: {not tmp.exists()}")
+    return dict(index=index, queries=queries, recall1=recall1, recall10=recall10, qps=nq / search_s, nprobe=nprobe,
+                add=add, build=build_split, launches=launches, probe_args=args, save_s=save_s, loads=loads,
+                file_gb=size / 1e9)
 
 
 def bit_corpus(n: int, gen, dev, templates: torch.Tensor) -> torch.Tensor:
@@ -2244,6 +2559,12 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, entry in build.build_log.items():
         log(f"nvcc {name}.cu:\n{entry['report'].strip()}")
+    t0 = time.perf_counter()
+    native = dict(keymap=keymap.NATIVE, casts=casts.NATIVE)  # reading them builds the libraries
+    log(f"native host helpers (g++, native/keymap.cc and casts.cc) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s: {native}")
+    if not all(native.values()):
+        fail(f"a native host helper did not build or load: {native}")
 
     check_scan_sass()
     check_probe_sass()
@@ -2266,6 +2587,8 @@ def main() -> int:
     ivf_run = drive_ivf(dev)
     f32_ivf = drive_f32_ivf(dev)
     binary = run_binary_paths(dev)
+    log("== phase 3: the index lifecycle, " + card)
+    life = drive_lifecycle(dev, ivf_run, card)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -2282,6 +2605,10 @@ def main() -> int:
     before = probe.grouped_probe.launches
     f32_ivf["index"].search(f32_ivf["queries"], IVF["k"])
     log(f"  launches per search, f32 cos IVF: {{'grouped_probe': {probe.grouped_probe.launches - before}}}")
+    before = probe.grouped_probe.launches
+    life["index"].search(life["queries"], LIFECYCLE["k"])
+    log(f"  launches per search, i8 ip IVF of {LIFECYCLE['partitions']} partitions: "
+        f"{{'grouped_probe': {probe.grouped_probe.launches - before}}}")
     for label, run in (("i8 ip IVF", ivf_run), ("f32 cos IVF", f32_ivf)):
         for mode, res in run["modes"].items():
             kern = getattr(probe, res["kern"])
@@ -2307,6 +2634,8 @@ def main() -> int:
     profile_search(cx, comp["queries"][: COMPACT["exact_q"]], COMPACT["k"], exact=True)
     profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label="IVF")
     profile_search(f32_ivf["index"], f32_ivf["queries"], IVF["k"], exact=False, label="f32 cos IVF")
+    profile_search(life["index"], life["queries"], LIFECYCLE["k"], exact=False,
+                   label=f"IVF of {LIFECYCLE['partitions']} partitions")
     for mode in MODES:
         ivf.PROBE_MODE = mode
         profile_search(ivf_run["index"], ivf_run["queries"], IVF["k"], exact=False, label=f"IVF {mode}")
@@ -2334,6 +2663,7 @@ def main() -> int:
         b3_row(ivf_run),
         b3_row(ivf_run, bf16_probe_args(ivf_run["probe_args"]), "bf16 ip IVF pairs", "bf16"),
         b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),
+        b3_row(life, label=f"i8 ip IVF {LIFECYCLE['partitions']} partitions"),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
     rows += [b3_row(f32_ivf, label="f32 cos IVF", peak="tf32x3")]
     rows += [mode_row(f32_ivf, mode, "f32 cos IVF", "tf32x3") for mode in F32_IVF["modes"]]

@@ -276,9 +276,8 @@ def test_exact_search_entry_point():
 
 def test_unported_surface_raises():
     index = make_index(ndim=8)
-    for call in (lambda: index.save("x"), lambda: index.cluster(), lambda: index.search_async(None),
-                 lambda: Index.restore("x"), lambda: make_index(ndim=8, dtype="b1"),
-                 lambda: make_index(ndim=2, metric="haversine")):
+    for call in (lambda: index.join(index), lambda: index.cluster(), lambda: index.search_async(None),
+                 lambda: make_index(ndim=8, dtype="b1"), lambda: make_index(ndim=2, metric="haversine")):
         with pytest.raises(NotImplementedError):
             call()
 

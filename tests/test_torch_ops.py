@@ -58,6 +58,21 @@ def test_i8_quantizer_matches_reference():
     np.testing.assert_array_equal(got[:3], want[:3])
 
 
+def test_i8_host_cast_matches_reference_bit_for_bit():
+    """Host batches take the native cast (native/casts.cc), the JAX
+    package's own host route: equal to it bit for bit, the edge rows of the
+    test above included."""
+    assert casts.NATIVE
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((512, 256)).astype(np.float32)
+    x[0] = 0
+    x[1] *= 1e30
+    x[2, :] = 0
+    x[2, 7] = -3.0
+    got = casts.cast_vectors(x, ScalarKind.F32, ScalarKind.I8).numpy()
+    np.testing.assert_array_equal(got, jcasts.cast_to_i8_np(x))
+
+
 @pytest.mark.parametrize("to_kind", ["f32", "f16", "bf16", "i8"])
 def test_cast_vectors_matches_reference(to_kind):
     rng = np.random.default_rng(1)

@@ -7,6 +7,8 @@ the JAX package is here; those not ported yet raise `NotImplementedError`
 naming their ROADMAP item.
 """
 
+import numpy as np
+
 from .enums import (
     DEFAULT_CONNECTIVITY,
     DEFAULT_EXPANSION_ADD,
@@ -19,19 +21,28 @@ from .enums import (
     ScalarKind,
 )
 from .exact import exact_search
-from .index import Index, _todo, _todo_class
+from .index import Index, IndexStats, _todo_class
+# the one-call clustering function; bound after its module is imported, so
+# it hides the module `usearch_torch.kmeans` here, as in the JAX package
+from .kmeans import kmeans
 from .matches import BatchMatches, Key, Match, Matches
 
-search = _todo("A.3c")
-# the JAX package's one-call clustering function; it hides the fit's module
-# `usearch_torch.kmeans` here, as in the JAX package
-kmeans = _todo("A.3c")
-IndexStats = _todo_class("IndexStats", "A.3c")
 Indexes = _todo_class("Indexes", "A.9")
 Clustering = _todo_class("Clustering", "A.9")
 CompiledMetric = _todo_class("CompiledMetric", "A.7b")
 MetricSignature = _todo_class("MetricSignature", "A.7b")
 ShardedIndex = _todo_class("ShardedIndex", "A.11")
+
+
+def search(dataset, query, count: int = 10, metric=MetricKind.Cos, *, exact: bool = False, threads: int = 0,
+           log=False, progress=None, device="cuda"):
+    """Search the rows of ``dataset`` for ``query`` (one row or a batch);
+    keys are row numbers. It scans exactly either way: an IVF built for
+    one call would cost more than it saves. Runs on ``device`` (the card by
+    default)."""
+    matches = exact_search(dataset, query, count=count, metric=metric, device=device)
+    return matches[0] if np.asarray(query).ndim == 1 else matches
+
 
 __all__ = [
     "CompiledMetric",

@@ -14,8 +14,10 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+import struct
 import threading
-from typing import Callable, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -36,7 +38,7 @@ from .exact import pad_queries, pad_rows, pick_tile_rows, prepare_rows, resolve_
 from .keymap import KeyMap
 from .matches import BatchMatches, Matches
 from .ops.casts import cast_rows
-from .ops.distances import row_stats
+from .ops.distances import pair_dists, row_stats
 from .ops.packbits import unpack_bits_np
 
 #: capacity quantum in rows
@@ -143,6 +145,21 @@ def _todo_class(name: str, item: str) -> type:
                            "__doc__": f"Not ported yet (ROADMAP queue {item})."})
 
 
+class IndexStats:
+    """Counters of an index: its rows as nodes, no edges (there is no
+    graph), and the bytes it holds (`Index.memory_usage`)."""
+
+    def __init__(self, nodes: int, edges: int, max_edges: int, allocated_bytes: int):
+        self.nodes = nodes
+        self.edges = edges
+        self.max_edges = max_edges
+        self.allocated_bytes = allocated_bytes
+
+    def __repr__(self) -> str:
+        return (f"usearch_torch.IndexStats(nodes={self.nodes}, edges={self.edges}, "
+                f"allocated_bytes={self.allocated_bytes})")
+
+
 class Index:
     """Dense vector index on a CUDA card (or the CPU with ``device="cpu"``).
 
@@ -175,8 +192,6 @@ class Index:
             raise NotImplementedError(
                 f"{self._metric_kind.value}/{self._dtype.value} is not ported yet (ROADMAP queue A.7b)"
             )
-        if path is not None or view:
-            raise NotImplementedError("persistence is not ported yet (ROADMAP queue A.6)")
         if ndim <= 0:
             raise ValueError("ndim must be positive")
         self._device = resolve_device(device)
@@ -187,10 +202,20 @@ class Index:
         self._expansion_add = int(expansion_add)
         self._expansion_search = int(expansion_search)
         self._multi = bool(multi)
-        self._rwlock = _RWLock()
+        # `load` configures a live index anew from the file under its own
+        # write lock: keep that lock
+        if not hasattr(self, "_rwlock"):
+            self._rwlock = _RWLock()
         self._version = 0
         self._filter_cache: dict = {}
         self._reset_state()
+        self._path = None
+        if path is not None and os.path.exists(str(path)):
+            if view:
+                self.view(path)
+            else:
+                self.load(path)
+        self._path = str(path) if path is not None else None
 
     def _reset_state(self) -> None:
         self._capacity = 0
@@ -204,6 +229,11 @@ class Index:
         self._count = 0
         self._ivf = None  # ivf.IVFPartitions, built by `optimize`
         self._ivf_dirty = True
+        self._viewed = False  # `view`: the index refuses changes
+
+    def _refuse_if_viewed(self, what: str) -> None:
+        if self._viewed:
+            raise RuntimeError(f"Can't {what} an immutable viewed index")
 
     # ------------------------------------------------------------------
     # Introspection
@@ -263,6 +293,31 @@ class Index:
         self._expansion_search = int(v)
 
     @property
+    def numpy_dtype(self):
+        """The numpy dtype of the stored rows (uint8 packed bytes for b1);
+        None for bf16, which numpy lacks."""
+        return _NUMPY_DTYPES.get(self._dtype, np.uint8 if self._dtype == ScalarKind.B1 else None)
+
+    @property
+    def jit(self) -> bool:
+        return False  # eager torch ops and prebuilt CUDA kernels: nothing is traced or compiled per call
+
+    @property
+    def hardware_acceleration(self) -> str:
+        """The device the index lives on: the card's name, or "cpu"."""
+        if self._device.type == "cuda":
+            return torch.cuda.get_device_name(self._device)
+        return "cpu"
+
+    @property
+    def max_level(self) -> int:
+        return 0
+
+    @property
+    def nlevels(self) -> int:
+        return 1
+
+    @property
     def memory_usage(self) -> int:
         """Device bytes of the table, stats and mask, plus the host keys."""
         if self._capacity == 0:
@@ -273,6 +328,48 @@ class Index:
     @property
     def keys(self) -> "IndexedKeys":
         return IndexedKeys(self)
+
+    @property
+    def vectors(self) -> np.ndarray:
+        """The live rows decoded to f32, in slot order."""
+        keys = self._live_keys()
+        if len(keys) == 0:
+            return np.zeros((0, self._ndim), dtype=np.float32)
+        got = self.get(keys)
+        if isinstance(got, np.ndarray) and got.ndim == 2:
+            return got
+        return np.vstack([g for g in (got if isinstance(got, (list, tuple)) else [got])])
+
+    @property
+    def specs(self) -> Dict[str, Any]:
+        return {
+            "Class": "usearch_torch.Index",
+            "Connectivity": self._connectivity,
+            "Dimensions": self._ndim,
+            "Expansion@Add": self._expansion_add,
+            "Expansion@Search": self._expansion_search,
+            "Loaded": self._path,
+            "Size": self.size,
+            "JIT": self.jit,
+            "Hardware": self.hardware_acceleration,
+            "DataType": self._dtype.value,
+            "MetricKind": self._metric_kind.value,
+            "Multi": self._multi,
+        }
+
+    def stats_object(self) -> IndexStats:
+        return IndexStats(nodes=self._count, edges=0, max_edges=0, allocated_bytes=self.memory_usage)
+
+    @property
+    def stats(self) -> IndexStats:
+        return self.stats_object()
+
+    @property
+    def levels_stats(self) -> List[IndexStats]:
+        return [self.stats_object()]
+
+    def level_stats(self, level: int) -> IndexStats:
+        return self.stats_object() if level == 0 else IndexStats(0, 0, 0, 0)
 
     def _live_slots(self) -> np.ndarray:
         if self._next_slot == 0:
@@ -367,6 +464,7 @@ class Index:
         """Add rows under ``keys`` (None: consecutive keys after the largest).
         ``vectors`` is a numpy batch (cast on the host) or a tensor (moved to
         the index's device and cast there)."""
+        self._refuse_if_viewed("add to")
         dev_rows, kind = self._device_rows(vectors)
         if dev_rows is None:
             single = np.ndim(vectors) == 1
@@ -494,6 +592,7 @@ class Index:
     @_mutates
     def remove(self, keys, *, compact: bool = False, threads: int = 0):
         """Unlink keys; their slots are reused by later adds."""
+        self._refuse_if_viewed("remove from")
         single = np.isscalar(keys)
         keys_np = np.atleast_1d(np.asarray(keys, dtype=np.uint64))
         counts = np.zeros(len(keys_np), dtype=np.uint64)
@@ -519,6 +618,7 @@ class Index:
     @_mutates
     def rename(self, from_: int, to: int) -> bool:
         """Move a key's rows to another key (a host-side keymap move)."""
+        self._refuse_if_viewed("rename in")
         slots = self._keymap.pop(int(from_))
         if not slots:
             return False
@@ -532,6 +632,7 @@ class Index:
     @_mutates
     def compact(self) -> int:
         """Pack live rows to the front of the table; returns the live count."""
+        self._refuse_if_viewed("compact")
         live = self._live_slots()
         count = len(live)
         if count < self._next_slot:
@@ -745,6 +846,117 @@ class Index:
         self._ivf = build(self, n_partitions, spill=spill)
         self._ivf_dirty = False
 
+    @_reads
+    def pairwise_distance(self, left, right) -> Union[np.ndarray, float]:
+        """Distances between the rows of keys ``left[i]`` and ``right[i]``
+        (each key's first row under ``multi``)."""
+        single = np.isscalar(left)
+        left_np = np.atleast_1d(np.asarray(left, dtype=np.uint64))
+        right_np = np.atleast_1d(np.asarray(right, dtype=np.uint64))
+        slots = [[self._keymap.slots_of(k)[0] for k in side.tolist()] for side in (left_np, right_np)]
+        rows_l, rows_r = (self._table[torch.as_tensor(sl, dtype=torch.long, device=self._device)] for sl in slots)
+        d = pair_dists(self._metric_kind, self._dtype, rows_l, rows_r, self._ndim).cpu().numpy()
+        return float(d[0]) if single else d
+
+    def distance_between(self, left, right):
+        return self.pairwise_distance(left, right)
+
+    # ------------------------------------------------------------------
+    # Persistence (persist.py)
+    # ------------------------------------------------------------------
+
+    @property
+    def serialized_length(self) -> int:
+        """The exact byte length of `save`'s buffer."""
+        from .persist import serialized_length
+
+        return serialized_length(self)
+
+    def _logical_row_bytes(self) -> int:
+        if self._dtype == ScalarKind.B1:
+            return (self._ndim + 7) // 8
+        return self._ndim * self._torch_dtype.itemsize
+
+    @_reads
+    def save(self, path_or_buffer=None, progress=None, format: str = "native"):
+        """Write the index: ``format="native"`` in the JAX package's file
+        format (both packages read it), ``"reference"`` as an upstream
+        `.usearch` file (rows, keys and a flat graph). Without a path (and
+        no path of its own) it returns the bytes."""
+        from .persist import save_index, save_index_to_buffer, save_reference_index
+
+        if format == "reference":
+            return save_reference_index(self, path_or_buffer)
+        if format != "native":
+            raise ValueError(f"unknown save format {format!r}")
+        if path_or_buffer is None:
+            path_or_buffer = self._path
+        if path_or_buffer is None:
+            return save_index_to_buffer(self)
+        if isinstance(path_or_buffer, (bytes, bytearray, memoryview)):
+            raise ValueError("save to an existing buffer isn't supported; pass a path or None")
+        save_index(self, str(path_or_buffer))
+        self._path = str(path_or_buffer)
+
+    @_mutates
+    def load(self, path_or_buffer=None, progress=None):
+        """Replace the index by a file's or buffer's (native or upstream
+        format), with its built IVF where the file holds one."""
+        from .persist import load_index_from_buffer, load_index_into
+
+        if path_or_buffer is None:
+            path_or_buffer = self._path
+        if isinstance(path_or_buffer, (bytes, bytearray, memoryview)):
+            load_index_from_buffer(self, path_or_buffer)
+        else:
+            load_index_into(self, str(path_or_buffer), view=False)
+            self._path = str(path_or_buffer)
+
+    @_mutates
+    def view(self, path_or_buffer=None, progress=None, stream: Optional[bool] = None):
+        """`load` from a memory map of the file, and refuse changes after.
+        The rows go to the device whole: ``stream=True``, or ``stream=None``
+        with a table above 60% of the device's memory, raises (streamed
+        views are not ported yet)."""
+        from .persist import load_index_from_buffer, load_index_into
+
+        if path_or_buffer is None:
+            path_or_buffer = self._path
+        if isinstance(path_or_buffer, (bytes, bytearray, memoryview)):
+            if stream:
+                raise ValueError("streamed view needs a file path (mmap), not a buffer")
+            load_index_from_buffer(self, path_or_buffer)
+        else:
+            load_index_into(self, str(path_or_buffer), view=True, stream=stream)
+            self._path = str(path_or_buffer)
+        self._viewed = True
+
+    @staticmethod
+    def metadata(path_or_buffer) -> Optional[dict]:
+        """A file's or buffer's configuration, read without its rows; None
+        when it is not an index."""
+        from .persist import index_metadata
+
+        try:
+            return index_metadata(path_or_buffer)
+        except (OSError, ValueError, KeyError, TypeError, struct.error):  # not an index, or cut short
+            return None
+
+    @staticmethod
+    def restore(path_or_buffer, view: bool = False, stream: Optional[bool] = None, **kwargs) -> Optional["Index"]:
+        """A new index from a file or buffer (``kwargs`` go to `Index`,
+        ``device`` among them); None when it is not an index."""
+        meta = Index.metadata(path_or_buffer)
+        if not meta:
+            return None
+        index = Index(ndim=meta["dimensions"], metric=meta["metric"], dtype=meta["dtype"], multi=meta["multi"],
+                      **kwargs)
+        if view:
+            index.view(path_or_buffer, stream=stream)
+        else:
+            index.load(path_or_buffer)
+        return index
+
     # ------------------------------------------------------------------
     # Later slices
     # ------------------------------------------------------------------
@@ -752,25 +964,6 @@ class Index:
     search_async = _todo("A.8")
     cluster = _todo("A.9")
     join = _todo("A.9")
-    save = _todo("A.6")
-    load = _todo("A.6")
-    view = _todo("A.6")
-    restore = staticmethod(_todo("A.6"))
-    metadata = staticmethod(_todo("A.6"))
-    serialized_length = property(_todo("A.6"))
-    pairwise_distance = _todo("A.3c")
-    distance_between = _todo("A.3c")
-    stats_object = _todo("A.3c")
-    level_stats = _todo("A.3c")
-    levels_stats = property(_todo("A.3c"))
-    specs = property(_todo("A.3c"))
-    stats = property(_todo("A.3c"))
-    vectors = property(_todo("A.3c"))
-    max_level = property(_todo("A.3c"))
-    nlevels = property(_todo("A.3c"))
-    hardware_acceleration = property(_todo("A.3c"))
-    jit = property(_todo("A.3c"))
-    numpy_dtype = property(_todo("A.3c"))
 
 
 class IndexedKeys:

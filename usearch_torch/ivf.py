@@ -64,7 +64,7 @@ import torch
 
 from .enums import MetricKind, MetricKindBitwise, ScalarKind
 from .keymap import KeyMap
-from .kmeans import assign_flat, kmeans_fit
+from .kmeans import assign_flat, kmeans_fit, kmeans_hierarchical
 from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, binary_dists, row_stats, tile_dists
 from .ops.packbits import bit_dot, unpack_bits
 from .ops.probe import (LANES, MAX_BIN_M, MAX_BINNED_WIDTH, binned_probe, grouped_probe, grouped_probe_nofold,
@@ -90,7 +90,8 @@ PROBE_QCHUNK = 16384
 COARSE_QCHUNK = 2048
 #: partition chunks are split at this many rows
 CHUNK_CAP = 4096
-#: the most partitions the flat k-means fit serves
+#: the most partitions the flat k-means fit serves; more take the two-level
+#: fit (`kmeans_hierarchical`). Read at each build.
 MAX_PARTITIONS = 4096
 
 #: the dense probe's flavour, read at each search: "group", "nofold",
@@ -563,17 +564,21 @@ class IVFPartitions:
         if n_partitions is None:
             n_partitions = max(1, int(math.sqrt(n)))
         n_partitions = min(n_partitions, n)
-        if n_partitions > MAX_PARTITIONS:
-            raise NotImplementedError(
-                f"{n_partitions} partitions need the two-level k-means, which is not ported yet "
-                "(ROADMAP queue A.4b)")
         dev = index._device
         rows = index._table[torch.as_tensor(live, device=dev)]
         if index._dtype == ScalarKind.B1:
             # the unpacked {0, 1} bits as i8: hamming is l2sq there
             rows = unpack_bits(rows)
         km_metric = _centroid_metric(index._metric_kind)
-        assigns, _, centroids = kmeans_fit(rows, n_partitions, metric=km_metric, max_iterations=25, seed=0)
+        # past MAX_PARTITIONS the flat fit (N k D a step) gives way to the
+        # two-level one; with spill, the top-2 sweep below assigns to the
+        # nearest centroid too, so the fit skips its own flat pass
+        skipped_flat = n_partitions > MAX_PARTITIONS and spill > 0
+        if n_partitions > MAX_PARTITIONS:
+            assigns, _, centroids = kmeans_hierarchical(rows, n_partitions, metric=km_metric, max_iterations=25,
+                                                        seed=0, return_dists=False, flat_assign=not skipped_flat)
+        else:
+            assigns, _, centroids = kmeans_fit(rows, n_partitions, metric=km_metric, max_iterations=25, seed=0)
         c = centroids.shape[0]
 
         spill_lists = [None] * c
@@ -582,7 +587,9 @@ class IVFPartitions:
             n_pad = -(-n // pt) * pt
             rows_p = torch.cat([rows, rows[:1].expand(n_pad - n, -1)]) if n_pad > n else rows
             ct = min(16384, 1 << (c - 1).bit_length())
-            _, d1, a2, d2 = assign_flat(km_metric, rows_p, torch.as_tensor(centroids, device=dev), pt, ct, True)
+            a1, d1, a2, d2 = assign_flat(km_metric, rows_p, torch.as_tensor(centroids, device=dev), pt, ct, True)
+            if skipped_flat:
+                assigns = a1[:n].cpu().numpy().astype(np.int64)
             a2 = a2[:n].cpu().numpy()
             margin = d2[:n].cpu().numpy().astype(np.float64) - d1[:n].cpu().numpy().astype(np.float64)
             ok = (a2 >= 0) & (a2 < c) & (margin < 1e37)

@@ -1,7 +1,10 @@
-"""Key -> slot multimap, in plain Python.
+"""Key -> slot multimap.
 
-Counterpart of `usearch_tpu/keymap.py` without its native C++ store: u64
-keys map to one table slot, or to several when ``multi``.
+Counterpart of `usearch_tpu/keymap.py`: u64 keys map to one table slot, or
+to several when ``multi``. `KeyMap` gives the C++ map of native/keymap.cc,
+built with g++ at first use; where it cannot be built or loaded, the plain
+Python map `_PyKeyMap`, which the tests also hold the native one against.
+``keymap.NATIVE`` says which route loaded (reading it builds the library).
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ from typing import Dict, List
 import numpy as np
 
 
-class KeyMap:
+class _PyKeyMap:
+    """The plain map: a dict of slot lists."""
+
     def __init__(self, multi: bool = False):
         self.multi = multi
         self._map: Dict[int, List[int]] = {}
@@ -60,8 +65,36 @@ class KeyMap:
     def max_key(self) -> int:
         return max(self._map) if self._map else -1
 
-    def copy(self) -> "KeyMap":
-        other = KeyMap(self.multi)
+    def keys_array(self) -> np.ndarray:
+        """The live keys, each once, in insertion order."""
+        return np.fromiter(self._map, dtype=np.uint64, count=len(self._map))
+
+    def copy(self) -> "_PyKeyMap":
+        other = _PyKeyMap(self.multi)
         other._map = {k: list(v) for k, v in self._map.items()}
         other._size = self._size
         return other
+
+
+def _native():
+    """The native map's class, or None when its library does not build or
+    load (no g++): the Python map serves then, as in the JAX package."""
+    from .native import BuildError, keymap_native
+
+    try:
+        keymap_native.lib()
+    except BuildError:
+        return None
+    return keymap_native.NativeKeyMap
+
+
+def KeyMap(multi: bool = False):
+    """A new key map: the native one where it loads, else the Python one."""
+    native = _native()
+    return native(multi) if native is not None else _PyKeyMap(multi)
+
+
+def __getattr__(name: str):
+    if name == "NATIVE":
+        return _native() is not None
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,8 +10,13 @@ Counterpart of `usearch_tpu/ops/casts.py`, with the same semantics:
   already packed (the b1x8 convention);
 - b1 to anything: set bits to 1, clear bits to 0, then as from f32.
 
-One torch function serves host batches (a CPU tensor) and rows already on
-the card, so both ingest paths quantize alike.
+`cast_rows` serves rows on any device. Host batches (`cast_vectors`) take
+the C++ casts of native/casts.cc where they load, as the JAX package's host
+path does (bit for bit the same), for f32 to i8, i8 to f32 and the b1
+packing; else `cast_rows` on a CPU tensor. ``casts.NATIVE`` says which
+route loaded (reading it builds the library). The two routes may differ by
+one i8 step in a few entries per ten million: the native cast sums the
+norm in f64, `_i8_quantize` in f32 and takes its root in f64.
 """
 
 from __future__ import annotations
@@ -74,7 +79,36 @@ def cast_rows(x: torch.Tensor, from_kind: ScalarKind, to_kind: ScalarKind,
     return decoded.to(to_torch_dtype(to_kind))
 
 
+def _native():
+    """The native casts' module, or None when their library does not build
+    or load (no g++)."""
+    from ..native import BuildError, casts_native
+
+    try:
+        casts_native.lib()
+    except BuildError:
+        return None
+    return casts_native
+
+
 def cast_vectors(values, from_kind: ScalarKind, to_kind: ScalarKind, ndim: Optional[int] = None) -> torch.Tensor:
-    """Cast a host ``[*, ndim]`` batch (packed bytes for b1); the result is
+    """Cast a host ``[B, ndim]`` batch (packed bytes for b1); the result is
     a CPU tensor."""
-    return cast_rows(as_tensor(values), from_kind, to_kind, ndim)
+    native = None if from_kind in (to_kind, ScalarKind.B1) else _native()
+    if native is None:
+        return cast_rows(as_tensor(values), from_kind, to_kind, ndim)
+    if from_kind == ScalarKind.I8:
+        decoded = native.cast_i8_to_f32(values)
+    else:  # no copy for f32 input
+        decoded = cast_rows(as_tensor(values), from_kind, ScalarKind.F32).numpy()
+    if to_kind == ScalarKind.I8:
+        return torch.from_numpy(native.cast_f32_to_i8(decoded))
+    if to_kind == ScalarKind.B1:
+        return torch.from_numpy(native.pack_bits_f32(decoded, (decoded.shape[-1] + 7) // 8))
+    return torch.from_numpy(decoded).to(to_torch_dtype(to_kind))
+
+
+def __getattr__(name: str):
+    if name == "NATIVE":
+        return _native() is not None
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

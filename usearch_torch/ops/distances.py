@@ -109,18 +109,38 @@ def binary_dists(metric, dots, pop_q, pop_t) -> torch.Tensor:
     raise ValueError(f"expected hamming/tanimoto/sorensen, got {metric}")
 
 
-def dot_metric_dists(metric, dots, q_stats, t_stats, ndim: int) -> torch.Tensor:
-    """Raw dots ``[Q, T]`` to distances for ip/cos/l2sq/pearson, and for
-    the binary metrics from and-counts and popcount stats."""
-    dots = dots.float()
-    q_sq, t_sq = q_stats[:, 0, None], t_stats[None, :, 0]
+def _metric_dists(metric, dots, q_sq, q_sum, t_sq, t_sum, ndim: int) -> torch.Tensor:
+    """Distances from f32 dots and stats that broadcast against them."""
     if metric == MetricKind.Pearson:
-        return _pearson(dots, q_sq, q_stats[:, 1, None], t_sq, t_stats[None, :, 1], ndim)
+        return _pearson(dots, q_sq, q_sum, t_sq, t_sum, ndim)
     if metric in MetricKindBitwise:
         return binary_dists(metric, dots, q_sq, t_sq)
     if metric not in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq):
         raise NotImplementedError(f"{metric.value} is not ported yet (ROADMAP queue A.7b)")
     return dists_from_dots(metric, dots, q_sq, t_sq)
+
+
+def dot_metric_dists(metric, dots, q_stats, t_stats, ndim: int) -> torch.Tensor:
+    """Raw dots ``[Q, T]`` to distances for ip/cos/l2sq/pearson, and for
+    the binary metrics from and-counts and popcount stats."""
+    return _metric_dists(metric, dots.float(), q_stats[:, 0, None], q_stats[:, 1, None], t_stats[None, :, 0],
+                         t_stats[None, :, 1], ndim)
+
+
+def pair_dists(metric, kind, a: torch.Tensor, b: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Row-wise distances of stored rows, ``a[i]`` against ``b[i]``: ``[N]``
+    f32 (i8 dots summed exactly in i32, as the JAX package's
+    `pair_dists`)."""
+    if not is_ported(metric, kind):
+        raise NotImplementedError(f"{metric.value}/{kind.value} is not ported yet (ROADMAP queue A.7b)")
+    if kind == ScalarKind.B1:
+        dots = bit_dot(a[:, None, :], b[:, None, :])[:, 0, 0]
+    elif kind == ScalarKind.I8:
+        dots = (a.to(torch.int32) * b.to(torch.int32)).sum(dim=-1).float()
+    else:
+        dots = (a.float() * b.float()).sum(dim=-1)
+    sa, sb = row_stats(a, kind), row_stats(b, kind)
+    return _metric_dists(metric, dots, sa[:, 0], sa[:, 1], sb[:, 0], sb[:, 1], ndim)
 
 
 def scan_epilogue(metric, dots, q_sq, t_sq, penalty, shifted: bool = False) -> torch.Tensor:
