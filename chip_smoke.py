@@ -147,7 +147,8 @@ Phases, each fatal on failure:
    alone (the product taken out) timed beside it; B12 (selection loop) in
    its eight variants at three shapes, the last the script's, bit for bit
    (the two f32 sums of group minima within 1e-6 relative), its time per
-   pass (a 1-pass launch's time taken out) at 200 and 400 passes within 10%;
+   pass (a 1-pass launch's time taken out) at 200 and 400 passes within 10%,
+   beside the grid's blocks and the bound a pass;
    B13 (probe-select bisection on `wgmma`) in its five variants, and from 0
    as well as from MASKED, on a 64-partition table, at BISECT_EDGES (a half
    last tile, rows of 384 and 640 bytes, planted equal dots, windows outside
@@ -337,7 +338,12 @@ BISECT_EDGES = dict(w_pads=(1408, 1344), widths=(128, 384, 640), offsets=(1, 2, 
 SELECT_RTOL = 1e-6
 SELECT_F32_SUMS = ("f32_min32", "f32_minarg32")
 #: B12: (rows a pass needs, 32-bit operations an element) by variant, for
-#: the bound: add i; convert; min or compare-and-select; negate, shift, or
+#: the bound: add i; convert; min or compare-and-select; negate, shift, or;
+#: counted at PEAK_OPS["f32"], two a lane and clock of the FMA pipe. On
+#: compute capability 9.0 these issue slower (CUDA C++ Programming Guide,
+#: results a clock and SM): 64 for 32-bit integer add, shift, bitwise,
+#: compare, min and max, a quarter of that rate; 16 for int-to-f32, a
+#: sixteenth (csrc/select.cu's note)
 SELECT_OPS = {"astype_only": (lambda w: 8, 3), "i32_min128": (lambda w: w, 2), "i32_min32": (lambda w: w, 2),
               "f32_min32": (lambda w: w, 3), "pack_only": (lambda w: w // 32, 4), "pack_min32": (lambda w: w, 5),
               "f32_minarg128": (lambda w: w, 4), "f32_minarg32": (lambda w: w, 4)}
@@ -2390,9 +2396,11 @@ def select_rows(dev, launches: int) -> list:
     """Phase 5, B12: every variant at SELECT_CHECK's shapes (the last the
     script's), against the plain version; timed at IT and 2 IT passes,
     whose times per pass must agree within PASS_STEADY (no pass is dropped
-    or merged), beside the bound of the IT-pass call. A call's time holds
-    the wrapper's zero fill of the output; the time a pass takes it out. No
-    one PyTorch call computes a selection loop."""
+    or merged), beside the bound of the IT-pass call, that bound a pass and
+    the grid's blocks (G/32 column groups times the pass groups: enough to
+    fill the card, 1 and 8 for astype_only and pack_only). A call's time
+    holds the wrapper's zero fill of the output; the time a pass takes it
+    out. No one PyTorch call computes a selection loop."""
     w, g, it = select_microbench.W, select_microbench.G, select_microbench.IT
     rows = []
     for variant in microbench.SELECT_VARIANTS:
@@ -2409,16 +2417,21 @@ def select_rows(dev, launches: int) -> list:
         rows_of, per_element = SELECT_OPS[variant]
         ops = float(it) * rows_of(w) * g * per_element
         b_ms, b_by = bound_ms(ops, PEAK_OPS["f32"], (w + 8) * g * 4)
-        log(f"  select_loop {variant} W={w} G={g}: {ms:.4f} ms for {it} passes with the wrapper's zero fill of the "
-            f"output ({ms / it * 1e3:.3f} us/pass as the script counts), one pass {per_pass * 1e3:.4f} us at {it} and {per_pass2 * 1e3:.4f} us at {2 * it} "
-            f"({steady:.1%} apart; a 1-pass launch {ms1 * 1e3:.2f} us), bound {b_ms:.5f} ms ({b_by}), plain "
-            f"{plain_ms:.1f} ms, library none, launches on its path {launches}, max abs err {err:.3g}")
+        blocks, bound_pass = microbench.select_blocks(g, variant, dev), b_ms / it
+        log(f"  select_loop {variant} W={w} G={g}: {blocks} blocks, {ms:.4f} ms for {it} passes with the wrapper's "
+            f"zero fill of the output ({ms / it * 1e3:.3f} us/pass as the script counts), one pass "
+            f"{per_pass * 1e3:.4f} us at {it} and {per_pass2 * 1e3:.4f} us at {2 * it} ({steady:.1%} apart; a 1-pass "
+            f"launch {ms1 * 1e3:.2f} us) against a bound of {bound_pass * 1e3:.5f} us a pass ({b_by}; "
+            f"{per_pass / bound_pass:.2f}x), bound {b_ms:.5f} ms for the {it}-pass launch, plain {plain_ms:.1f} ms, "
+            f"library none, launches on its path {launches}, max abs err {err:.3g}")
         if not per_pass > 0 or steady > PASS_STEADY:
             fail(f"B12 {variant}: the time per pass at {it} and {2 * it} passes is {steady:.1%} apart")
         rows.append(dict(name=f"select_loop[{variant}]", route="cuda", source=MICRO["select_microbench"][2],
                          replaces=MICRO["select_microbench"][3], launches=launches, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         us_per_pass=per_pass * 1e3, ms_holds="the wrapper's zero fill of the [8, G] output"))
+                         us_per_pass=per_pass * 1e3, bound_us_per_pass=bound_pass * 1e3,
+                         per_pass_over_bound=per_pass / bound_pass, blocks=blocks,
+                         ms_holds="the wrapper's zero fill of the [8, G] output"))
     return rows
 
 

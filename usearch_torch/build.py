@@ -62,6 +62,7 @@ SIGNATURES = {
     },
     "select": {
         "usearch_select_loop": [_P] * 2 + [_I] * 4 + [_P],
+        "usearch_select_blocks": [_I, _I, _P],
     },
     "bisect": {
         "usearch_bisect_probe": [_P] * 5 + [_I] * 7 + [_F, _P],

@@ -275,6 +275,22 @@ def select_loop(x: torch.Tensor, variant: str, iters: int) -> torch.Tensor:
 select_loop.launches = 0
 
 
+def select_blocks(g: int, variant: str, device) -> int:
+    """Blocks of B12's grid for ``G = g`` columns and ``variant`` on the
+    CUDA ``device`` (csrc/select.cu `usearch_select_blocks`): the G/32
+    column groups times the pass groups, enough to fill the card's SMs, but
+    1 for astype_only and 8 for pack_only, which read a few rows a pass."""
+    from .. import build
+
+    if g <= 0 or g % SELECT_COLS or variant not in SELECT_VARIANTS:
+        raise ValueError(f"G must be a positive multiple of {SELECT_COLS} and the variant one of "
+                         f"{tuple(SELECT_VARIANTS)}, got {g} and {variant!r}")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _launch(build.load("select").usearch_select_blocks, g, SELECT_VARIANTS[variant], ctypes.byref(blocks))
+    return blocks.value
+
+
 # ---------------------------------------------------------------------------
 # B13
 # ---------------------------------------------------------------------------
