@@ -120,8 +120,25 @@ Phases, each fatal on failure:
    (the compaction moves rows across B3's 128-row bins); (d) the IVF path's
    spilled index (after its removals and fresh adds) saved and restored
    without its shadow rows: recall@1 >= 0.99 over its live member queries,
-   no removed key returned, every fresh row found; (e) `view(stream=True)`
-   refused naming ROADMAP A.8, and the files deleted;
+   no removed key returned, every fresh row found; the files deleted.
+   Serving, each step fatal and timed: (e) a streamed view at a real size
+   (STREAMED): 2**23 unit rows in an i8 ip index (2 GiB), saved and
+   `Index.restore(path, view=True, stream=True)`, 1,024 member queries at
+   k=10 equal to the resident `search(exact=True)` apart from ties, through
+   B2 once a tile (64) and no other kernel, a filter (even keys) against the
+   resident filtered search, `get` from the map, `add`/`remove` refused,
+   the search's time beside the host copy of the rows out of the map into
+   pinned memory and a pinned upload of the same bytes, a streamed
+   `search_async`'s dispatch time beside its result's and its host syncs,
+   and bench.py's streamed shape (2**18 rows) with its QPS; (f)
+   `search_async` on the IVF path's i8 index: 8 batches of 1,024 member
+   queries in flight, each equal bit for bit to the synchronous search, an
+   add on another thread within 10 s, the host syncs inside one dispatch
+   (`torch.cuda.set_sync_debug_mode`), a filtered one's too; (g) a `BinaryIndexServer` on that
+   index and a `BinaryIndexClient` pipelining 4,096 single-query requests,
+   each response equal to the one-batch search, QPS and the mean coalesced
+   batch printed; then `IndexServer`/`IndexClient` over HTTP (info, add,
+   search, get, remove, contains); every socket with a 10 s timeout;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
@@ -175,7 +192,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -184,6 +204,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from usearch_torch import Index, build, ivf, keymap, persist
+from usearch_torch.client import IndexClient
+from usearch_torch.rpc import BinaryIndexClient, BinaryIndexServer
+from usearch_torch.server import IndexServer
 from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
@@ -270,6 +293,15 @@ F32_REMOVED = 0.01
 #: saved and restored, then 1% of the keys removed and 4,096 rows added
 LIFECYCLE = dict(n=1 << 20, w=256, q=16384, k=10, partitions=8192, expansion=1024, gt_q=2048, removed=0.01,
                  fresh=4096)
+#: phase 3 (e): a streamed view of 2**23 unit rows x 256 i8 (2 GiB of rows,
+#: 64 tiles of stream.DEFAULT_TILE_ROWS), 1,024 member queries at k=10; and
+#: bench.py's streamed shape (bench.py:225-253: 2**18 rows, 1,024 queries)
+STREAMED = dict(n=1 << 23, w=256, q=1024, k=10, tiles=64, bench_n=1 << 18)
+#: phase 3 (f): batches of member queries in flight at once on the IVF path's
+#: index; phase 3 (g): single-query requests over the binary RPC; every
+#: socket's and wait's timeout, s
+ASYNC = dict(batches=8, q=1024, rounds=3)
+SERVING = dict(requests=4096, timeout=10.0)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -1731,8 +1763,7 @@ def drive_lifecycle(dev, ivf_run: dict, card: str) -> dict:
     IVF and no fit, searching bit for bit as the saved index does; then 1%
     of the keys removed and 4,096 rows added on a restored index, saved and
     restored again; (d) the spilled IVF path's index through a save and
-    restore (its shadows stay behind); (e) the streamed view refused, and
-    the files deleted."""
+    restore (its shadows stay behind); the files deleted."""
     spec = LIFECYCLE
     n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
@@ -1841,21 +1872,307 @@ def drive_lifecycle(dev, ivf_run: dict, card: str) -> dict:
             f"rows found")
         if back._ivf is None or back._ivf.shadow_np_pos.size or s_recall1 < 0.99 or s_hits or s_found < 1.0:
             fail("the spilled index's round trip")
-
-        try:
-            Index.restore(path, view=True, stream=True, device=dev)
-        except NotImplementedError as e:
-            if "ROADMAP queue A.8)" not in str(e):
-                fail(f"the streamed view raised without naming A.8: {e}")
-            log(f"  (e) view(stream=True) refused: {e}")
-        else:
-            fail("view(stream=True) loaded the table whole")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"  the files deleted: {not tmp.exists()}")
     return dict(index=index, queries=queries, recall1=recall1, recall10=recall10, qps=nq / search_s, nprobe=nprobe,
                 add=add, build=build_split, launches=launches, probe_args=args, save_s=save_s, loads=loads,
                 file_gb=size / 1e9)
+
+
+def ties_aside(got, want) -> bool:
+    """Distances and counts equal bit for bit (exact i8 dots); keys equal
+    except where the distance there ties another in the row, or the k-th
+    (which may tie a row left out)."""
+    if not (np.array_equal(got.distances, want.distances) and np.array_equal(got.counts, want.counts)):
+        return False
+    d = want.distances
+    return all(np.sum(d[r] == d[r, c]) > 1 or d[r, c] == d[r, -1] for r, c in zip(*np.nonzero(got.keys != want.keys)))
+
+
+def drive_streamed(dev, card: str):
+    """Phase 3 (e), the streamed view at a real size (STREAMED): 2**23 unit
+    rows in an i8 ip index on the card, saved, and `Index.restore(path,
+    view=True, stream=True)`; 1,024 member queries at k=10 equal to the
+    resident `search(exact=True)` apart from ties, through B2 once a tile
+    and no other kernel (counters zeroed just before, read just after); a
+    filter (even keys) against the resident filtered search; `get` from the
+    map, `add` and `remove` refused; the search's time beside the host copy
+    of the rows from the map into pinned memory and a pinned upload of the
+    same bytes; a `search_async`'s dispatch time beside its result's, and
+    the host syncs inside that dispatch; then bench.py's streamed shape. Returns B2's row at a
+    streamed tile's shape."""
+    from usearch_torch import stream
+
+    spec = STREAMED
+    n, w, nq, k = spec["n"], spec["w"], spec["q"], spec["k"]
+    tile = stream.DEFAULT_TILE_ROWS
+    if -(-n // tile) != spec["tiles"]:
+        fail(f"{n} rows make {-(-n // tile)} tiles of {tile}, not {spec['tiles']}")
+    t_step = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    index = Index(ndim=w, metric="ip", dtype="i8", device=dev)
+    index.reserve(n)
+    for lo in range(0, n, 1 << 20):
+        index.add(None, unit_rows(min(1 << 20, n - lo), w, gen, dev))
+    member = torch.randperm(n, generator=gen, device=dev)[:nq]
+    queries = index._table[member]  # each query its own stored row
+    even = lambda keys: keys % 2 == 0  # noqa: E731
+    resident = index.search(queries, k, exact=True)
+    resident_even = index.search(queries, k, exact=True, filter=even)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_streamed_"))
+    try:
+        path = str(tmp / "streamed.usearch")
+        t0 = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t0
+        viewed = Index.restore(path, view=True, stream=True, device=dev)
+        if not viewed._streamed or viewed._table is not None or len(viewed) != n:
+            fail("view(stream=True) did not keep the rows in the file's map")
+        viewed.search(queries[:8], k)  # warm: the pinned staging buffers
+        zero_counters()
+        t0 = time.perf_counter()
+        m = viewed.search(queries, k)
+        search_s = time.perf_counter() - t0
+        launches = counters()
+        if launches["binned_minima"] != spec["tiles"] or any(v for name, v in launches.items()
+                                                             if name != "binned_minima"):
+            fail(f"the streamed search did not launch B2 once a tile and nothing else: {launches}")
+        if not ties_aside(m, resident):
+            fail(f"the streamed search differs from the resident exact search at "
+                 f"{int((m.keys != resident.keys).sum())} places")
+        if not ties_aside(viewed.search(queries, k, filter=even), resident_even):
+            fail("the filtered streamed search differs from the resident filtered search")
+        marks = []
+
+        def dispatch():
+            marks.append(time.perf_counter())
+            pending = viewed.search_async(queries, k)
+            marks.append(time.perf_counter())
+            return pending
+
+        stream_sites, pend = sync_sites(dispatch)
+        if not same_search(pend.result(), m):
+            fail("the streamed search_async result differs from the streamed search")
+        marks.append(time.perf_counter())
+        keys = index._slot_keys[member[:16].cpu().numpy()]
+        if not np.array_equal(viewed.get(keys), index.get(keys)):
+            fail("get on the streamed view differs from the resident index's")
+        for label, change in (("add", lambda: viewed.add(None, queries[:1])), ("remove", lambda: viewed.remove(keys))):
+            try:
+                change()
+            except RuntimeError:
+                continue
+            fail(f"{label} on a streamed view did not raise")
+        nbytes = n * w
+        pinned = torch.empty((tile, w), dtype=torch.int8, pin_memory=True)
+        host = pinned.numpy()
+        t0 = time.perf_counter()
+        for lo in range(0, n, tile):
+            np.copyto(host, viewed._stream_rows[lo : lo + tile])
+        memcpy_s = time.perf_counter() - t0
+        dst = torch.empty((tile, w), dtype=torch.int8, device=dev)
+        upload_ms = time_ms(lambda: [dst.copy_(pinned, non_blocking=True) for _ in range(n // tile)], 2)
+        log(f"  (e) streamed view of {n} x {w} i8 rows ({nbytes / 2**30:.2f} GiB, {spec['tiles']} tiles of {tile}, "
+            f"saved in {save_s:.2f} s): {nq} member queries at k={k} {search_s * 1e3:.1f} ms = "
+            f"{nbytes / search_s / 1e9:.2f} GB/s, {nq / search_s:.0f} QPS; keys and distances as the resident "
+            f"exact search's apart from ties, the even-key filter too; launches {launches}; the host copy of the "
+            f"rows from the map into pinned memory {memcpy_s * 1e3:.1f} ms = {nbytes / memcpy_s / 1e9:.2f} GB/s "
+            f"(the file just written: a warm read), a pinned upload of the same bytes {upload_ms:.1f} ms = "
+            f"{nbytes / upload_ms / 1e6:.2f} GB/s ({card})")
+        log(f"  (e) a streamed search_async: its dispatch {(marks[1] - marks[0]) * 1e3:.1f} ms of "
+            f"{(marks[2] - marks[0]) * 1e3:.1f} ms to its result; host syncs inside the dispatch "
+            f"(`set_sync_debug_mode`, event waits not among them): {len(stream_sites)} {sorted(set(stream_sites))}")
+        profile_search(viewed, queries, k, exact=False, label="streamed")
+        row = kernel_row("binned_minima", "i8 ip streamed tile", "ip", queries.contiguous(), index._table[:tile],
+                         index._stats[:tile], index._valid[:tile], False, launches["binned_minima"], "i8")
+        del viewed, index, pinned, dst
+
+        bn = spec["bench_n"]
+        bx = unit_rows(bn, w, gen, dev)
+        bix = Index(ndim=w, metric="ip", dtype="i8", device=dev)
+        bix.add(None, bx)
+        bpath = str(tmp / "bench_stream.usearch")
+        bix.save(bpath)
+        del bix
+        bv = Index.restore(bpath, view=True, stream=True, device=dev)
+        bv.search(bx[nq : 2 * nq], k)  # warm
+        t0 = time.perf_counter()
+        bm = bv.search(bx[:nq], k)
+        bench_s = time.perf_counter() - t0
+        recall1 = float(np.mean(bm.keys[:, 0] == np.arange(nq)))
+        log(f"  (e) bench.py's streamed shape ({bn} rows, {nq} member queries, k={k}): {bench_s * 1e3:.2f} ms = "
+            f"{nq / bench_s:.1f} QPS, recall@1 {recall1:.4f} ({card})")
+        if not np.all(np.isfinite(bm.distances)) or bm.keys.shape != (nq, k) or recall1 < 0.99:
+            fail(f"bench.py's streamed shape: recall@1 {recall1:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  (e) the files deleted: {not tmp.exists()}; step {time.perf_counter() - t_step:.1f} s")
+    return row
+
+
+def sync_sites(dispatch):
+    """The host syncs ``dispatch()`` makes inside the port
+    (`torch.cuda.set_sync_debug_mode`), each as "file:line" of the innermost
+    line of the port on the stack when it warned (a warning with no line of
+    the port on the stack comes from around the dispatch and is left out);
+    returns them and ``dispatch()``'s result."""
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        ours = [f for f in traceback.extract_stack() if f"{os.sep}usearch_torch{os.sep}" in f.filename]
+        if "synchroniz" in str(message) and ours:
+            sites.append(f"{Path(ours[-1].filename).name}:{ours[-1].lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites, out
+
+
+def finishes_within(fn, seconds: float) -> bool:
+    """``fn`` on another thread returned within ``seconds``."""
+    done = threading.Event()
+
+    def run():
+        fn()
+        done.set()
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    worker.join(seconds)
+    return done.is_set()
+
+
+def drive_async(dev, ivf_run: dict, card: str) -> None:
+    """Phase 3 (f), `search_async` on the IVF path's i8 index: 8 batches of
+    1,024 member queries in flight, then consumed, each equal bit for bit to
+    the synchronous search; an add on another thread then finishes within
+    SERVING's timeout (a leaked read lock fails the run); 8 synchronous
+    searches' time beside 8 async ones (both warm, in turns, ASYNC["rounds"]
+    times), one search's device time (its profile), and the host syncs
+    inside one dispatch, of device and of host queries, and of a filter's
+    first and second dispatch (each equal to the filtered search)."""
+    t_step = time.perf_counter()
+    index, k, nq = ivf_run["index"], IVF["k"], ASYNC["q"]
+    batches = [ivf_run["queries"][i * nq : (i + 1) * nq] for i in range(ASYNC["batches"])]
+    sync = [index.search(b, k) for b in batches]  # warm, and the results to hold
+    [p.result() for p in [index.search_async(b, k) for b in batches]]  # warm: the pinned result buffers
+    times = dict(sync=[], async_=[], dispatch=[])
+    for _ in range(ASYNC["rounds"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [index.search(b, k) for b in batches]
+        times["sync"].append(time.perf_counter() - t0)
+        if not all(same_search(g, s) for g, s in zip(got, sync)):
+            fail("a synchronous search changed between rounds")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pend = [index.search_async(b, k) for b in batches]
+        times["dispatch"].append(time.perf_counter() - t0)
+        got = [p.result() for p in pend]
+        times["async_"].append(time.perf_counter() - t0)
+        if not all(same_search(g, s) for g, s in zip(got, sync)):
+            fail("a search_async result differs from the synchronous search")
+    profile_search(index, batches[0], k, exact=False, label="IVF")
+    sites, pend = sync_sites(lambda: index.search_async(batches[0], k))
+    if not same_search(pend.result(), sync[0]):
+        fail("the counted dispatch's result differs from the synchronous search")
+    host_q = batches[0].cpu().numpy()
+    host_sites, pend = sync_sites(lambda: index.search_async(host_q, k))
+    pend.result()
+    odd = lambda keys: keys % 2 == 1  # noqa: E731
+    filter_sites = []
+    for _ in range(2):  # the filter's first dispatch builds its mask, the second reuses it
+        sites_f, pend = sync_sites(lambda: index.search_async(batches[0], k, filter=odd))
+        if not same_search(pend.result(), index.search(batches[0], k, filter=odd)):
+            fail("a filtered search_async result differs from the filtered search")
+        filter_sites.append(sites_f)
+    added = []
+    rows = unit_rows(8, IVF["w"], torch.Generator(device=dev).manual_seed(SEED + 19), dev)
+    if not finishes_within(lambda: added.extend(index.add(None, rows)), SERVING["timeout"]):
+        fail(f"an add on another thread did not finish within {SERVING['timeout']} s: a read lock leaked")
+    index.remove(np.asarray(added, dtype=np.uint64))
+    log(f"  (f) search_async on the i8 ip IVF: {len(batches)} batches of {nq} member queries in flight, each "
+        f"equal bit for bit to the synchronous search; in {ASYNC['rounds']} rounds, {len(batches)} synchronous searches "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times['sync'])} ms, {len(batches)} async "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times['async_'])} ms (their dispatch "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times['dispatch'])} ms); an add on another thread after them "
+        f"finished; host syncs inside one dispatch of device queries: {len(sites)} {sorted(set(sites))}, of host "
+        f"queries: {len(host_sites)} {sorted(set(host_sites))}, of a filter's first and second dispatch: "
+        f"{len(filter_sites[0])} {sorted(set(filter_sites[0]))} and {len(filter_sites[1])} "
+        f"{sorted(set(filter_sites[1]))}; step {time.perf_counter() - t_step:.1f} s ({card})")
+
+
+def drive_serving(dev, ivf_run: dict, card: str) -> None:
+    """Phase 3 (g), serving the IVF path's i8 index: a `BinaryIndexServer`
+    (127.0.0.1, port 0) and a `BinaryIndexClient` sending 4,096
+    single-query requests through `search_pipelined`, each response equal
+    in keys and distances to `index.search` of the 4,096 as one batch (a
+    result that depends on the batch a query was coalesced into fails);
+    QPS and the mean coalesced batch; then `IndexServer` and `IndexClient`
+    over HTTP: info, add, search, get, remove and contains once each.
+    Every socket has SERVING's timeout; the servers stop in `finally`."""
+    t_step = time.perf_counter()
+    index, k, n, timeout = ivf_run["index"], IVF["k"], SERVING["requests"], SERVING["timeout"]
+    q = ivf_run["queries"][:n].cpu().numpy()
+    want = index.search(q, k)
+    sizes = []
+    real = index.search
+
+    def counted(vectors, *args, **kwargs):
+        sizes.append(len(vectors))
+        return real(vectors, *args, **kwargs)
+
+    srv = BinaryIndexServer(index, "127.0.0.1", 0).start()
+    try:
+        index.search = counted
+        with BinaryIndexClient("127.0.0.1", srv.port, timeout=timeout) as cli:
+            cli.search_pipelined([q[:1]] * 64, count=k)  # warm
+            sizes.clear()
+            t0 = time.perf_counter()
+            res = cli.search_pipelined([q[i : i + 1] for i in range(n)], count=k)
+            rpc_s = time.perf_counter() - t0
+    finally:
+        del index.search
+        srv.stop()
+    keys, dists = np.vstack([r.keys for r in res]), np.vstack([r.distances for r in res])
+    differ = np.any((keys != want.keys) | (dists != want.distances), axis=1)
+    log(f"  (g) binary RPC: {n} single-query requests pipelined at k={k}: {rpc_s * 1e3:.1f} ms = {n / rpc_s:.0f} QPS, "
+        f"{len(sizes)} coalesced searches of {np.mean(sizes):.1f} queries on average (1-{max(sizes)}); "
+        f"{int(differ.sum())} responses differ from the one-batch search ({card})")
+    if differ.any():
+        fail(f"{int(differ.sum())} RPC responses differ from the one-batch search: a result depends on the batch "
+             f"its query was coalesced into")
+
+    hsrv = IndexServer(index, "127.0.0.1", 0).start()
+    try:
+        cli = IndexClient("127.0.0.1", hsrv.port, timeout=timeout)
+        info = cli.info
+        key = int(index._keymap.max_key()) + 1
+        row = unit_rows(1, IVF["w"], torch.Generator(device=dev).manual_seed(SEED + 20), dev).cpu().numpy()
+        added = cli.add(np.array([key]), row)
+        m = cli.search(q[:16], k)
+        ws = index.search(q[:16], k)
+        got = cli.get(np.array([key]))
+        want_row = index.get(key)
+        removed = cli.remove(np.array([key]))
+        contains = cli.contains(np.array([key, int(want.keys[0, 0])]))
+    finally:
+        hsrv.stop()
+    ok = dict(info=info["ndim"] == IVF["w"] and info["metric"] == "ip" and info["dtype"] == "i8",
+              add=added.tolist() == [key], search=same_search(m, ws),
+              get=np.array_equal(np.asarray(got)[0], want_row),
+              remove=removed.tolist() == [1], contains=contains.tolist() == [False, True])
+    log(f"  (g) HTTP: info, add, search, get, remove, contains: {ok}; step {time.perf_counter() - t_step:.1f} s")
+    if not all(ok.values()):
+        fail(f"the HTTP round trip: {ok}")
 
 
 def bit_corpus(n: int, gen, dev, templates: torch.Tensor) -> torch.Tensor:
@@ -2602,6 +2919,10 @@ def main() -> int:
     binary = run_binary_paths(dev)
     log("== phase 3: the index lifecycle, " + card)
     life = drive_lifecycle(dev, ivf_run, card)
+    log("== phase 3: serving, " + card)
+    streamed_row = drive_streamed(dev, card)
+    drive_async(dev, ivf_run, card)
+    drive_serving(dev, ivf_run, card)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -2678,7 +2999,7 @@ def main() -> int:
         b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),
         b3_row(life, label=f"i8 ip IVF {LIFECYCLE['partitions']} partitions"),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
-    rows += [b3_row(f32_ivf, label="f32 cos IVF", peak="tf32x3")]
+    rows += [streamed_row, b3_row(f32_ivf, label="f32 cos IVF", peak="tf32x3")]
     rows += [mode_row(f32_ivf, mode, "f32 cos IVF", "tf32x3") for mode in F32_IVF["modes"]]
     i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands
     rows += [flavour_row(name, head, res["launches"], i8_lib_ms) for name, res in flavours.items()]

@@ -276,7 +276,7 @@ def test_exact_search_entry_point():
 
 def test_unported_surface_raises():
     index = make_index(ndim=8)
-    for call in (lambda: index.join(index), lambda: index.cluster(), lambda: index.search_async(None),
+    for call in (lambda: index.join(index), lambda: index.cluster(),
                  lambda: make_index(ndim=8, dtype="b1"), lambda: make_index(ndim=2, metric="haversine")):
         with pytest.raises(NotImplementedError):
             call()

@@ -341,7 +341,7 @@ def test_fully_live_ip_table_probes_without_the_penalty_row(monkeypatch):
 def test_unported_paths_name_their_roadmap_items():
     index = make_index(ndim=4, metric="l2sq", dtype="f32")
     index.add(None, np.random.default_rng(26).standard_normal((420, 4)).astype(np.float32))
-    for name, item in (("cluster", "A.9"), ("join", "A.9"), ("search_async", "A.8")):
+    for name, item in (("cluster", "A.9"), ("join", "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(index, name)()
 

@@ -190,8 +190,8 @@ def test_inplace_ivf_persists_through_removals():
 
 
 def test_viewed_index_refuses_changes_and_streaming(tmp_path):
-    """A view is immutable; a streamed view is not ported (A.8) and loads
-    nothing."""
+    """A view is immutable, streamed or not; a streamed view keeps its rows
+    in the file's map and serves them."""
     index = Index(ndim=8, metric="l2sq", dtype="f32")
     index.add(np.arange(10), np.random.default_rng(6).random((10, 8)).astype(np.float32))
     p = str(tmp_path / "v.usearch")
@@ -203,11 +203,16 @@ def test_viewed_index_refuses_changes_and_streaming(tmp_path):
         with pytest.raises(RuntimeError, match="immutable viewed index"):
             change()
     other = Index(ndim=8, metric="l2sq", dtype="f32")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A\.8\)"):
-        other.view(p, stream=True)
-    assert len(other) == 0 and not other._viewed
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue A\.8\)"):
-        restore(p, view=True, stream=True)
+    other.view(p, stream=True)
+    assert len(other) == 10 and other._viewed and other._streamed and other._table is None
+    streamed = restore(p, view=True, stream=True)
+    assert streamed._streamed and streamed._table is None
+    q = np.asarray(index.get(np.arange(3)))
+    np.testing.assert_array_equal(streamed.search(q, 1).keys[:, 0], np.arange(3))
+    for change in (lambda: streamed.add(11, np.ones(8, np.float32)), lambda: streamed.remove(1),
+                   lambda: streamed.rename(1, 12), streamed.compact):
+        with pytest.raises(RuntimeError, match="immutable viewed index"):
+            change()
     assert len(usearch_torch.Index(ndim=8, metric="l2sq", dtype="f32", path=p, device="cpu")) == 10
 
 

@@ -22,12 +22,12 @@ from .enums import (
 )
 from .exact import exact_search
 from .index import Index, IndexStats, _todo_class
+from .indexes import Indexes
 # the one-call clustering function; bound after its module is imported, so
 # it hides the module `usearch_torch.kmeans` here, as in the JAX package
 from .kmeans import kmeans
 from .matches import BatchMatches, Key, Match, Matches
 
-Indexes = _todo_class("Indexes", "A.9")
 Clustering = _todo_class("Clustering", "A.9")
 CompiledMetric = _todo_class("CompiledMetric", "A.7b")
 MetricSignature = _todo_class("MetricSignature", "A.7b")

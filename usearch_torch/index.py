@@ -8,6 +8,11 @@ Search pads queries to a power of two. Without an IVF it goes through
 131,072 rows on, exact below that or with ``exact=True``. After
 `optimize`, non-exact searches probe the IVF partitions (ivf.py); rows added
 later join its fresh list, scanned exactly, until the next `optimize`.
+
+`search_async` enqueues a search and returns a `PendingSearch`; its
+``result()`` waits for that search alone. A streamed view (``view(path,
+stream=True)``) keeps its rows in the file's memory map and searches them
+exactly in tiles streamed through the device (stream.py).
 """
 
 from __future__ import annotations
@@ -128,6 +133,72 @@ def _mutates(fn):
     return wrapper
 
 
+class PendingSearch:
+    """A search in flight, from `Index.search_async`.
+
+    It holds the index's read lock, taken at dispatch, until ``result()``
+    has run (on any thread), as the reference's search result holds its
+    thread checkout (index_dense.hpp:550-564). On the card the dispatch
+    enqueued the search and the copies of its distances and slots into
+    pinned host memory, and recorded an event after them: ``result()``
+    waits on that event alone. ``result()`` is idempotent, and a failure
+    stays the result."""
+
+    __slots__ = ("_index", "_d", "_slots", "_ready", "_n_q", "_single", "_radius", "_scanned", "_progress",
+                 "_out", "_error", "_lock_token")
+
+    def __init__(self, index, d, slots, n_q, single, radius, scanned, lock_token=None, progress=None):
+        self._index = index
+        self._ready = None
+        if d is not None:
+            d, slots = d[:n_q], slots[:n_q]
+            if d.device.type == "cuda":
+                stream = torch.cuda.current_stream(d.device)
+                d = torch.empty(d.shape, dtype=d.dtype, pin_memory=True).copy_(d, non_blocking=True)
+                slots = torch.empty(slots.shape, dtype=slots.dtype, pin_memory=True).copy_(slots, non_blocking=True)
+                self._ready = torch.cuda.Event()
+                self._ready.record(stream)
+        self._d, self._slots = d, slots
+        self._n_q, self._single, self._radius, self._scanned = n_q, single, radius, scanned
+        self._progress = progress
+        self._out = None
+        self._error = None
+        self._lock_token = lock_token  # None: no read slot to give back
+
+    def result(self) -> Union["Matches", "BatchMatches"]:
+        if self._out is not None:
+            return self._out
+        if self._error is not None:
+            raise self._error
+        try:
+            if self._ready is not None:
+                self._ready.synchronize()
+            if self._d is None:  # an empty index or count <= 0
+                d, slots = np.zeros((self._n_q, 0), np.float32), np.zeros((self._n_q, 0), np.int64)
+            else:
+                d, slots = self._d.numpy(), self._slots.numpy()
+            self._out = self._index._finish_search(d, slots, self._n_q, self._single, self._radius, self._scanned,
+                                                   self._progress)
+            self._d = self._slots = None
+        except BaseException as e:
+            self._error = e
+            raise
+        finally:
+            self._release()
+        return self._out
+
+    def _release(self) -> None:
+        token, self._lock_token = self._lock_token, None
+        if token is not None:
+            self._index._rwlock.release_read(token)
+
+    def __del__(self):  # an abandoned handle gives its read slot back
+        try:
+            self._release()
+        except Exception:
+            pass
+
+
 def _todo(item: str):
     """A name of the JAX package not ported yet: calling it raises naming
     its ROADMAP item (kept on it as ``roadmap``)."""
@@ -230,6 +301,8 @@ class Index:
         self._ivf = None  # ivf.IVFPartitions, built by `optimize`
         self._ivf_dirty = True
         self._viewed = False  # `view`: the index refuses changes
+        self._streamed = False  # a streamed view: the rows stay in the file's map
+        self._stream_rows = None  # [count, columns] stored rows of a streamed view (the map)
 
     def _refuse_if_viewed(self, what: str) -> None:
         if self._viewed:
@@ -319,9 +392,10 @@ class Index:
 
     @property
     def memory_usage(self) -> int:
-        """Device bytes of the table, stats and mask, plus the host keys."""
-        if self._capacity == 0:
-            return 0
+        """Device bytes of the table, stats and mask, plus the host keys
+        (a streamed view's rows are the file's)."""
+        if self._table is None:
+            return self._slot_keys.nbytes if self._streamed else 0
         row = self._width * self._table.element_size() + 8 + 1
         return self._capacity * row + self._slot_keys.nbytes
 
@@ -372,6 +446,8 @@ class Index:
         return self.stats_object() if level == 0 else IndexStats(0, 0, 0, 0)
 
     def _live_slots(self) -> np.ndarray:
+        if self._streamed:
+            return np.arange(self._count)
         if self._next_slot == 0:
             return np.zeros(0, dtype=np.int64)
         return np.nonzero(self._valid[: self._next_slot].cpu().numpy())[0]
@@ -566,13 +642,13 @@ class Index:
         flat = [s for sl in slot_lists for s in sl]
         results = []
         if flat:
-            idx = torch.as_tensor(flat, device=self._device)
+            stored = self._stored_rows(flat)
             if self._dtype == ScalarKind.B1:
-                packed = self._table[idx, : self._columns(ScalarKind.B1)].cpu().numpy()
+                packed = stored[:, : self._columns(ScalarKind.B1)].cpu().numpy()
                 rows = packed if out_kind == ScalarKind.B1 else (
                     unpack_bits_np(packed, self._ndim).astype(_NUMPY_DTYPES[out_kind]))
             else:
-                rows = cast_rows(self._table[idx, : self._ndim], self._dtype, out_kind).cpu().numpy()
+                rows = cast_rows(stored[:, : self._ndim], self._dtype, out_kind).cpu().numpy()
             offs = np.cumsum([0] + [len(sl) for sl in slot_lists])
         for i, sl in enumerate(slot_lists):
             if not sl:
@@ -588,6 +664,17 @@ class Index:
 
     def __getitem__(self, keys):
         return self.get(keys)
+
+    def _stored_rows(self, slots) -> torch.Tensor:
+        """The stored rows at ``slots``, ``[n, width]`` on the index's
+        device: gathered from the table, or read from a streamed view's map
+        (so both decode on one device, with the same rounding)."""
+        if self._streamed:
+            rows = torch.from_numpy(np.ascontiguousarray(self._stream_rows[np.asarray(slots, dtype=np.int64)]))
+            if self._dtype == ScalarKind.BF16:
+                rows = rows.view(torch.bfloat16)  # a file holds bf16 as its bits
+            return torch.nn.functional.pad(rows, (0, self._width - rows.shape[1])).to(self._device)
+        return self._table[torch.as_tensor(slots, dtype=torch.long, device=self._device)]
 
     @_mutates
     def remove(self, keys, *, compact: bool = False, threads: int = 0):
@@ -652,9 +739,12 @@ class Index:
 
     @_mutates
     def clear(self) -> None:
-        """Erase all rows; keep settings and capacity."""
-        if self._capacity:
+        """Erase all rows; keep settings and capacity (a streamed view lets
+        go of its map)."""
+        if self._valid is not None:
             self._valid.zero_()
+        if self._streamed:
+            self._streamed, self._stream_rows, self._capacity = False, None, 0
         self._keymap = KeyMap(multi=self._multi)
         self._free_slots = []
         self._next_slot = 0
@@ -682,8 +772,14 @@ class Index:
 
     @_reads
     def copy(self) -> "Index":
+        """An index of the same configuration and rows (a streamed view's
+        rows loaded onto the device)."""
         other = self.fork()
-        if self._capacity:
+        if self._streamed:
+            from .persist import load_streamed_rows
+
+            load_streamed_rows(self, other)
+        elif self._capacity:
             other._install(
                 self._table.clone(), self._stats.clone(), self._valid.clone(), self._slot_keys.copy(),
                 self._count, self._next_slot, self._free_slots, keymap=self._keymap.copy(),
@@ -732,8 +828,36 @@ class Index:
                exact: bool = False, log=False, progress: Optional[Callable[[int, int], bool]] = None,
                filter=None) -> Union[Matches, BatchMatches]:
         """k-NN search: through the IVF after `optimize`, else approximate
-        from 131,072 rows on, unless ``exact``. ``filter`` is a key predicate
-        (vectorized over a key array, or per key) or an allow-list of keys."""
+        from 131,072 rows on, unless ``exact``; a streamed view scans
+        exactly. ``filter`` is a key predicate (vectorized over a key array,
+        or per key) or an allow-list of keys."""
+        return self._search_dispatch(vectors, count, radius, exact, filter, progress=progress).result()
+
+    def search_async(self, vectors, count: int = 10, radius: float = math.inf, *, exact: bool = False,
+                     filter=None) -> PendingSearch:
+        """`search` without waiting for its result: the search is enqueued
+        on the device and its `PendingSearch` returned, whose ``result()``
+        gives what `search` would. Searches in flight overlap on the device
+        with the host work of the next dispatch. The read lock is held
+        until ``result()`` (mutations wait for it).
+
+        Two kinds of dispatch wait on the device before they return. A
+        streamed view's copies its rows tile by tile from the map on the
+        host, each fill waiting for the upload two tiles back (stream.py),
+        so it returns near the end of the search. A filter object's first
+        dispatch per index version reads the validity mask to the host to
+        map keys to slots (`_filter_mask`); later ones reuse the mask."""
+        token = self._rwlock.acquire_read()
+        try:
+            return self._search_dispatch(vectors, count, radius, exact, filter, lock_token=token)
+        except BaseException:
+            self._rwlock.release_read(token)
+            raise
+
+    def _search_dispatch(self, vectors, count, radius, exact, filter, lock_token=None,
+                         progress=None) -> PendingSearch:
+        """Prepare the queries and enqueue the search; the caller holds the
+        read lock (``lock_token`` hands it to the `PendingSearch`)."""
         dev_rows, kind = self._device_rows(vectors)
         if dev_rows is None:
             vectors = np.asarray(vectors)
@@ -744,29 +868,37 @@ class Index:
             single = vectors.dim() == 1
             n_q = dev_rows.shape[0]
         if self._count == 0 or count <= 0:
-            return self._finish_search(
-                np.zeros((n_q, 0), np.float32), np.zeros((n_q, 0), np.int64), n_q, single, radius, 0, progress
-            )
+            return PendingSearch(self, None, None, n_q, single, radius, 0, lock_token, progress)
         if dev_rows is not None:
             q = self._cast_device(dev_rows, kind)
         else:
             q = prepare_rows(host, kind, self._dtype, self._ndim)
         k = min(int(count), self._count)
+        if self._streamed:
+            d, slots = self._streamed_topk(q, k, filter)
+            return PendingSearch(self, d, slots, n_q, single, radius, self._count, lock_token, progress)
         valid = self._valid if filter is None else self._filter_mask(filter)
         use_ivf = not exact and self._ivf_serveable()
         approx = not exact and not use_ivf and self._count >= APPROX_MIN_ROWS
         d, slots, scanned = self._search_prepared(q, k, valid, approx, use_ivf)
-        return self._finish_search(d.cpu().numpy(), slots.cpu().numpy(), n_q, single, radius, scanned, progress)
+        return PendingSearch(self, d, slots, n_q, single, radius, scanned, lock_token, progress)
 
-    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):
-        """``(distances, slots, rows scanned per query)`` of prepared queries."""
+    def _padded_queries(self, q: torch.Tensor) -> torch.Tensor:
+        """Prepared queries padded to `pad_queries` rows, on the device; the
+        pads are copies of the first query, as in the JAX package (they
+        probe the same partitions). A host batch is uploaded from pinned
+        memory without waiting."""
         n_q = q.shape[0]
         q_pad = pad_queries(n_q)
         if q_pad > n_q:
-            # pads are copies of the first query, as in the JAX package: they
-            # probe the same partitions
             q = torch.cat([q, q[:1].expand(q_pad - n_q, -1)])
-        q = q.to(self._device)
+        if q.device.type == "cpu" and self._device.type == "cuda":
+            return q.pin_memory().to(self._device, non_blocking=True)
+        return q.to(self._device)
+
+    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):
+        """``(distances, slots, rows scanned per query)`` of prepared queries."""
+        q = self._padded_queries(q)
         if use_ivf:
             d, slots = self._ivf.search(self, q, valid, k, self._expansion_search)
             return d, slots, self._ivf.scanned_rows(self._expansion_search, self._connectivity)
@@ -795,6 +927,15 @@ class Index:
         return BatchMatches(keys=keys, distances=d.astype(np.float32), counts=counts,
                             visited_members=int(scanned) * n_q, computed_distances=int(scanned) * n_q)
 
+    def _streamed_topk(self, q: torch.Tensor, k: int, filter):
+        """Exact top-k of prepared queries against a streamed view's rows."""
+        from .stream import streamed_search
+
+        keys = self._slot_keys[: self._count]
+        host_valid = None if filter is None else _admitted(filter, keys)
+        return streamed_search(self._metric_kind, self._dtype, self._padded_queries(q), self._stream_rows,
+                               self._ndim, k, host_valid)
+
     def _filter_mask(self, filter) -> torch.Tensor:
         """A key filter as a slot mask composed with deletions, cached on
         (filter object, index version)."""
@@ -802,27 +943,25 @@ class Index:
         if hit is not None and hit[0] == self._version and hit[1] is filter:
             return hit[2]
         live = self._live_slots()
-        keys_live = self._slot_keys[live]
         allowed = np.zeros(self._capacity, dtype=bool)
-        if callable(filter):
-            res = None
-            if len(live):
-                try:  # vectorized contract: a bool array over the key array
-                    out = np.asarray(filter(keys_live))
-                    if out.shape == keys_live.shape and out.dtype != object:
-                        res = out.astype(bool)
-                except Exception:  # a per-key predicate; fall back to the loop below
-                    res = None
-                if res is None:
-                    res = np.fromiter((bool(filter(int(k))) for k in keys_live), dtype=bool, count=len(live))
-                allowed[live] = res
-        else:
-            allowed[live] = np.isin(keys_live, np.asarray(filter, dtype=np.uint64))
+        allowed[live] = _admitted(filter, self._slot_keys[live])
         mask = self._valid & torch.as_tensor(allowed, device=self._device)
         if len(self._filter_cache) >= 8:
             self._filter_cache.pop(next(iter(self._filter_cache)))
         self._filter_cache[id(filter)] = (self._version, filter, mask)
         return mask
+
+    def _bulk_install_streamed(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        """A streamed view's state: the key map over slots ``0..count``,
+        and ``rows`` (the file's map) in place of a device table."""
+        count = len(keys)
+        self._streamed = True
+        self._stream_rows = rows
+        self._capacity = count
+        self._slot_keys = np.asarray(keys, dtype=np.uint64).copy()
+        self._keymap.insert_many(self._slot_keys, np.arange(count, dtype=np.int64))
+        self._next_slot = count
+        self._count = count
 
     # ------------------------------------------------------------------
     # IVF
@@ -840,6 +979,8 @@ class Index:
         stored in that centroid's partition (SOAR)."""
         from .ivf import IVFPartitions
 
+        if self._streamed:
+            raise RuntimeError("Can't optimize a streamed view: its rows stay in the file")
         if self._count == 0:
             return
         build = IVFPartitions.build_inplace if reorder else IVFPartitions.build
@@ -854,7 +995,7 @@ class Index:
         left_np = np.atleast_1d(np.asarray(left, dtype=np.uint64))
         right_np = np.atleast_1d(np.asarray(right, dtype=np.uint64))
         slots = [[self._keymap.slots_of(k)[0] for k in side.tolist()] for side in (left_np, right_np)]
-        rows_l, rows_r = (self._table[torch.as_tensor(sl, dtype=torch.long, device=self._device)] for sl in slots)
+        rows_l, rows_r = (self._stored_rows(sl) for sl in slots)
         d = pair_dists(self._metric_kind, self._dtype, rows_l, rows_r, self._ndim).cpu().numpy()
         return float(d[0]) if single else d
 
@@ -915,9 +1056,10 @@ class Index:
     @_mutates
     def view(self, path_or_buffer=None, progress=None, stream: Optional[bool] = None):
         """`load` from a memory map of the file, and refuse changes after.
-        The rows go to the device whole: ``stream=True``, or ``stream=None``
-        with a table above 60% of the device's memory, raises (streamed
-        views are not ported yet)."""
+        The rows go to the device whole, unless ``stream=True``, or
+        ``stream=None`` with rows above `persist.STREAM_SHARE` of the
+        device's memory: then they stay in the map, and searches stream
+        them through the device (stream.py)."""
         from .persist import load_index_from_buffer, load_index_into
 
         if path_or_buffer is None:
@@ -961,9 +1103,24 @@ class Index:
     # Later slices
     # ------------------------------------------------------------------
 
-    search_async = _todo("A.8")
     cluster = _todo("A.9")
     join = _todo("A.9")
+
+
+def _admitted(filter, keys: np.ndarray) -> np.ndarray:
+    """Which of ``keys`` a filter admits: a key predicate, vectorized over
+    the key array or called per key, or an allow-list of keys."""
+    if not callable(filter):
+        return np.isin(keys, np.asarray(filter, dtype=np.uint64))
+    if len(keys) == 0:
+        return np.zeros(0, dtype=bool)
+    try:  # vectorized contract: a bool array over the key array
+        out = np.asarray(filter(keys))
+        if out.shape == keys.shape and out.dtype != object:
+            return out.astype(bool)
+    except Exception:  # a per-key predicate; the loop below
+        pass
+    return np.fromiter((bool(filter(int(k))) for k in keys), dtype=bool, count=len(keys))
 
 
 class IndexedKeys:

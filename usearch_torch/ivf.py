@@ -535,6 +535,7 @@ class IVFPartitions:
         # dense-layout spill shadows: duplicate positions and their primaries
         self.shadow_np_pos = np.zeros(0, dtype=np.int32)  # ascending
         self.shadow_np_src = np.zeros(0, dtype=np.int32)
+        self._shadow_dev = None             # (pos, src) on the device, made at the first search
         self._groups = centroid_groups(centroids)
         self._live_cache = None             # (mask, its version, live share)
 
@@ -543,9 +544,15 @@ class IVFPartitions:
         self.shadow_np_pos = np.ascontiguousarray(pos[o], dtype=np.int32)
         self.shadow_np_src = np.ascontiguousarray(src[o], dtype=np.int32)
         self.spilled = self.shadow_np_pos.size > 0
+        self._shadow_dev = None
 
     def _shadows(self, dev):
-        return torch.as_tensor(self.shadow_np_pos, device=dev), torch.as_tensor(self.shadow_np_src, device=dev)
+        """The shadows' positions and sources on ``dev``, uploaded once a
+        layout: a search then makes no blocking host-to-device copy."""
+        if self._shadow_dev is None or self._shadow_dev[0].device != dev:
+            self._shadow_dev = (torch.as_tensor(self.shadow_np_pos, device=dev),
+                                torch.as_tensor(self.shadow_np_src, device=dev))
+        return self._shadow_dev
 
     # ------------------------------------------------------------------
     # Build

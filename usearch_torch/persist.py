@@ -2,10 +2,11 @@
 format, and import and export of the upstream `.usearch` format.
 
 Counterpart of `usearch_tpu/persist.py`, byte for byte in its format, so a
-file written by either package loads in the other. The streamed view
-(`view(stream=True)`, stream.py there) is not ported (ROADMAP queue A.8): a
-view loads the rows onto the device whole, and one that would have to
-stream raises.
+file written by either package loads in the other. A view loads the rows
+onto the device whole, or, streamed (``view(stream=True)``, or a table
+above `STREAM_SHARE` of the device's memory), keeps them in the file's
+memory map and searches them in tiles streamed through the device
+(stream.py).
 
 Format v2 (little-endian):
     [0:12)   magic  b"usearch_tpu\\0"
@@ -33,6 +34,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -46,8 +48,8 @@ FORMAT_VERSION = 2
 LIBRARY_VERSION = "2.21.0+torch.0.1"
 #: rows gathered on the device (save) or uploaded to it (load) per step
 ROW_CHUNK = 1 << 20
-#: a viewed table above this share of the device's memory would have to
-#: stream, which is not ported (A.8)
+#: a view with ``stream=None`` streams its rows when they take more than
+#: this share of the device's memory
 STREAM_SHARE = 0.6
 #: the rows' numpy dtype in a file, by storage kind: bf16 as its bits
 _FILE_DTYPES = {
@@ -68,7 +70,10 @@ def _file_layout(kind: ScalarKind, ndim: int):
 def _logical_rows_np(index) -> np.ndarray:
     """The live rows in slot order, unpadded, in the stored dtype. They are
     gathered on the device in chunks and sliced to the logical columns
-    there, so the host never holds the padded ``[capacity, width]`` table."""
+    there, so the host never holds the padded ``[capacity, width]`` table.
+    A streamed view's rows are its file's, as they are."""
+    if index._streamed:
+        return index._stream_rows
     cols, dt = _file_layout(index._dtype, index._ndim)
     live = index._live_slots()
     out = np.empty((len(live), cols), dtype=dt)
@@ -170,12 +175,22 @@ def serialized_length(index) -> int:
 
 
 def save_index(index, path: str) -> None:
+    """Write ``index`` to a file beside ``path``, then move it into place:
+    a streamed view's rows are the map of the file it may be saved over,
+    which must stay whole until the rows are read."""
     head, keys, rows, payload = _serialize(index)
-    with open(path, "wb") as f:
-        f.write(head)
-        f.write(keys.tobytes())
-        f.write(np.ascontiguousarray(rows).data)
-        f.write(payload)
+    tmp = f"{path}.{os.getpid()}-{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(head)
+            f.write(keys.tobytes())
+            f.write(np.ascontiguousarray(rows).data)
+            f.write(payload)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
 
 
 def save_index_to_buffer(index) -> bytes:
@@ -461,9 +476,9 @@ def load_index_into(index, path: str, view: bool = False, stream=None) -> None:
         budget = _device_memory_budget(index)
         stream = bool(budget) and rows.nbytes > STREAM_SHARE * budget
     if view and stream:
-        raise NotImplementedError(
-            f"a streamed view of {rows.nbytes} bytes of rows is not ported yet (ROADMAP queue A.8); "
-            "view(stream=False) loads them onto the device whole")
+        _configure(index, meta)
+        index._bulk_install_streamed(keys, rows)  # the file's IVF stays unused: a streamed search is exact
+        return
     _populate(index, meta, keys, rows)
     _restore_ivf(index, meta, path, rows)
 
@@ -524,10 +539,8 @@ def _restore_ivf(index, meta: dict, source, rows: np.ndarray) -> None:
     index._ivf_dirty = False
 
 
-def _populate(index, meta: dict, keys: np.ndarray, rows: np.ndarray) -> None:
-    """Configure ``index`` from a file's header and install its rows at
-    slots ``0..count``, in their stored representation (no cast), chunk by
-    chunk onto the device; the key map is rebuilt from the keys."""
+def _configure(index, meta: dict) -> None:
+    """Configure ``index`` anew, empty, from a file's header."""
     index.__init__(
         ndim=meta["ndim"],
         metric=meta["metric"],
@@ -538,6 +551,19 @@ def _populate(index, meta: dict, keys: np.ndarray, rows: np.ndarray) -> None:
         multi=bool(meta.get("multi", False)),
         device=index._device,
     )
+
+
+def load_streamed_rows(view, index) -> None:
+    """Install a streamed view's keys and rows (read from its map) in
+    ``index``, configured anew as the view and resident on its device."""
+    _populate(index, _header_dict(view, view._count), view._slot_keys, view._stream_rows)
+
+
+def _populate(index, meta: dict, keys: np.ndarray, rows: np.ndarray) -> None:
+    """Configure ``index`` from a file's header and install its rows at
+    slots ``0..count``, in their stored representation (no cast), chunk by
+    chunk onto the device; the key map is rebuilt from the keys."""
+    _configure(index, meta)
     count = int(meta["count"])
     if count == 0:
         return
