@@ -139,6 +139,19 @@ Phases, each fatal on failure:
    each response equal to the one-batch search, QPS and the mean coalesced
    batch printed; then `IndexServer`/`IndexClient` over HTTP (info, add,
    search, get, remove, contains); every socket with a 10 s timeout;
+   (h) the metric tail and host modules (TAIL): haversine over 2**20
+   points and divergence over 2**20 x 64 probability rows (exact search,
+   `optimize(1024)`, probed search at nprobe 16, recall@10 against the
+   exact answer >= 0.9), jaccard over 2**18 sets of ~45 ids (`optimize(512)`,
+   recall@10 >= 0.85), a user-defined weighted L1 (`CompiledMetric`) over
+   2**18 x 128 f32 rows probed, its distances within 2e-3 relative of the
+   metric; an f64 index of 2**18 x 256 whose `get` gives its rows back bit
+   for bit, whose exact search (the plain scan) equals an f32 index's (B2)
+   within FLOAT_RTOL and f32 summation's bound and whose approximate search has recall@1
+   >= 0.99; `cluster()` over the
+   IVF path's index within [512, 1024] clusters; `join` of 16,384 perturbed
+   member rows against it, `exact=True` (B2 must launch) and probed (B3
+   must launch), at least 90% of the proposers matched; each piece timed;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
@@ -207,7 +220,7 @@ from usearch_torch import Index, build, ivf, keymap, persist
 from usearch_torch.client import IndexClient
 from usearch_torch.rpc import BinaryIndexClient, BinaryIndexServer
 from usearch_torch.server import IndexServer
-from usearch_torch.enums import MetricKind, ScalarKind, normalize_metric
+from usearch_torch.enums import CompiledMetric, MetricKind, ScalarKind, normalize_metric
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
 from usearch_torch.ops import casts, microbench, probe, scan, tf32
@@ -302,6 +315,21 @@ STREAMED = dict(n=1 << 23, w=256, q=1024, k=10, tiles=64, bench_n=1 << 18)
 #: socket's and wait's timeout, s
 ASYNC = dict(batches=8, q=1024, rounds=3)
 SERVING = dict(requests=4096, timeout=10.0)
+#: phase 3 (h): the metric tail at real sizes: 2**20 (lat, lon) points,
+#: 2**20 x 64 probability rows (a mixture of `div_anchors` Dirichlet
+#: draws), 2**18 integer sets of ~45 ids (templates of 48 from a universe
+#: of 2**20, each id kept with probability 0.85, 4 ids added), a weighted
+#: L1 metric over 2**18 x 128 f32 rows (`udf_anchors` clusters), an f64
+#: index of 2**18 x 256; probed at nprobe 16 (`expansion` each); `cluster`
+#: over the IVF path's index within `cluster` bounds; `join` of
+#: `join_n` perturbed member rows against it at `proposals`
+TAIL = dict(hav_n=1 << 20, div_n=1 << 20, div_w=64, div_anchors=4096, set_n=1 << 18, set_templates=4096,
+            set_ids=48, set_keep=0.85, set_extra=4, set_universe=1 << 20, udf_n=1 << 18, udf_w=128,
+            udf_anchors=1024, f64_n=1 << 18, f64_w=256, q=1024, gt_q=256, k=10,
+            partitions={"haversine": 1024, "divergence": 1024, "jaccard": 512, "udf": 512},
+            expansion={"haversine": 1024, "divergence": 1024, "jaccard": 512, "udf": 512},
+            bars={"haversine": 0.9, "divergence": 0.9, "jaccard": 0.85}, udf_rtol=2e-3,
+            cluster=(512, 1024), join_n=16384, proposals=16, join_noise=0.02)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -2838,6 +2866,177 @@ def bisect_rows(dev, launches: int) -> list:
     return rows
 
 
+def tail_rows(name: str, gen, dev):
+    """(index arguments, rows on the card, queries) of a metric of the
+    tail at TAIL's sizes; the queries are member rows, for haversine moved
+    by ~0.1 degree, for the user-defined metric by 0.05 noise."""
+    spec, nq = TAIL, TAIL["q"]
+    if name == "haversine":
+        n = spec["hav_n"]
+        x = torch.stack([torch.rand(n, generator=gen, device=dev) * 120 - 60,
+                         torch.rand(n, generator=gen, device=dev) * 340 - 170], 1)
+        q = x[:nq] + 0.1 * torch.randn(nq, 2, generator=gen, device=dev)
+        return dict(metric="haversine", dtype="f32"), x, q
+    if name == "divergence":
+        n, w = spec["div_n"], spec["div_w"]
+        anchors = torch.as_tensor(np.random.default_rng(SEED).dirichlet(np.full(w, 0.3), spec["div_anchors"]),
+                                  dtype=torch.float32, device=dev)
+        pick = torch.randint(0, spec["div_anchors"], (n,), generator=gen, device=dev)
+        x = anchors[pick] * (0.7 + 0.6 * torch.rand(n, w, generator=gen, device=dev))
+        x = x / x.sum(1, keepdim=True)
+        return dict(ndim=w, metric="divergence", dtype="f32"), x, x[:nq]
+    if name == "jaccard":
+        n, ids, t = spec["set_n"], spec["set_ids"], spec["set_templates"]
+        templates = torch.randint(0, spec["set_universe"], (t, ids), generator=gen, device=dev, dtype=torch.int32)
+        rows = templates[torch.randint(0, t, (n,), generator=gen, device=dev)]
+        rows = torch.where(torch.rand(n, ids, generator=gen, device=dev) < spec["set_keep"], rows, -1)
+        extra = torch.randint(0, spec["set_universe"], (n, spec["set_extra"]), generator=gen, device=dev,
+                              dtype=torch.int32)
+        rows = torch.cat([rows, extra], 1)
+        # sorted, repeats dropped, padding (-1) last
+        big = torch.iinfo(torch.int32).max
+        srt = torch.where(rows < 0, big, rows).sort(1).values
+        srt[:, 1:][srt[:, 1:] == srt[:, :-1]] = big
+        srt = srt.sort(1).values
+        x = torch.where(srt == big, -1, srt)
+        return dict(ndim=x.shape[1], metric="jaccard"), x, x[:nq]
+    n, w = spec["udf_n"], spec["udf_w"]
+    anchors = 3 * torch.randn(spec["udf_anchors"], w, generator=gen, device=dev)
+    x = anchors[torch.randint(0, spec["udf_anchors"], (n,), generator=gen, device=dev)]
+    x = x + torch.randn(n, w, generator=gen, device=dev)
+    weights = torch.linspace(0.5, 2.0, w, device=dev)
+    metric = CompiledMetric(lambda a, b: (weights * (a - b).abs()).sum())
+    return dict(ndim=w, metric=metric, dtype="f32"), x, x[:nq] + 0.05 * torch.randn(nq, w, generator=gen, device=dev)
+
+
+def timed(fn):
+    """``fn()`` synchronised: (its result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_tail_metric(name: str, gen, dev, card: str) -> dict:
+    """Phase 3 (h), one metric of the tail: add on the card, exact search
+    (the ground truth of `gt_q` queries), `optimize`, the probed search of
+    `q` queries (recall@10 against the exact answer at its bar; for the
+    user-defined metric its distances against the metric itself), each
+    piece timed, and a profile of the probed search."""
+    spec, k = TAIL, TAIL["k"]
+    kwargs, x, q = tail_rows(name, gen, dev)
+    index = Index(device=dev, **kwargs)
+    _, add_s = timed(lambda: index.add(None, x))
+    gq = spec["gt_q"]
+    exact, exact_s = timed(lambda: index.search(q[:gq], k, exact=True))
+    _, build_s = timed(lambda: index.optimize(n_partitions=spec["partitions"][name]))
+    index.expansion_search = spec["expansion"][name]
+    nprobe = index._ivf.nprobe_for(index.expansion_search, index.connectivity)
+    index.search(q[gq : 2 * gq], k)  # warm, on other queries
+    m, probe_s = timed(lambda: index.search(q, k))
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys[:gq].tolist(), exact.keys.tolist())]))
+    log(f"  {name} {x.shape[0]} x {index.ndim}: add {add_s:.2f} s, exact search of {gq} queries {exact_s:.2f} s, "
+        f"optimize({spec['partitions'][name]}) {build_s:.2f} s, probed search of {q.shape[0]} queries at nprobe "
+        f"{nprobe} {probe_s * 1e3:.1f} ms = {q.shape[0] / probe_s:.0f} QPS, scanned rows per query "
+        f"{index._ivf.scanned_rows(index.expansion_search, index.connectivity)}, recall@10 {recall:.4f}; {card}")
+    if m.keys.shape != (q.shape[0], k) or not np.all(np.isfinite(m.distances)):
+        fail(f"{name}: probed search gave {m.keys.shape} or non-finite distances")
+    if name in spec["bars"] and recall < spec["bars"][name]:
+        fail(f"{name}: probed recall@10 {recall:.4f} below {spec['bars'][name]}")
+    if name == "udf":
+        got = torch.as_tensor(m.distances, device=dev)
+        rows = x[torch.as_tensor(m.keys.astype(np.int64), device=dev)]
+        weights = torch.linspace(0.5, 2.0, x.shape[1], device=dev)
+        want = (weights * (q[:, None, :] - rows).abs()).sum(-1)
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-12)).max())
+        log(f"  udf: probed distances within {rel:.2e} relative of the metric (bar {spec['udf_rtol']}), "
+            f"recall@10 against its exact search {recall:.4f}")
+        if rel > spec["udf_rtol"]:
+            fail(f"udf: probed distances {rel:.2e} relative off the metric")
+    profile_search(index, q, k, exact=False, label=f"{name} probed")
+    return dict(recall=recall, add_s=add_s, exact_s=exact_s, build_s=build_s, probe_s=probe_s, nprobe=nprobe)
+
+
+def drive_f64(gen, dev, card: str) -> None:
+    """Phase 3 (h), f64 storage: `get` gives the rows back bit for bit; the
+    f64 index searches as the JAX package's does, through the plain scan
+    (the kernels take f32): its exact search equals the f32 index's of the
+    same rows (B2 and its rescore) within FLOAT_RTOL and an atol of
+    FLOAT_ATOL + 4 W 2**-24 max(q_sq + t_sq), the bound of two f32 sums of
+    W products in different orders on l2sq's three terms, keys apart from
+    near ties; its approximate search (bf16-rounded tile minima) finds the
+    queries' own rows (recall@1 >= 0.99; recall@10 against the exact answer
+    printed: bf16 ties the far neighbours)."""
+    n, w, k = TAIL["f64_n"], TAIL["f64_w"], TAIL["k"]
+    x = torch.randn(n, w, generator=gen, device=dev, dtype=torch.float64)
+    f64 = Index(ndim=w, metric="l2sq", dtype="f64", device=dev)
+    _, add_s = timed(lambda: f64.add(None, x))
+    f32 = Index(ndim=w, metric="l2sq", dtype="f32", device=dev)
+    f32.add(None, x.float())
+    keys = torch.randperm(n, generator=gen, device=dev)[: TAIL["q"]]
+    got, get_s = timed(lambda: f64.get(keys.cpu().numpy(), "f64"))
+    if got.dtype != np.float64 or not np.array_equal(got, x[keys].cpu().numpy()):
+        fail("f64: get() did not give the rows back bit for bit")
+    q = (x[keys] + 0.01 * torch.randn(keys.shape[0], w, generator=gen, device=dev, dtype=torch.float64)).float()
+    exact, exact_s = timed(lambda: f64.search(q, k, exact=True))
+    want = f32.search(q, k, exact=True)
+    sq = x.float().pow(2).sum(1)
+    atol = FLOAT_ATOL + 4 * w * 2.0**-24 * float(sq.max() + sq[keys].max())
+    diff = float(np.abs(exact.distances - want.distances).max())
+    if not searches_agree(exact, want, atol):
+        fail(f"f64: the exact search differs from the f32 index's by {diff:.3g} (atol {atol:.3g})")
+    approx, approx_s = timed(lambda: f64.search(q, k))
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(approx.keys.tolist(), exact.keys.tolist())]))
+    recall1 = float(np.mean(approx.keys[:, 0] == keys.cpu().numpy()))
+    log(f"  f64 {n} x {w}: add {add_s:.2f} s, get of {keys.shape[0]} keys {get_s * 1e3:.1f} ms bit for bit; exact "
+        f"search of {q.shape[0]} queries {exact_s * 1e3:.1f} ms, the f32 index's within {diff:.3g} (atol "
+        f"{atol:.3g}), keys {float(np.mean(exact.keys == want.keys)):.4f} equal; approximate {approx_s * 1e3:.1f} ms, recall@1 {recall1:.4f}, recall@10 against exact "
+        f"{recall:.4f}; {card}")
+    if recall1 < 0.99:
+        fail(f"f64: approximate recall@1 {recall1:.4f}")
+
+
+def drive_metric_tail(dev, ivf_run: dict, card: str) -> None:
+    """Phase 3 (h): the metric tail, f64, `cluster` and `join`."""
+    t_step = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for name in ("haversine", "divergence", "jaccard", "udf"):
+        drive_tail_metric(name, gen, dev, card)
+    drive_f64(gen, dev, card)
+
+    women = ivf_run["index"]
+    lo, hi = TAIL["cluster"]
+    clustering, cluster_s = timed(lambda: women.cluster(min_count=lo, max_count=hi))
+    _, sizes = clustering.centroids_popularity
+    log(f"  cluster() of {len(women)} rows of the IVF path's index: {len(sizes)} clusters (bounds [{lo}, {hi}]), "
+        f"largest {int(sizes.max())}, {cluster_s:.2f} s; {card}")
+    if not lo <= len(sizes) <= hi or int(sizes.sum()) != len(women):
+        fail(f"cluster(): {len(sizes)} clusters of {int(sizes.sum())} members")
+
+    nj = TAIL["join_n"]
+    src = ivf_run["queries"][:nj]
+    rows = src + TAIL["join_noise"] * torch.randn(src.shape, generator=gen, device=dev)
+    rows = rows / rows.norm(dim=1, keepdim=True)
+    men = Index(ndim=women.ndim, metric="ip", dtype="i8", device=dev)
+    men_keys = men.add(np.arange(nj, dtype=np.uint64) + 10**9, rows)
+    source = dict(zip(men_keys.tolist(), ivf_run["want"][:nj].tolist()))
+    for exact, kern in ((True, "binned_minima"), (False, "grouped_probe")):
+        zero_counters()
+        pairs, join_s = timed(lambda: men.join(women, max_proposals=TAIL["proposals"], exact=exact))
+        launches = counters()
+        matched = len(pairs) / nj
+        own = sum(source[a] == b for a, b in pairs.items()) / nj
+        log(f"  join of {nj} perturbed member rows against the IVF path's index, {'exact' if exact else 'probed'}, "
+            f"max_proposals {TAIL['proposals']}: {join_s:.2f} s, men matched {matched:.4f}, to their own row "
+            f"{own:.4f}; launches {launches}; {card}")
+        if launches[kern] == 0:
+            fail(f"join (exact={exact}) did not launch {kern}: {launches}")
+        if len(set(pairs.values())) != len(pairs) or matched < 0.9:
+            fail(f"join (exact={exact}): {matched:.4f} matched, one to one {len(set(pairs.values())) == len(pairs)}")
+    log(f"  step (h) {time.perf_counter() - t_step:.1f} s; {card}")
+
+
 def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
@@ -2923,6 +3122,8 @@ def main() -> int:
     streamed_row = drive_streamed(dev, card)
     drive_async(dev, ivf_run, card)
     drive_serving(dev, ivf_run, card)
+    log("== phase 3: metric tail and host modules, " + card)
+    drive_metric_tail(dev, ivf_run, card)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):

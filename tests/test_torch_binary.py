@@ -134,15 +134,24 @@ def test_binary_epilogues_match_reference(metric):
 
 
 def test_tile_dists_refuses_mismatched_pairs():
-    """b1 goes with the binary metrics and they with it (A.7b has the
-    other pairings)."""
-    q = torch.zeros((2, 128), dtype=torch.uint8)
-    stats = distances.row_stats(q, ScalarKind.B1)
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        distances.tile_dists(MetricKind.Cos, ScalarKind.B1, q, stats, q, stats, 1024)
-    f = torch.zeros((2, 128))
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        distances.tile_dists(MetricKind.Hamming, ScalarKind.F32, f, stats, f, stats, 128)
+    """The pairings the port refused before A.7b score as the JAX
+    package's: cos over b1 rows (its and-counts and popcounts) and hamming
+    over f32 rows (their squared norms as the popcounts)."""
+    rng = np.random.default_rng(21)
+    q = np.packbits(rng.random((3, 1024)) < 0.3, axis=1)
+    tq = torch.from_numpy(q)
+    stats = distances.row_stats(tq, ScalarKind.B1)
+    jq = jnp.asarray(q)
+    want = np.asarray(jdist.tile_dists(JMetric.Cos, JKind.B1, jq, jdist.row_stats(jq, JKind.B1), jq,
+                                       jdist.row_stats(jq, JKind.B1), 1024))
+    got = distances.tile_dists(MetricKind.Cos, ScalarKind.B1, tq, stats, tq, stats, 1024).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    f = rng.standard_normal((2, 128)).astype(np.float32)
+    tf, jf = torch.from_numpy(f), jnp.asarray(f)
+    fs, jfs = distances.row_stats(tf, ScalarKind.F32), jdist.row_stats(jf, JKind.F32)
+    got = distances.tile_dists(MetricKind.Hamming, ScalarKind.F32, tf, fs, tf, fs, 128).numpy()
+    want = np.asarray(jdist.tile_dists(JMetric.Hamming, JKind.F32, jf, jfs, jf, jfs, 128))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_scan_kernels_refuse_binary():
@@ -245,10 +254,20 @@ def test_b1_inputs_get_and_memory():
 
 
 def test_binary_pairings_not_ported_name_their_item():
+    """Ported in A.7b: each pairing builds, adds and finds its own rows as
+    the JAX index does, and `exact_search` takes hamming over floats
+    (tests/test_torch_pairings.py holds every pairing's distances)."""
+    rng = np.random.default_rng(22)
     for kwargs in (dict(metric="cos", dtype="b1"), dict(metric="hamming", dtype="f32"),
                    dict(metric="tanimoto", dtype="i8")):
-        with pytest.raises(NotImplementedError, match="A.7b"):
-            make_index(ndim=64, **kwargs)
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        usearch_torch.exact_search(np.zeros((4, 8), np.float32), np.zeros((1, 8), np.float32), 1,
-                                   metric="hamming", device="cpu")
+        x = (np.packbits(rng.random((40, 64)) < 0.5, axis=1) if kwargs["dtype"] == "b1"
+             else rng.standard_normal((40, 64)).astype(np.float32))
+        port, ref = make_index(ndim=64, **kwargs), usearch_tpu.Index(ndim=64, **kwargs)
+        port.add(None, x)
+        ref.add(None, x)
+        np.testing.assert_array_equal(port.search(x[:5], 1).keys, ref.search(x[:5], 1).keys)
+    x = rng.standard_normal((4, 8)).astype(np.float32)
+    got = usearch_torch.exact_search(x, x[:1], 2, metric="hamming", device="cpu")
+    want = usearch_tpu.exact_search(x, x[:1], 2, metric="hamming")
+    np.testing.assert_array_equal(got.keys, want.keys)
+    np.testing.assert_allclose(got.distances, want.distances, rtol=1e-5, atol=1e-4)

@@ -275,11 +275,18 @@ def test_exact_search_entry_point():
 
 
 def test_unported_surface_raises():
-    index = make_index(ndim=8)
-    for call in (lambda: index.join(index), lambda: index.cluster(),
-                 lambda: make_index(ndim=8, dtype="b1"), lambda: make_index(ndim=2, metric="haversine")):
-        with pytest.raises(NotImplementedError):
-            call()
+    """Only `ShardedIndex` (A.11) is left unported; `join`, `cluster`, a b1
+    index of a dot metric and a haversine index work since A.7b and A.9."""
+    import usearch_torch
+
+    with pytest.raises(NotImplementedError, match=r"A\.11"):
+        usearch_torch.ShardedIndex()
+    index = make_index(ndim=8, dtype="f32")
+    index.add(None, np.eye(8, dtype=np.float32))
+    assert index.join(index) == {k: k for k in range(8)}
+    assert index.cluster(min_count=2, max_count=2).centroids_popularity[1].sum() == 8
+    assert make_index(ndim=8, dtype="b1").dtype == ScalarKind.B1
+    assert make_index(metric="haversine").ndim == 2
 
 
 def test_concurrent_search_and_upserts():

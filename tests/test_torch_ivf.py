@@ -339,11 +339,16 @@ def test_fully_live_ip_table_probes_without_the_penalty_row(monkeypatch):
 
 
 def test_unported_paths_name_their_roadmap_items():
+    """`cluster` and `join` (A.9) are ported: on an index with a built IVF
+    the cluster count holds its bounds and a self-join matches every key
+    to itself through the probes."""
     index = make_index(ndim=4, metric="l2sq", dtype="f32")
     index.add(None, np.random.default_rng(26).standard_normal((420, 4)).astype(np.float32))
-    for name, item in (("cluster", "A.9"), ("join", "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(index, name)()
+    index.optimize(n_partitions=8, reorder=True)
+    index.expansion_search = 1024
+    _, sizes = index.cluster(min_count=5, max_count=9).centroids_popularity
+    assert 5 <= len(sizes) <= 9 and sizes.sum() == 420
+    assert index.join(index, max_proposals=4) == {k: k for k in range(420)}
 
 
 def test_probe_query_chunks_concatenate_exactly(monkeypatch):

@@ -211,14 +211,36 @@ def test_streamed_view_saves_over_its_own_file(rng, tmp_path, tiles):
     assert_same(restore(path, view=True, stream=True).search(q, 5), want)
 
 
-def test_set_and_f64_files_refuse_to_stream(rng, tmp_path):
-    """What the port has not ported streams no more than it loads (A.7b)."""
+def test_set_and_f64_files_refuse_to_stream(rng, tmp_path, tiles):
+    """Ported in A.7b, as the JAX package treats them: an f64 file asked
+    to stream serves resident (its rows f32 on the device, f64 on the
+    host), and a set file (12 entries padded to 16 with -1) streams, both
+    answering as the JAX package's resident index of the same file."""
+    x = rng.standard_normal((300, 16))
     jix = usearch_tpu.Index(ndim=16, metric="l2sq", dtype="f64")
-    jix.add(np.arange(10), rng.standard_normal((10, 16)))
+    jix.add(np.arange(300), x)
     path = str(tmp_path / "f64.usearch")
     jix.save(path)
-    with pytest.raises(NotImplementedError, match=r"A\.7b"):
-        restore(path, view=True, stream=True)
+    viewed = restore(path, view=True, stream=True)
+    assert not viewed._streamed and viewed._viewed
+    np.testing.assert_array_equal(viewed.get(np.arange(300), "f64"), x)
+    q = x[:9].astype(np.float32)
+    assert_same(viewed.search(q, 5), jix.search(q, 5))
+    sets = np.full((300, 12), -1, np.int32)
+    for i in range(300):
+        row = np.unique(rng.choice(200, rng.integers(3, 13), replace=False))
+        sets[i, : len(row)] = row
+    jsets = usearch_tpu.Index(ndim=12, metric="jaccard")
+    jsets.add(np.arange(300), sets)
+    path = str(tmp_path / "sets.usearch")
+    jsets.save(path)
+    tiles(128)
+    streamed = restore(path, view=True, stream=True)
+    assert streamed._streamed and streamed.dtype == usearch_torch.ScalarKind.I8
+    got, want = streamed.search(sets[:9], 5), jsets.search(sets[:9], 5, exact=True)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    assert_same(got, want)
+    np.testing.assert_array_equal(streamed.get(np.arange(5)), sets[:5])
 
 
 class Recorder(stream.TileStager):

@@ -3,8 +3,8 @@
 The port of `usearch_tpu` to an NVIDIA H100: the same `Index` surface, with
 the scan kernels written in CUDA C++ (csrc/). Entry points run on the card
 unless given ``device="cpu"``; with no card they raise. Every public name of
-the JAX package is here; those not ported yet raise `NotImplementedError`
-naming their ROADMAP item.
+the JAX package is here; the one not ported yet (`ShardedIndex`) raises
+`NotImplementedError` naming its ROADMAP item.
 """
 
 import numpy as np
@@ -16,8 +16,10 @@ from .enums import (
     USES_FP16LIB,
     USES_OPENMP,
     USES_SIMSIMD,
+    CompiledMetric,
     MetricKind,
     MetricKindBitwise,
+    MetricSignature,
     ScalarKind,
 )
 from .exact import exact_search
@@ -26,11 +28,8 @@ from .indexes import Indexes
 # the one-call clustering function; bound after its module is imported, so
 # it hides the module `usearch_torch.kmeans` here, as in the JAX package
 from .kmeans import kmeans
-from .matches import BatchMatches, Key, Match, Matches
+from .matches import BatchMatches, Clustering, Key, Match, Matches
 
-Clustering = _todo_class("Clustering", "A.9")
-CompiledMetric = _todo_class("CompiledMetric", "A.7b")
-MetricSignature = _todo_class("MetricSignature", "A.7b")
 ShardedIndex = _todo_class("ShardedIndex", "A.11")
 
 

@@ -23,24 +23,29 @@ STATE_KEYS = ("table", "stats", "valid", "slot_keys", "count", "next_slot", "fre
 
 def index_from_arrays(state: dict, device="cuda") -> Index:
     """A port `Index` from numpy state: ``table [capacity, width]`` (i8,
-    bf16, f16 or f32; packed uint8 bytes for b1), ``stats [capacity, 2]``
-    f32 (popcount and 0 for b1), ``valid [capacity]``
-    bool, ``slot_keys [capacity]`` u64, ``count``, ``next_slot``,
-    ``free_slots``, and the configuration ``ndim``, ``metric``, ``dtype``
-    (names such as "ip" and "i8") and ``multi``."""
+    bf16, f16 or f32, f32 for an f64 index; packed uint8 bytes for b1;
+    int32 sets padded with -1 for jaccard), ``stats [capacity, 2]`` f32
+    (popcount and 0 for b1), ``valid [capacity]`` bool, ``slot_keys
+    [capacity]`` u64, ``count``, ``next_slot``, ``free_slots``, and the
+    configuration ``ndim``, ``metric``, ``dtype`` (names such as "ip" and
+    "i8"; ``metric`` may be a `CompiledMetric`) and ``multi``; an f64 index
+    takes its exact rows from ``host_f64 [capacity, ndim]`` where given."""
     missing = [k for k in STATE_KEYS if k not in state]
     if missing:
         raise KeyError(f"state lacks {missing}")
     index = Index(ndim=int(state["ndim"]), metric=state["metric"], dtype=state["dtype"],
                   multi=bool(state["multi"]), device=device)
+    table = np.asarray(state["table"])
+    host_f64 = state.get("host_f64")
     index._install(
-        as_tensor(state["table"]),
+        torch.from_numpy(table.copy()) if table.dtype == np.int32 else as_tensor(table),
         as_tensor(np.asarray(state["stats"], dtype=np.float32)),
         as_tensor(np.asarray(state["valid"], dtype=bool)),
         state["slot_keys"],
         state["count"],
         state["next_slot"],
         np.asarray(state["free_slots"], dtype=np.int64).tolist(),
+        host_f64=None if host_f64 is None else np.asarray(host_f64, dtype=np.float64),
     )
     return index
 

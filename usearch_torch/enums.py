@@ -38,19 +38,38 @@ class ScalarKind(enum.Enum):
     B1 = "b1"
 
 
+class MetricSignature(enum.Enum):
+    ArrayArray = 0
+    ArrayArraySize = 1
+    ArrayArrayState = 2
+
+
+class CompiledMetric:
+    """A user-defined metric: ``fn(a[D], b[D]) -> distance`` on torch
+    tensors (f32 rows of the stored width), applied to every pair with
+    `torch.func.vmap`, so ``fn`` must be written in torch operations that
+    vmap can batch. ``kind`` is the metric the IVF's partitions are ranked
+    by (ip/cos/l2sq; any other kind ranks by l2sq)."""
+
+    __slots__ = ("fn", "kind", "signature")
+
+    def __init__(self, fn, kind: "MetricKind" = None, signature=None):
+        if not callable(fn):
+            raise TypeError("CompiledMetric needs a callable on torch tensors")
+        self.fn = fn
+        self.kind = kind if kind is not None else MetricKind.Unknown
+        self.signature = signature or MetricSignature.ArrayArray
+
+    @property
+    def pointer(self):
+        """The metric itself (the reference's name for the payload)."""
+        return self.fn
+
+
 MetricKindBitwise = (MetricKind.Hamming, MetricKind.Tanimoto, MetricKind.Sorensen)
 
 #: Metrics scored from one dot product plus per-row stats.
 MetricKindDot = (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq, MetricKind.Pearson)
-
-
-def is_ported(metric: MetricKind, kind: ScalarKind) -> bool:
-    """Whether the port scores ``metric`` over ``kind`` storage: the dot
-    metrics over numeric tables, the binary metrics over packed b1 ones.
-    The rest of the metric tail and the other pairings are ROADMAP A.7b."""
-    if metric in MetricKindBitwise:
-        return kind == ScalarKind.B1
-    return metric in MetricKindDot and kind != ScalarKind.B1
 
 _METRIC_ALIASES = {
     "unknown": MetricKind.Unknown,

@@ -9,6 +9,12 @@ Search pads queries to a power of two. Without an IVF it goes through
 `optimize`, non-exact searches probe the IVF partitions (ivf.py); rows added
 later join its fresh list, scanned exactly, until the next `optimize`.
 
+Every metric and storage pairing of the JAX package is served: the metric
+tail (haversine, divergence, jaccard over int32 sets padded with -1) and
+user-defined metrics (`enums.CompiledMetric`) through the plain scan and
+probes, f64 rows as f32 on the device beside an exact host copy.
+`cluster` (cluster.py) and `join` (join.py) run on the index's searches.
+
 `search_async` enqueues a search and returns a `PendingSearch`; its
 ``result()`` waits for that search alone. A streamed view (``view(path,
 stream=True)``) keeps its rows in the file's memory map and searches them
@@ -31,18 +37,19 @@ from .enums import (
     DEFAULT_CONNECTIVITY,
     DEFAULT_EXPANSION_ADD,
     DEFAULT_EXPANSION_SEARCH,
+    CompiledMetric,
     ScalarKind,
     MetricKind,
-    is_ported,
     kind_of_dtype,
     normalize_dtype,
     normalize_metric,
     to_torch_dtype,
 )
-from .exact import pad_queries, pad_rows, pick_tile_rows, prepare_rows, resolve_device, search_kernel, storage_width
+from .exact import (pad_queries, pad_rows, pick_tile_rows, prepare_rows, prepare_set_rows, resolve_device,
+                    search_kernel, storage_width)
 from .keymap import KeyMap
-from .matches import BatchMatches, Matches
-from .ops.casts import cast_rows
+from .matches import BatchMatches, Clustering, Matches
+from .ops.casts import as_tensor, cast_rows
 from .ops.distances import pair_dists, row_stats
 from .ops.packbits import unpack_bits_np
 
@@ -52,6 +59,8 @@ ROW_TILE = 1024
 APPROX_MIN_ROWS = 131072
 #: host batches of at least two such chunks are cast and copied chunk by chunk
 INGEST_CHUNK = 131072
+#: the float kinds `get` gives from an f64 index's host copy by a numpy cast
+_F64_OUT = {ScalarKind.F64: np.float64, ScalarKind.F32: np.float32, ScalarKind.F16: np.float16}
 #: the array types `get` returns
 _NUMPY_DTYPES = {ScalarKind.F64: np.float64, ScalarKind.F32: np.float32, ScalarKind.F16: np.float16,
                  ScalarKind.I8: np.int8}
@@ -255,20 +264,29 @@ class Index:
         view: bool = False,
         device="cuda",
     ) -> None:
-        if callable(metric) and not isinstance(metric, (str, MetricKind)):
-            raise NotImplementedError("user-defined metrics are not ported yet (ROADMAP queue A.7b)")
-        self._metric_kind = normalize_metric(metric)
+        self._set_metric(metric)
+        if self._metric_kind == MetricKind.Haversine and ndim == 0:
+            ndim = 2  # (lat, lon)
         self._dtype = normalize_dtype(dtype, ndim=ndim, metric=self._metric_kind)
-        if self._dtype == ScalarKind.F64 or not is_ported(self._metric_kind, self._dtype):
-            raise NotImplementedError(
-                f"{self._metric_kind.value}/{self._dtype.value} is not ported yet (ROADMAP queue A.7b)"
-            )
         if ndim <= 0:
             raise ValueError("ndim must be positive")
         self._device = resolve_device(device)
         self._ndim = int(ndim)
-        self._width = storage_width(self._dtype, self._ndim)
-        self._torch_dtype = to_torch_dtype(self._dtype)
+        # jaccard indexes hold integer sets, padded with -1 to a multiple of
+        # 8 columns, and report i8 as the JAX package does; f64 rows are f32
+        # on the device beside an exact f64 copy on the host (`_host_f64`),
+        # and search as f64 (the plain scan and probes: the kernels take
+        # f32, as the JAX package's do). `_kind` is the kind searches score
+        # in, `_cast_kind` the one rows are cast to for the table.
+        self._is_set_index = self._metric_kind == MetricKind.Jaccard
+        if self._is_set_index:
+            self._dtype, self._kind = ScalarKind.I8, ScalarKind.F32
+            self._width, self._torch_dtype = pad_rows(self._ndim, 8), torch.int32
+        else:
+            self._kind = self._dtype
+            self._width = storage_width(self._kind, self._ndim)
+            self._torch_dtype = torch.float32 if self._kind == ScalarKind.F64 else to_torch_dtype(self._kind)
+        self._cast_kind = ScalarKind.F32 if self._kind == ScalarKind.F64 else self._kind
         self._connectivity = int(connectivity)
         self._expansion_add = int(expansion_add)
         self._expansion_search = int(expansion_search)
@@ -288,6 +306,17 @@ class Index:
                 self.load(path)
         self._path = str(path) if path is not None else None
 
+    def _set_metric(self, metric) -> None:
+        """A metric kind, or a user-defined metric (`CompiledMetric`, or a
+        bare callable of two rows, of kind Unknown)."""
+        self._metric_fn = None
+        if isinstance(metric, CompiledMetric):
+            self._metric_fn, self._metric_kind = metric.fn, metric.kind
+        elif callable(metric) and not isinstance(metric, (str, MetricKind)):
+            self._metric_fn, self._metric_kind = metric, MetricKind.Unknown
+        else:
+            self._metric_kind = normalize_metric(metric)
+
     def _reset_state(self) -> None:
         self._capacity = 0
         self._table: Optional[torch.Tensor] = None  # [capacity, width]
@@ -303,6 +332,7 @@ class Index:
         self._viewed = False  # `view`: the index refuses changes
         self._streamed = False  # a streamed view: the rows stay in the file's map
         self._stream_rows = None  # [count, columns] stored rows of a streamed view (the map)
+        self._host_f64: Optional[np.ndarray] = None  # [capacity, ndim] exact rows of an f64 index
 
     def _refuse_if_viewed(self, what: str) -> None:
         if self._viewed:
@@ -331,7 +361,17 @@ class Index:
     def metric_kind(self) -> MetricKind:
         return self._metric_kind
 
-    metric = metric_kind
+    @property
+    def metric(self) -> MetricKind:
+        return self._metric_kind
+
+    @metric.setter
+    def metric(self, metric) -> None:
+        """Swap the metric in place: a kind, a `CompiledMetric` or a bare
+        callable. The row stats depend on the storage kind alone, so they
+        stay; a built IVF keeps serving: its partitions rank by their fit's
+        space, the candidates score by the new metric."""
+        self._set_metric(metric)
 
     @property
     def device(self) -> torch.device:
@@ -397,7 +437,8 @@ class Index:
         if self._table is None:
             return self._slot_keys.nbytes if self._streamed else 0
         row = self._width * self._table.element_size() + 8 + 1
-        return self._capacity * row + self._slot_keys.nbytes
+        f64 = 0 if self._host_f64 is None else self._host_f64.nbytes
+        return self._capacity * row + self._slot_keys.nbytes + f64
 
     @property
     def keys(self) -> "IndexedKeys":
@@ -486,6 +527,8 @@ class Index:
             self._stats = torch.cat([self._stats, stats])
             self._valid = torch.cat([self._valid, valid])
         self._slot_keys = np.concatenate([self._slot_keys, np.zeros(extra, dtype=np.uint64)])
+        if self._host_f64 is not None:
+            self._host_f64 = np.concatenate([self._host_f64, np.zeros((extra, self._ndim), dtype=np.float64)])
         self._capacity = capacity
 
     def _ensure_capacity(self, extra_rows: int) -> None:
@@ -501,6 +544,13 @@ class Index:
         """Input columns of one row: packed bytes for uint8 (b1) input."""
         return (self._ndim + 7) // 8 if kind == ScalarKind.B1 else self._ndim
 
+    def _check_columns(self, cols: int, kind: ScalarKind, shape) -> None:
+        """Rows of a set index may have any width up to the stored one;
+        others have `_columns`."""
+        ok = cols <= self._width if self._is_set_index else cols == self._columns(kind)
+        if not ok:
+            raise ValueError(f"Expected {self._columns(kind)} columns for {kind.value} input, got {tuple(shape)}")
+
     def _device_rows(self, vectors):
         """A tensor argument as ``([B, columns] rows on the index's device,
         their kind)``, or ``(None, None)`` for host (numpy) input."""
@@ -508,30 +558,45 @@ class Index:
             return None, None
         kind = kind_of_dtype(vectors.dtype)
         rows = vectors if vectors.dim() == 2 else vectors.reshape(1, -1)
-        if rows.dim() != 2 or rows.shape[1] != self._columns(kind):
-            raise ValueError(f"Expected {self._columns(kind)} columns for {kind.value} input, "
-                             f"got {tuple(vectors.shape)}")
+        self._check_columns(rows.shape[1], kind, vectors.shape)
         return rows.to(self._device), kind
 
     def _host_rows(self, vectors: np.ndarray):
         """``(rows [B, columns], kind)`` of a host batch."""
         rows = np.atleast_2d(vectors)
         kind = kind_of_dtype(rows.dtype)
-        if rows.ndim != 2 or rows.shape[1] != self._columns(kind):
-            raise ValueError(f"Expected {self._columns(kind)} columns for {kind.value} input, got {rows.shape}")
+        if rows.ndim != 2:
+            raise ValueError(f"Expected a [B, {self._columns(kind)}] batch, got {rows.shape}")
+        self._check_columns(rows.shape[1], kind, rows.shape)
         return rows, kind
 
     def _cast_device(self, rows: torch.Tensor, kind: ScalarKind) -> torch.Tensor:
-        """Device-side cast and zero-pad to the stored width."""
-        rows = cast_rows(rows, kind, self._dtype, self._ndim)
+        """Device-side cast and pad to the stored width (sets with -1)."""
+        if self._is_set_index:
+            return torch.nn.functional.pad(rows.to(torch.int32), (0, self._width - rows.shape[1]), value=-1)
+        rows = cast_rows(rows, kind, self._cast_kind, self._ndim)
         return torch.nn.functional.pad(rows, (0, self._width - rows.shape[1]))
+
+    def _prepare_host(self, host: np.ndarray, kind: ScalarKind) -> torch.Tensor:
+        """Host cast and pad of a batch to the stored layout (a CPU tensor)."""
+        if self._is_set_index:
+            return prepare_set_rows(host, self._width)
+        return prepare_rows(host, kind, self._cast_kind, self._ndim)
+
+    def _keep_f64(self, slots: np.ndarray, rows, kind: ScalarKind) -> None:
+        """An f64 index's exact host copy of rows added at ``slots``: the
+        input decoded to f64 (exact for f64 and f32 input)."""
+        if self._host_f64 is None:
+            self._host_f64 = np.zeros((self._capacity, self._ndim), dtype=np.float64)
+        rows = rows if isinstance(rows, torch.Tensor) else as_tensor(rows)
+        self._host_f64[slots] = cast_rows(rows, kind, ScalarKind.F64, self._ndim).cpu().numpy()[:, : self._ndim]
 
     def _scatter(self, slots: torch.Tensor, rows: torch.Tensor) -> None:
         """Write rows, their stats and validity at ``slots``. In place:
         ``index_copy_`` updates the existing table, so an add never copies
         the table."""
         self._table.index_copy_(0, slots, rows)
-        self._stats.index_copy_(0, slots, row_stats(rows, self._dtype))
+        self._stats.index_copy_(0, slots, row_stats(rows, self._kind))
         self._valid.index_fill_(0, slots, True)
 
     @_mutates
@@ -580,6 +645,8 @@ class Index:
         self._next_slot += n - n_reuse
         slots_dev = torch.as_tensor(slots, device=self._device)
 
+        if self._dtype == ScalarKind.F64:
+            self._keep_f64(slots, host if dev_rows is None else dev_rows, kind)
         if dev_rows is not None:
             self._scatter(slots_dev, self._cast_device(dev_rows, kind))
             if progress is not None:
@@ -587,7 +654,7 @@ class Index:
         else:
             chunk = INGEST_CHUNK if n >= 2 * INGEST_CHUNK else max(n, 1)
             for off in range(0, n, chunk):
-                rows = prepare_rows(host[off : off + chunk], kind, self._dtype, self._ndim)
+                rows = self._prepare_host(host[off : off + chunk], kind)
                 self._scatter(slots_dev[off : off + chunk], rows.to(self._device))
                 if progress is not None:
                     progress(min(off + chunk, n), n)
@@ -633,22 +700,18 @@ class Index:
         """Stored vectors decoded to ``dtype`` (f32 by default): None for a
         missing key, a ``[n, ndim]`` matrix per key with ``multi``. A b1
         index gives its packed bytes for ``dtype="b1"`` and unpacks its bits
-        to 0/1 values otherwise."""
+        to 0/1 values otherwise; an f64 index reads its exact host copy; a
+        set index gives its int32 rows as stored."""
         out_kind = ScalarKind.F32 if dtype is None else normalize_dtype(dtype, metric=self._metric_kind)
-        if out_kind not in tuple(_NUMPY_DTYPES) + ((ScalarKind.B1,) if self._dtype == ScalarKind.B1 else ()):
+        allowed = tuple(_NUMPY_DTYPES) + ((ScalarKind.B1,) if self._dtype == ScalarKind.B1 else ())
+        if not self._is_set_index and out_kind not in allowed:
             raise ValueError(f"get() returns f64/f32/f16/i8 arrays, not {out_kind.value}")
         single = np.isscalar(keys)
         slot_lists = [self._keymap.slots_of(k) for k in np.atleast_1d(np.asarray(keys, dtype=np.uint64)).tolist()]
         flat = [s for sl in slot_lists for s in sl]
         results = []
         if flat:
-            stored = self._stored_rows(flat)
-            if self._dtype == ScalarKind.B1:
-                packed = stored[:, : self._columns(ScalarKind.B1)].cpu().numpy()
-                rows = packed if out_kind == ScalarKind.B1 else (
-                    unpack_bits_np(packed, self._ndim).astype(_NUMPY_DTYPES[out_kind]))
-            else:
-                rows = cast_rows(stored[:, : self._ndim], self._dtype, out_kind).cpu().numpy()
+            rows = self._fetch_slots(flat, out_kind)
             offs = np.cumsum([0] + [len(sl) for sl in slot_lists])
         for i, sl in enumerate(slot_lists):
             if not sl:
@@ -665,6 +728,25 @@ class Index:
     def __getitem__(self, keys):
         return self.get(keys)
 
+    def _fetch_slots(self, slots, out_kind: ScalarKind) -> np.ndarray:
+        """The rows at ``slots`` decoded to ``out_kind``, ``[n, ndim]`` on
+        the host (packed bytes for b1 out of a b1 index; a set index's
+        int32 rows as they are)."""
+        if self._host_f64 is not None:
+            exact = self._host_f64[np.asarray(slots, dtype=np.int64)]
+            if out_kind in _F64_OUT:
+                return exact.astype(_F64_OUT[out_kind])
+            return cast_rows(torch.from_numpy(exact), ScalarKind.F64, out_kind).numpy()
+        stored = self._stored_rows(slots)
+        if self._is_set_index:
+            return stored[:, : self._ndim].cpu().numpy()
+        if self._dtype == ScalarKind.B1:
+            packed = stored[:, : self._columns(ScalarKind.B1)].cpu().numpy()
+            if out_kind == ScalarKind.B1:
+                return packed
+            return unpack_bits_np(packed, self._ndim).astype(_NUMPY_DTYPES[out_kind])
+        return cast_rows(stored[:, : self._ndim], self._dtype, out_kind).cpu().numpy()
+
     def _stored_rows(self, slots) -> torch.Tensor:
         """The stored rows at ``slots``, ``[n, width]`` on the index's
         device: gathered from the table, or read from a streamed view's map
@@ -673,7 +755,8 @@ class Index:
             rows = torch.from_numpy(np.ascontiguousarray(self._stream_rows[np.asarray(slots, dtype=np.int64)]))
             if self._dtype == ScalarKind.BF16:
                 rows = rows.view(torch.bfloat16)  # a file holds bf16 as its bits
-            return torch.nn.functional.pad(rows, (0, self._width - rows.shape[1])).to(self._device)
+            pad = -1 if self._is_set_index else 0
+            return torch.nn.functional.pad(rows, (0, self._width - rows.shape[1]), value=pad).to(self._device)
         return self._table[torch.as_tensor(slots, dtype=torch.long, device=self._device)]
 
     @_mutates
@@ -730,6 +813,10 @@ class Index:
             keys = self._slot_keys[live].copy()
             self._slot_keys[:] = 0
             self._slot_keys[:count] = keys
+            if self._host_f64 is not None:
+                rows = self._host_f64[live].copy()
+                self._host_f64[:] = 0
+                self._host_f64[:count] = rows
             self._keymap = KeyMap(multi=self._multi)
             self._keymap.insert_many(keys, np.arange(count))
         self._free_slots = []
@@ -758,11 +845,15 @@ class Index:
         self._reset_state()
 
     def fork(self) -> "Index":
-        """An empty index of the same configuration."""
+        """An empty index of the same configuration (its user-defined
+        metric too)."""
+        metric = self._metric_kind
+        if self._metric_fn is not None:
+            metric = CompiledMetric(self._metric_fn, self._metric_kind)
         return Index(
             ndim=self._ndim,
-            metric=self._metric_kind,
-            dtype=self._dtype,
+            metric=metric,
+            dtype=None if self._is_set_index else self._dtype,
             connectivity=self._connectivity,
             expansion_add=self._expansion_add,
             expansion_search=self._expansion_search,
@@ -783,12 +874,15 @@ class Index:
             other._install(
                 self._table.clone(), self._stats.clone(), self._valid.clone(), self._slot_keys.copy(),
                 self._count, self._next_slot, self._free_slots, keymap=self._keymap.copy(),
+                host_f64=self._host_f64,
             )
         return other
 
-    def _install(self, table, stats, valid, slot_keys, count, next_slot, free_slots, keymap=None) -> None:
+    def _install(self, table, stats, valid, slot_keys, count, next_slot, free_slots, keymap=None,
+                 host_f64=None) -> None:
         """Take over a whole state; the keymap is rebuilt from the live slots
-        unless one is given."""
+        unless one is given. An f64 index takes ``host_f64 [capacity, ndim]``
+        (a copy is kept), else its host copy is the table's f32 rows."""
         capacity, width = table.shape
         if width != self._width or stats.shape != (capacity, 2) or valid.shape != (capacity,):
             raise ValueError(f"state of shape {tuple(table.shape)} does not fit width {self._width}")
@@ -807,6 +901,11 @@ class Index:
         self._count = int(count)
         if len(self._keymap) != self._count:
             raise ValueError(f"count {self._count} disagrees with {len(self._keymap)} live rows")
+        if self._dtype == ScalarKind.F64:
+            exact = self._table[:, : self._ndim].double().cpu().numpy() if host_f64 is None else host_f64
+            self._host_f64 = np.array(exact, dtype=np.float64)
+            if self._host_f64.shape != (capacity, self._ndim):
+                raise ValueError(f"host_f64 of shape {self._host_f64.shape} does not fit ({capacity}, {self._ndim})")
         self._ivf = None
         self._ivf_dirty = True
 
@@ -816,7 +915,9 @@ class Index:
 
     def _ivf_serveable(self) -> bool:
         """A built IVF that no later change outdated, of a (metric, dtype)
-        the probes serve: b1 tables only the binary probe metrics."""
+        the probes serve: b1 tables only the binary probe metrics; every
+        other pairing probes (the metric tail and user-defined metrics
+        score their gathered candidates)."""
         if self._ivf is None or self._ivf_dirty:
             return False
         from .ivf import BINARY_PROBE_METRICS
@@ -872,14 +973,15 @@ class Index:
         if dev_rows is not None:
             q = self._cast_device(dev_rows, kind)
         else:
-            q = prepare_rows(host, kind, self._dtype, self._ndim)
+            q = self._prepare_host(host, kind)
         k = min(int(count), self._count)
         if self._streamed:
             d, slots = self._streamed_topk(q, k, filter)
             return PendingSearch(self, d, slots, n_q, single, radius, self._count, lock_token, progress)
         valid = self._valid if filter is None else self._filter_mask(filter)
         use_ivf = not exact and self._ivf_serveable()
-        approx = not exact and not use_ivf and self._count >= APPROX_MIN_ROWS
+        approx = (not exact and not use_ivf and not self._is_set_index and self._metric_fn is None
+                  and self._count >= APPROX_MIN_ROWS)
         d, slots, scanned = self._search_prepared(q, k, valid, approx, use_ivf)
         return PendingSearch(self, d, slots, n_q, single, radius, scanned, lock_token, progress)
 
@@ -902,12 +1004,12 @@ class Index:
         if use_ivf:
             d, slots = self._ivf.search(self, q, valid, k, self._expansion_search)
             return d, slots, self._ivf.scanned_rows(self._expansion_search, self._connectivity)
-        tile_rows = pick_tile_rows(self._capacity, self._width * self._table.element_size())
+        tile_rows = pick_tile_rows(self._capacity, self._width * self._table.element_size(), self._metric_kind,
+                                   self._ndim, q.shape[0], self._metric_fn)
         while self._capacity % tile_rows:
             tile_rows //= 2
-        d, slots = search_kernel(
-            self._metric_kind, self._dtype, q, self._table, self._stats, valid, self._ndim, k, tile_rows, approx
-        )
+        d, slots = search_kernel(self._metric_kind, self._kind, q, self._table, self._stats, valid, self._ndim, k,
+                                 tile_rows, approx, self._metric_fn)
         return d, slots, self._count
 
     def _finish_search(self, d, slots, n_q, single, radius, scanned, progress):
@@ -933,8 +1035,8 @@ class Index:
 
         keys = self._slot_keys[: self._count]
         host_valid = None if filter is None else _admitted(filter, keys)
-        return streamed_search(self._metric_kind, self._dtype, self._padded_queries(q), self._stream_rows,
-                               self._ndim, k, host_valid)
+        return streamed_search(self._metric_kind, self._kind, self._padded_queries(q), self._stream_rows,
+                               self._ndim, k, host_valid, self._metric_fn, -1 if self._is_set_index else 0)
 
     def _filter_mask(self, filter) -> torch.Tensor:
         """A key filter as a slot mask composed with deletions, cached on
@@ -996,7 +1098,10 @@ class Index:
         right_np = np.atleast_1d(np.asarray(right, dtype=np.uint64))
         slots = [[self._keymap.slots_of(k)[0] for k in side.tolist()] for side in (left_np, right_np)]
         rows_l, rows_r = (self._stored_rows(sl) for sl in slots)
-        d = pair_dists(self._metric_kind, self._dtype, rows_l, rows_r, self._ndim).cpu().numpy()
+        if self._metric_fn is not None:
+            d = torch.func.vmap(self._metric_fn)(rows_l.float(), rows_r.float()).float().cpu().numpy()
+        else:
+            d = pair_dists(self._metric_kind, self._kind, rows_l, rows_r, self._ndim).cpu().numpy()
         return float(d[0]) if single else d
 
     def distance_between(self, left, right):
@@ -1016,6 +1121,8 @@ class Index:
     def _logical_row_bytes(self) -> int:
         if self._dtype == ScalarKind.B1:
             return (self._ndim + 7) // 8
+        if self._dtype == ScalarKind.F64:
+            return self._ndim * 8
         return self._ndim * self._torch_dtype.itemsize
 
     @_reads
@@ -1100,11 +1207,25 @@ class Index:
         return index
 
     # ------------------------------------------------------------------
-    # Later slices
+    # Clustering and joins (cluster.py, join.py)
     # ------------------------------------------------------------------
 
-    cluster = _todo("A.9")
-    join = _todo("A.9")
+    def cluster(self, *, vectors=None, keys=None, min_count: Optional[int] = None, max_count: Optional[int] = None,
+                threads: int = 0, log=False, progress=None) -> Clustering:
+        """k-means over the live rows, the cluster count within
+        ``[min_count, max_count]``; each cluster is named by its nearest
+        member's key. Queries are ``vectors``, the members ``keys``, or all
+        members."""
+        from .cluster import cluster_index
+
+        return cluster_index(self, vectors=vectors, keys=keys, min_count=min_count, max_count=max_count)
+
+    def join(self, other: "Index", max_proposals: int = 0, exact: bool = False, progress=None) -> Dict[int, int]:
+        """A one-to-one stable matching of this index's keys to ``other``'s
+        (the smaller index proposes)."""
+        from .join import join
+
+        return join(self, other, max_proposals=max_proposals, exact=exact)
 
 
 def _admitted(filter, keys: np.ndarray) -> np.ndarray:

@@ -1,11 +1,15 @@
 """IVF partitioned scan: a k-means quantizer over the table, and searches
 that probe the ``nprobe`` partitions nearest each query.
 
-Counterpart of `usearch_tpu/ivf.py` for the tables of the port (i8, bf16,
-f16, f32 storage with ip, cos, l2sq, pearson; packed b1 storage with
-hamming, tanimoto, sorensen). b1 tables are partitioned in the unpacked
-{0, 1} bit space, where hamming is squared L2, and probed by and-counts
-(`packbits.bit_dot`) over popcount stats. Layouts:
+Counterpart of `usearch_tpu/ivf.py`, for every metric and pairing. b1
+tables are partitioned in the unpacked {0, 1} bit space, where hamming is
+squared L2, and probed by and-counts (`packbits.bit_dot`) over popcount
+stats; set (jaccard) tables in a presence sketch of their ids
+(`_set_sketch`), divergence tables in the square roots of their
+probabilities (where l2sq tracks the divergence), the rest in their rows.
+The metric tail (`GENERIC_PROBE_METRICS`) and user-defined metrics score
+the gathered candidate rows by their full formulas
+(`distances.gathered_dists`). Layouts:
 
 - ``optimize()`` (copied): a partition-contiguous copy of the live rows,
   ``[C, P, W]``; a probe gathers whole partitions.
@@ -34,7 +38,8 @@ of the JAX package's flavours, picked by `PROBE_MODE` at each search:
 - ``group`` (the default) and ``xla``, and ``nofold``/``bin`` otherwise:
   the grouped probe, kernel B3, within the JAX package's working-set guard.
 
-The rest go through a plain block-gather probe.
+The rest (the other pairings, the metric tail, user-defined metrics,
+pearson, f16) go through a plain block-gather probe.
 
 Rows added after a build join a fresh list that every search scans
 exactly, until ``optimize`` runs again. Where the JAX package differs:
@@ -65,7 +70,7 @@ import torch
 from .enums import MetricKind, MetricKindBitwise, ScalarKind
 from .keymap import KeyMap
 from .kmeans import assign_flat, kmeans_fit, kmeans_hierarchical
-from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, binary_dists, row_stats, tile_dists
+from .ops.distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, binary_dists, gathered_dists, row_stats, tile_dists
 from .ops.packbits import bit_dot, unpack_bits
 from .ops.probe import (LANES, MAX_BIN_M, MAX_BINNED_WIDTH, binned_probe, grouped_probe, grouped_probe_nofold,
                         pair_probe)
@@ -74,6 +79,11 @@ from .ops.topk import masked_topk, stable_topk, staged_topk
 
 #: binary metrics with an IVF probe path over b1 tables: all of them
 BINARY_PROBE_METRICS = MetricKindBitwise
+#: metrics with no product: the probes score them (and user-defined
+#: metrics) on the gathered candidate rows (`distances.gathered_dists`)
+GENERIC_PROBE_METRICS = (MetricKind.Haversine, MetricKind.Divergence, MetricKind.Jaccard)
+#: width of the presence sketch a set index is partitioned in
+SET_SKETCH_DIM = 128
 #: candidates per bin of the tanimoto/sorensen select: hamming distances
 #: are small integers with many ties, which those metrics break otherwise
 BINARY_BIN_M = 8
@@ -149,11 +159,11 @@ def _fresh_probe_mask(fresh_slots: torch.Tensor, cap: int) -> torch.Tensor:
     return mask
 
 
-def _fresh_topk(metric, kind, q, table, stats, valid, fresh_slots, ndim: int, k: int):
+def _fresh_topk(metric, kind, q, table, stats, valid, fresh_slots, ndim: int, k: int, metric_fn=None):
     """Exact top-k of the queries against the fresh list, read from the live
     table."""
     safe = fresh_slots.clamp_min(0).long()
-    d = tile_dists(metric, kind, q, row_stats(q, kind), table[safe], stats[safe], ndim)
+    d = tile_dists(metric, kind, q, row_stats(q, kind), table[safe], stats[safe], ndim, metric_fn)
     d, idx = masked_topk(d, (fresh_slots >= 0) & valid[safe], k)
     return d, torch.where(idx >= 0, fresh_slots[idx.clamp_min(0).long()], -1)
 
@@ -163,10 +173,32 @@ def _fresh_topk(metric, kind, q, table, stats, valid, fresh_slots, ndim: int, k:
 # ----------------------------------------------------------------------
 
 
-def _query_f32(kind, q: torch.Tensor) -> torch.Tensor:
+def _set_sketch(rows: torch.Tensor) -> torch.Tensor:
+    """Padded integer-set rows ``[N, W]`` (-1 pads) as presence counts
+    ``[N, SET_SKETCH_DIM]`` f32: each element hashes (Knuth's
+    multiplicative hash in uint32, then ``>> 7``) to one bucket, so sets of
+    a small jaccard distance share most counts. The uint32 product is taken
+    mod 2**32 in int64 halves (no uint32 shifts on every device)."""
+    r = rows.long() & 0xFFFFFFFF
+    mult = 2654435761
+    prod = (((r & 0xFFFF) * mult) + ((((r >> 16) * mult) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    h = (prod >> 7) % SET_SKETCH_DIM
+    out = torch.zeros((rows.shape[0], SET_SKETCH_DIM), dtype=torch.float32, device=rows.device)
+    return out.scatter_add_(1, h, (rows != -1).float())
+
+
+def _query_f32(kind, q: torch.Tensor, metric=None) -> torch.Tensor:
     """Query rows in the quantizer's space: the unpacked bits of b1 rows,
-    else the rows as f32."""
-    return unpack_bits(q).float() if kind == ScalarKind.B1 else q.float()
+    the presence sketch of int32 set rows, for divergence the Hellinger
+    embedding (the square roots of the probabilities, where l2sq tracks
+    the divergence), else the rows as f32."""
+    if kind == ScalarKind.B1:
+        return unpack_bits(q).float()
+    if q.dtype == torch.int32:
+        return _set_sketch(q)
+    if metric == MetricKind.Divergence:
+        return torch.sqrt(torch.clamp_min(q.float(), 0.0))
+    return q.float()
 
 
 def _centroid_metric(metric):
@@ -269,10 +301,27 @@ def _chunk_rows(row_bytes: int) -> int:
     return int(np.clip(_PROBE_BUDGET // max(row_bytes, 1), 8, _QUERY_CHUNK))
 
 
-def _row_bytes(kind, width: int) -> int:
+def _row_bytes(kind, width: int, metric=None, metric_fn=None) -> int:
     """Bytes a plain probe holds per gathered row: its f32 (or f64) copy and
-    12 bytes of ids, stats and mask; b1 rows unpack to 8 f32 per byte."""
-    return width * (32 if kind == ScalarKind.B1 else 4) + 12
+    12 bytes of ids, stats and mask; b1 rows unpack to 8 f32 per byte. The
+    metrics scored on gathered rows hold more, as the JAX package budgets
+    them: jaccard's search per entry, and the broadcast f32 intermediates of
+    divergence, haversine and user-defined metrics (8 times the row)."""
+    row = width * (32 if kind == ScalarKind.B1 else 4) + 12
+    if metric == MetricKind.Jaccard:
+        return row * max(width, 1)
+    if metric_fn is not None or metric in GENERIC_PROBE_METRICS:
+        return row * 8
+    return row
+
+
+def _candidate_dists(metric, kind, qc, qsc, rows, t_sq, t_sum, ndim: int, metric_fn):
+    """Distances of a query chunk to its gathered candidates: the metric
+    tail and user-defined metrics by their full formulas, the rest from
+    their products and stats."""
+    if metric_fn is not None or metric in GENERIC_PROBE_METRICS:
+        return gathered_dists(metric, kind, qc, rows, ndim, metric_fn)
+    return _probe_metric_dists(metric, _probe_dot(kind, qc, rows), qsc[:, 0], t_sq, qsc[:, 1], t_sum, ndim)
 
 
 def _part_valid_compute(valid: torch.Tensor, part_slots: torch.Tensor) -> torch.Tensor:
@@ -281,22 +330,21 @@ def _part_valid_compute(valid: torch.Tensor, part_slots: torch.Tensor) -> torch.
 
 
 def _ivf_probe_search(metric, kind, q, part_valid, centroids, part_table, part_stats, part_slots,
-                      ndim: int, k: int, nprobe: int, groups=None):
+                      ndim: int, k: int, nprobe: int, groups=None, metric_fn=None):
     """Copied layout: each query gathers its ``nprobe`` partitions whole,
     scored in query chunks of a fixed memory budget. Returns slots."""
     n_q, p = q.shape[0], part_table.shape[1]
     q_stats = row_stats(q, kind)
-    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q), centroids, part_valid.sum(dim=1),
+    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q, metric), centroids, part_valid.sum(dim=1),
                            nprobe, groups)
-    chunk = _chunk_rows(nprobe * p * _row_bytes(kind, part_table.shape[-1]))
+    chunk = _chunk_rows(nprobe * p * _row_bytes(kind, part_table.shape[-1], metric, metric_fn))
     out_d, out_i = [], []
     for lo in range(0, n_q, chunk):
         prc, qc, qsc = probes[lo : lo + chunk], q[lo : lo + chunk], q_stats[lo : lo + chunk]
         m = prc.shape[0]
         rows = part_table[prc].reshape(m, nprobe * p, -1)
         rstats = part_stats[prc].reshape(m, nprobe * p, 2)
-        dist = _probe_metric_dists(metric, _probe_dot(kind, qc, rows), qsc[:, 0], rstats[..., 0],
-                                   qsc[:, 1], rstats[..., 1], ndim)
+        dist = _candidate_dists(metric, kind, qc, qsc, rows, rstats[..., 0], rstats[..., 1], ndim, metric_fn)
         d, i = _chunk_topk(dist, part_slots[prc].reshape(m, -1), part_valid[prc].reshape(m, -1), k)
         out_d.append(d)
         out_i.append(i)
@@ -304,7 +352,7 @@ def _ivf_probe_search(metric, kind, q, part_valid, centroids, part_table, part_s
 
 
 def _dense_probe_core(metric, kind, qc, qsc, prc, starts, lens, vblk, tblk, sblk, cap2: int, block: int,
-                      nblk: int, k: int, ndim: int = 0):
+                      nblk: int, k: int, ndim: int = 0, metric_fn=None):
     """Score one query chunk against its probed windows in the dense layout:
     the blocks covering each window are gathered whole and the rows outside
     the window masked. Returns (distances, positions), ``[chunk, k]``."""
@@ -322,33 +370,35 @@ def _dense_probe_core(metric, kind, qc, qsc, prc, starts, lens, vblk, tblk, sblk
     # positions fall outside every window
     ok = (cand >= st_f) & (cand < st_f + ln_f) & (cand < cap2) & vblk[bidx].reshape(chunk, nprobe * r)
     t_sq = t_sum = None
-    if metric != MetricKind.IP:
+    if sblk is not None:
         sg = sblk[bidx]
         t_sq, t_sum = sg[..., 0].reshape(chunk, nprobe * r), sg[..., 1].reshape(chunk, nprobe * r)
-    dist = _probe_metric_dists(metric, _probe_dot(kind, qc, rows), qsc[:, 0], t_sq, qsc[:, 1], t_sum, ndim)
+    dist = _candidate_dists(metric, kind, qc, qsc, rows, t_sq, t_sum, ndim, metric_fn)
     return _chunk_topk(dist, cand, ok, k)
 
 
 def _ivf_probe_search_dense(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim: int,
-                            k: int, nprobe: int, p_win: int, block: int, groups=None):
+                            k: int, nprobe: int, p_win: int, block: int, groups=None, metric_fn=None):
     """Dense layout, plain: each probe gathers the ``block``-row blocks
     covering its window. Serves what the grouped probes do not: pearson,
-    f16, k > 128, and windows past the grouped probe's guard."""
+    f16, the other pairings, the metric tail, user-defined metrics, k >
+    128, and windows past the grouped probe's guard."""
     n_q = q.shape[0]
     cap2 = table.shape[0]
     nb = cap2 // block
     q_stats = row_stats(q, kind)
-    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q), centroids, lens, nprobe, groups)
+    probes = _probe_select(_centroid_metric(metric), _query_f32(kind, q, metric), centroids, lens, nprobe, groups)
     tblk = table.view(nb, block, -1)
     vblk = valid.view(nb, block)
-    sblk = stats.view(nb, block, 2) if metric != MetricKind.IP else None
+    generic = metric_fn is not None or metric in GENERIC_PROBE_METRICS
+    sblk = stats.view(nb, block, 2) if metric != MetricKind.IP and not generic else None
     nblk = (p_win - 1) // block + 2
-    chunk = _chunk_rows(nprobe * nblk * block * _row_bytes(kind, table.shape[-1]))
+    chunk = _chunk_rows(nprobe * nblk * block * _row_bytes(kind, table.shape[-1], metric, metric_fn))
     out_d, out_i = [], []
     for lo in range(0, n_q, chunk):
         d, i = _dense_probe_core(metric, kind, q[lo : lo + chunk], q_stats[lo : lo + chunk],
                                  probes[lo : lo + chunk], starts, lens, vblk, tblk, sblk, cap2, block,
-                                 nblk, k, ndim)
+                                 nblk, k, ndim, metric_fn)
         out_d.append(d)
         out_i.append(i)
     return torch.cat(out_d), torch.cat(out_i)
@@ -573,7 +623,13 @@ class IVFPartitions:
         n_partitions = min(n_partitions, n)
         dev = index._device
         rows = index._table[torch.as_tensor(live, device=dev)]
-        if index._dtype == ScalarKind.B1:
+        if index._is_set_index:
+            # sets are partitioned by their presence sketches
+            rows = _set_sketch(rows)
+        elif index._metric_kind == MetricKind.Divergence:
+            # the Hellinger embedding: l2sq there tracks the divergence
+            rows = torch.sqrt(torch.clamp_min(rows.float(), 0.0))
+        elif index._dtype == ScalarKind.B1:
             # the unpacked {0, 1} bits as i8: hamming is l2sq there
             rows = unpack_bits(rows)
         km_metric = _centroid_metric(index._metric_kind)
@@ -716,6 +772,11 @@ class IVFPartitions:
         # shadow positions hold live duplicates: never recycled
         index._free_slots = np.nonzero(old_of_pos < 0)[0].tolist()
         index._next_slot = cap2
+        if index._host_f64 is not None:
+            occupied = old_of_pos >= 0  # shadows carry their primary's row too
+            new_f64 = np.zeros((cap2, index._ndim), dtype=np.float64)
+            new_f64[occupied] = index._host_f64[old_of_pos[occupied]]
+            index._host_f64 = new_f64
 
         out = IVFPartitions(
             centroids=torch.as_tensor(centroids, device=dev), part_table=None, part_stats=None,
@@ -797,8 +858,8 @@ class IVFPartitions:
                     and index._count + self.shadow_np_pos.size == int(index._capacity))
         d, slots = self._search_built(index, q, probe_valid, k, nprobe, all_live)
         if fresh_n:
-            df, sf = _fresh_topk(index._metric_kind, index._dtype, q, index._table, index._stats, valid,
-                                 fresh, index._ndim, min(k, int(fresh.shape[0])))
+            df, sf = _fresh_topk(index._metric_kind, index._kind, q, index._table, index._stats, valid,
+                                 fresh, index._ndim, min(k, int(fresh.shape[0])), index._metric_fn)
             # on equal distances the probed entries, then earlier ones, win
             return staged_topk(torch.cat([d, df], dim=1), torch.cat([slots.to(torch.int32), sf.to(torch.int32)], dim=1), k)
         return d, slots
@@ -816,8 +877,9 @@ class IVFPartitions:
         c, p = self.part_slots.shape
         kk = min(2 * k, c * p) if self.spilled else k
         d, slots = _ivf_probe_search(
-            index._metric_kind, index._dtype, q, _part_valid_compute(valid, self.part_slots), self.centroids,
-            self.part_table, self.part_stats, self.part_slots, index._ndim, kk, nprobe, self._groups)
+            index._metric_kind, index._kind, q, _part_valid_compute(valid, self.part_slots), self.centroids,
+            self.part_table, self.part_stats, self.part_slots, index._ndim, kk, nprobe, self._groups,
+            index._metric_fn)
         if self.spilled and kk > k:
             # a spilled row lives in two partitions: keep its first hit
             return _dedup_trim(d, slots, k)
@@ -836,7 +898,7 @@ class IVFPartitions:
         """Kernel B7's preconditions: i8 rows of at most `MAX_BINNED_WIDTH`,
         a dot-selectable metric, enough bin winners to cover ``8 k``, and a
         mostly live mask (B7 masks after its merge, not during selection)."""
-        return (index._dtype == ScalarKind.I8
+        return (index._kind == ScalarKind.I8
                 and index._metric_kind in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq)
                 and index._table.shape[1] <= MAX_BINNED_WIDTH
                 and nprobe * BIN_KEEP * (w_pad // BIN_BW) >= 8 * k
@@ -853,12 +915,13 @@ class IVFPartitions:
         # window starts align down to 128 rows: the padded window covers
         # the longest window plus the shift
         w_pad = max(((self.p_win + 127) // 128) * 128 + 128, 256)
-        metric, kind = index._metric_kind, index._dtype
+        metric, kind = index._metric_kind, index._kind
         # the probe kernels take ip/cos/l2sq over i8/bf16/f32, the binary
-        # metrics over b1, and k <= 128; B6 takes batches of 8 queries
+        # metrics over b1, and k <= 128; B6 takes batches of 8 queries; a
+        # user-defined metric scores its gathered candidates
         binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
         if (w_pad <= int(index._capacity) and k <= 128 and (binary or supports(metric, kind))
-                and (mode != "pair" or q.shape[0] % 8 == 0)):
+                and index._metric_fn is None and (mode != "pair" or q.shape[0] % 8 == 0)):
             args = (metric, kind, q, valid, self.centroids, index._table, index._stats, self.starts, self.lens, k,
                     nprobe, w_pad)
             if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
@@ -877,4 +940,4 @@ class IVFPartitions:
                 return _ivf_probe_search_dense_grouped(*args, all_live, self._groups)
         return _ivf_probe_search_dense(metric, kind, q, valid, self.centroids, index._table, index._stats,
                                        self.starts, self.lens, index._ndim, k, nprobe, self.p_win, DENSE_BLOCK,
-                                       self._groups)
+                                       self._groups, index._metric_fn)

@@ -1,9 +1,10 @@
-"""Search results: one query's `Matches`, a batch's `BatchMatches`."""
+"""Search results: one query's `Matches`, a batch's `BatchMatches`, and
+`Index.cluster`'s `Clustering`."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -81,3 +82,51 @@ class BatchMatches:
 
     def mean_recall(self, expected: np.ndarray, count: Optional[int] = None) -> float:
         return self.count_matches(expected, count) / len(expected)
+
+
+class Clustering:
+    """The result of `Index.cluster`: for each query (a member key, or a
+    row of the given vectors) the key of its cluster's centroid, in
+    ``matches.keys[:, 0]``, and the distance to the centroid."""
+
+    def __init__(self, index, matches: BatchMatches, queries: Optional[np.ndarray] = None):
+        if queries is None:
+            queries = np.array(index.keys)
+        self.index = index
+        self.queries = queries
+        self.matches = matches
+
+    def __repr__(self) -> str:
+        return f"usearch_torch.Clustering(for {len(self.queries)} queries)"
+
+    @property
+    def centroids_popularity(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The centroids' keys and their member counts."""
+        return np.unique(self.matches.keys, return_counts=True)
+
+    def members_of(self, centroid) -> np.ndarray:
+        return self.queries[self.matches.keys.flatten() == centroid]
+
+    def subcluster(self, centroid, **clustering_kwargs) -> "Clustering":
+        return self.index.cluster(keys=self.members_of(centroid), **clustering_kwargs)
+
+    def plot_centroids_popularity(self):  # pragma: no cover - plotting
+        from matplotlib import pyplot as plt
+
+        _, sizes = self.centroids_popularity
+        plt.yscale("log")
+        plt.plot(sorted(sizes), np.arange(len(sizes)))
+        plt.show()
+
+    @property
+    def network(self):  # pragma: no cover - optional dependency
+        import networkx as nx
+
+        keys, sizes = self.centroids_popularity
+        g = nx.Graph()
+        for key, size in zip(keys, sizes):
+            g.add_node(key, size=size)
+        for i, i_key in enumerate(keys):
+            for j_key in keys[:i]:
+                g.add_edge(i_key, j_key, distance=self.index.pairwise_distance(i_key, j_key))
+        return g

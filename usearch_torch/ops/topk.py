@@ -78,9 +78,10 @@ def staged_topk(dist: torch.Tensor, cand: torch.Tensor, kk: int) -> Tuple[torch.
 
 
 def scan_topk(metric, kind, q, q_stats, table, stats, valid, k: int, tile_rows: int,
-              ndim: int, approx: bool = False):
+              ndim: int, approx: bool = False, metric_fn=None):
     """Tile-by-tile search of ``[Q, W]`` against ``[N, W]``, ``N`` a multiple
     of ``tile_rows``; only the running ``[Q, k]`` best stays between tiles.
+    ``metric_fn`` is a user-defined metric (`distances.tile_dists`).
 
     ``approx`` ranks each tile on bf16-rounded distances, as the JAX scan
     does; exact searches never set it."""
@@ -91,7 +92,7 @@ def scan_topk(metric, kind, q, q_stats, table, stats, valid, k: int, tile_rows: 
     best_i = torch.full((n_q, k), -1, dtype=torch.int64, device=q.device)
     for off in range(0, n_rows, tile_rows):
         sl = slice(off, off + tile_rows)
-        d = tile_dists(metric, kind, q, q_stats, table[sl], stats[sl], ndim)
+        d = tile_dists(metric, kind, q, q_stats, table[sl], stats[sl], ndim, metric_fn)
         d = torch.where(valid[None, sl], d, MASKED)
         if approx and tile_rows >= 4 * k * 128:
             d = d.to(torch.bfloat16).float()

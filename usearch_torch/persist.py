@@ -62,8 +62,11 @@ _FILE_DTYPES = {
 }
 
 
-def _file_layout(kind: ScalarKind, ndim: int):
-    """(columns, numpy dtype) of one row in a file: packed bytes for b1."""
+def _file_layout(kind: ScalarKind, ndim: int, set_index: bool = False):
+    """(columns, numpy dtype) of one row in a file: packed bytes for b1,
+    int32 entries for a set index."""
+    if set_index:
+        return ndim, np.int32
     return ((ndim + 7) // 8 if kind == ScalarKind.B1 else ndim), _FILE_DTYPES[kind]
 
 
@@ -71,11 +74,14 @@ def _logical_rows_np(index) -> np.ndarray:
     """The live rows in slot order, unpadded, in the stored dtype. They are
     gathered on the device in chunks and sliced to the logical columns
     there, so the host never holds the padded ``[capacity, width]`` table.
-    A streamed view's rows are its file's, as they are."""
+    A streamed view's rows are its file's, as they are; an f64 index's are
+    its exact host copy."""
     if index._streamed:
         return index._stream_rows
-    cols, dt = _file_layout(index._dtype, index._ndim)
     live = index._live_slots()
+    if index._host_f64 is not None:
+        return index._host_f64[live]
+    cols, dt = _file_layout(index._dtype, index._ndim, index._is_set_index)
     out = np.empty((len(live), cols), dtype=dt)
     for off in range(0, len(live), ROW_CHUNK):
         idx = torch.as_tensor(live[off : off + ROW_CHUNK], device=index._device)
@@ -94,7 +100,7 @@ def _header_dict(index, count: int) -> dict:
         "count": count,
         "multi": index._multi,
         "row_bytes": index._logical_row_bytes(),
-        "set_index": False,
+        "set_index": index._is_set_index,
         "library_version": LIBRARY_VERSION,
         "connectivity": index._connectivity,
         "expansion_add": index._expansion_add,
@@ -332,6 +338,8 @@ def save_reference_index(index, path_or_buffer=None):
     flat graph (every node at level 0, no neighbours), which it parses and
     serves through its exact search or relinks. Returns the bytes when
     ``path_or_buffer`` is None, else writes the file."""
+    if index._is_set_index:
+        raise ValueError("set indexes have no reference-format equivalent")
     metric, dtype = index._metric_kind.value, index._dtype.value
     if metric not in _REF_METRIC_CODES:
         raise ValueError(f"metric {metric!r} has no reference metric_kind_t code")
@@ -426,9 +434,7 @@ def index_metadata(path_or_buffer) -> dict:
 
 
 def _rows_from_bytes(buf, offset: int, meta: dict) -> np.ndarray:
-    if meta.get("set_index"):
-        raise NotImplementedError("set indexes (jaccard) are not ported yet (ROADMAP queue A.7b)")
-    per_row, dt = _file_layout(normalize_dtype(meta["dtype"]), meta["ndim"])
+    per_row, dt = _file_layout(normalize_dtype(meta["dtype"]), meta["ndim"], bool(meta.get("set_index")))
     count = meta["count"]
     return np.frombuffer(buf, dtype=dt, count=count * per_row, offset=offset).reshape(count, per_row)
 
@@ -475,6 +481,8 @@ def load_index_into(index, path: str, view: bool = False, stream=None) -> None:
     if view and stream is None:
         budget = _device_memory_budget(index)
         stream = bool(budget) and rows.nbytes > STREAM_SHARE * budget
+    if meta["dtype"] == "f64" and not meta.get("set_index"):
+        stream = False  # f64 rows serve from the device's f32 table, as in the JAX package
     if view and stream:
         _configure(index, meta)
         index._bulk_install_streamed(keys, rows)  # the file's IVF stays unused: a streamed search is exact
@@ -544,7 +552,7 @@ def _configure(index, meta: dict) -> None:
     index.__init__(
         ndim=meta["ndim"],
         metric=meta["metric"],
-        dtype=meta["dtype"],
+        dtype=None if meta.get("set_index") else meta["dtype"],
         connectivity=meta.get("connectivity", index._connectivity),
         expansion_add=meta.get("expansion_add", index._expansion_add),
         expansion_search=meta.get("expansion_search", index._expansion_search),
@@ -561,7 +569,8 @@ def load_streamed_rows(view, index) -> None:
 
 def _populate(index, meta: dict, keys: np.ndarray, rows: np.ndarray) -> None:
     """Configure ``index`` from a file's header and install its rows at
-    slots ``0..count``, in their stored representation (no cast), chunk by
+    slots ``0..count``, in their stored representation (no cast; f64 rows
+    rounded to the device's f32, with the exact host copy beside), chunk by
     chunk onto the device; the key map is rebuilt from the keys."""
     _configure(index, meta)
     count = int(meta["count"])
@@ -569,13 +578,18 @@ def _populate(index, meta: dict, keys: np.ndarray, rows: np.ndarray) -> None:
         return
     index.reserve(count)
     cols = rows.shape[1]
+    if index._is_set_index:
+        index._table[:, cols:] = -1
+    if index._dtype == ScalarKind.F64:
+        index._host_f64 = np.zeros((index._capacity, index._ndim), dtype=np.float64)
+        index._host_f64[:count] = rows
     for lo in range(0, count, ROW_CHUNK):
         hi = min(lo + ROW_CHUNK, count)
         chunk = torch.from_numpy(np.array(rows[lo:hi]))  # a writable copy of (mapped) file bytes
         if index._dtype == ScalarKind.BF16:
             chunk = chunk.view(torch.bfloat16)
         index._table[lo:hi, :cols] = chunk.to(index._device)
-        index._stats[lo:hi] = row_stats(index._table[lo:hi], index._dtype)
+        index._stats[lo:hi] = row_stats(index._table[lo:hi], index._kind)
     index._valid[:count] = True
     slots = np.arange(count, dtype=np.int64)
     index._slot_keys[:count] = keys

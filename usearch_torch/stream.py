@@ -46,14 +46,15 @@ class TileStager:
     streams or events."""
 
     def __init__(self, host_rows: np.ndarray, host_valid: Optional[np.ndarray], tile_rows: int, width: int,
-                 file_dtype: torch.dtype, device: torch.device):
+                 file_dtype: torch.dtype, device: torch.device, pad_value: int = 0):
         self.rows, self.valid, self.tile_rows = host_rows, host_valid, tile_rows
         self.cuda = device.type == "cuda"
         cols = host_rows.shape[1]
         self._host = [torch.empty((tile_rows, width), dtype=file_dtype, pin_memory=self.cuda) for _ in range(2)]
         self._host_valid = [torch.empty(tile_rows, dtype=torch.bool, pin_memory=self.cuda) for _ in range(2)]
+        self.pad_value = pad_value
         for buf in self._host:
-            buf[:, cols:] = 0  # the stored width's zero padding; fills write only the file's columns
+            buf[:, cols:] = pad_value  # the stored width's padding (-1 for sets); fills write only the file's columns
         self._host_np = [buf.numpy() for buf in self._host]
         self._tiles = [torch.empty((tile_rows, width), dtype=file_dtype, device=device) for _ in range(2)]
         self._tile_valid = [torch.empty(tile_rows, dtype=torch.bool, device=device) for _ in range(2)]
@@ -74,7 +75,7 @@ class TileStager:
         n = hi - lo
         buf = self._host_np[s]
         np.copyto(buf[:n, : self.rows.shape[1]], self.rows[lo:hi], casting="no")
-        buf[n:] = 0
+        buf[n:] = self.pad_value
         valid = self._host_valid[s].numpy()
         valid[n:] = False
         valid[:n] = True if self.valid is None else self.valid[lo:hi]
@@ -104,20 +105,23 @@ class TileStager:
 
 
 def streamed_search(metric, kind: ScalarKind, q: torch.Tensor, host_rows: np.ndarray, ndim: int, k: int,
-                    host_valid: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    host_valid: Optional[np.ndarray] = None, metric_fn=None,
+                    pad_value: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of prepared queries ``q [Q, W]`` (on the search's device)
     against ``host_rows [N, columns]``, the stored rows of a file (bf16 as
-    its int16 bits), ``host_valid [N]`` the rows a filter admits: ``[Q, k]``
-    f32 distances and i32 rows, -1 where none. The host fills every tile
+    its int16 bits; int32 sets padded with ``pad_value`` -1), ``host_valid
+    [N]`` the rows a filter admits, under ``metric`` or the user-defined
+    ``metric_fn``: ``[Q, k]`` f32 distances and i32 rows, -1 where none.
+    The host fills every tile
     and a fill waits for the upload two tiles back, so this returns with
     at most the last two tiles' uploads and searches still in flight: a
     streamed `search_async` blocks for about the whole search."""
     tile_rows = DEFAULT_TILE_ROWS
     n, width = host_rows.shape[0], q.shape[1]
     file_dtype = torch.from_numpy(np.empty(0, host_rows.dtype)).dtype
-    stager = TileStager(host_rows, host_valid, tile_rows, width, file_dtype, q.device)
-    storage = to_torch_dtype(kind)
-    plain_rows = pick_tile_rows(tile_rows, width * storage.itemsize)
+    stager = TileStager(host_rows, host_valid, tile_rows, width, file_dtype, q.device, pad_value)
+    storage = to_torch_dtype(kind) if kind == ScalarKind.BF16 else file_dtype
+    plain_rows = pick_tile_rows(tile_rows, width * storage.itemsize, metric, ndim, q.shape[0], metric_fn)
     while tile_rows % plain_rows:
         plain_rows //= 2
     k_tile = min(k, tile_rows)
@@ -135,7 +139,8 @@ def streamed_search(metric, kind: ScalarKind, q: torch.Tensor, host_rows: np.nda
         for i in range(n_tiles):
             tile, valid = stager.take(i)
             tile = tile.view(storage)
-            d, rows = search_kernel(metric, kind, q, tile, row_stats(tile, kind), valid, ndim, k_tile, plain_rows)
+            d, rows = search_kernel(metric, kind, q, tile, row_stats(tile, kind), valid, ndim, k_tile, plain_rows,
+                                    metric_fn=metric_fn)
             stager.release(i)
             rows = rows.long()
             best_d, best_i = merge_topk(best_d, best_i, d, torch.where(rows >= 0, rows + stager.span(i)[0], -1), k)
