@@ -152,6 +152,20 @@ Phases, each fatal on failure:
    IVF path's index within [512, 1024] clusters; `join` of 16,384 perturbed
    member rows against it, `exact=True` (B2 must launch) and probed (B3
    must launch), at least 90% of the proposers matched; each piece timed;
+   (i) the sharded index (SHARDED): 2**20 unit rows x 256 in an i8 ip
+   `ShardedIndex` on `make_mesh(4)` (4 shards of 262,144 rows on the one
+   card), 1,024 member queries searched exactly (B2 once a shard and no
+   other kernel; keys equal to a single-device `Index.search(exact=True)`
+   over the same rows apart from ties), `optimize(256)` per shard, 16,384
+   member queries probed at `expansion_search` 1,024 (B3 once a shard and
+   no other kernel, recall@1 >= 0.99, recall@10 against the exact answer
+   printed beside the plain core's, ``PROBE_MODE = "xla"``), the same
+   search through B3's plain version equal, the host syncs of one search;
+   4,096 rows added and found through B2, 1% of the keys removed and never
+   returned, `optimize` again, saved and loaded, the loaded pool searching
+   bit for bit as the saved one; then a process group of one over NCCL
+   (`distributed_initialize`), the exact search through the all-gather
+   equal to the search without a group; each piece timed;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time and one library call's time as a yardstick (none for the probe
@@ -164,7 +178,11 @@ Phases, each fatal on failure:
    f32 `torch.matmul` (TF32 off); and a profile of one warm search of each
    path and flavour, the f32 IVF path, the flat-scan flavours over i8 and
    f32, both exact paths and the lifecycle's 8,192-partition IVF included
-   (B3 also at that IVF's pairs);
+   (B3 also at that IVF's pairs); B2 and B3 at one shard of the sharded
+   index (262,144 rows, Q=1,024 and the probed search's pairs), and its
+   exact and probed searches profiled, timed beside the single-device
+   index's over the same rows, and split into the shards' work, the merge
+   and the host;
 5. the TPU micro-benchmarks of scripts/, each a path of its own: the
    modules `python -m usearch_torch.microbench.i8_matmul_probe`,
    `select_microbench` and `probe_v2_bisect` at their scripts' shapes, the
@@ -197,11 +215,13 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import datetime
 import importlib
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -213,6 +233,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -228,6 +249,8 @@ from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits
 from usearch_torch.ops.topk import masked_topk
+from usearch_torch.parallel import sharded
+from usearch_torch.parallel.mesh import distributed_initialize, make_mesh
 
 #: modules whose functions phase 3 times (the package's name `kmeans` is
 #: the clustering function, not its module)
@@ -330,6 +353,13 @@ TAIL = dict(hav_n=1 << 20, div_n=1 << 20, div_w=64, div_anchors=4096, set_n=1 <<
             expansion={"haversine": 1024, "divergence": 1024, "jaccard": 512, "udf": 512},
             bars={"haversine": 0.9, "divergence": 0.9, "jaccard": 0.85}, udf_rtol=2e-3,
             cluster=(512, 1024), join_n=16384, proposals=16, join_noise=0.02)
+#: phase 3 (i): the sharded index at bench.py's width: 2**20 unit rows x
+#: 256 in an i8 ip `ShardedIndex` of 4 shards on the one card (262,144 rows
+#: each), `exact_q` member queries searched exactly, `optimize(partitions)`
+#: per shard, `q` member queries probed at `expansion`, `fresh` rows added
+#: and `removed` of the keys removed
+SHARDED = dict(n=1 << 20, w=256, shards=4, exact_q=1024, q=16384, k=10, partitions=256, expansion=1024,
+               fresh=4096, removed=0.01)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -3037,6 +3067,242 @@ def drive_metric_tail(dev, ivf_run: dict, card: str) -> None:
     log(f"  step (h) {time.perf_counter() - t_step:.1f} s; {card}")
 
 
+def sharded_plain_probe(pool, queries, k: int, expansion: int):
+    """``pool``'s probed search with B3's plain version bound in the
+    kernel's place: the matches and each shard's probe arguments; fails if
+    a probe kernel launched or a shard did not probe once."""
+    calls = []
+
+    def plain(*args):
+        calls.append(args)
+        return probe.grouped_probe_plain(*args)
+
+    before = [kern.launches for kern in PROBE_KERNELS]
+    ivf.grouped_probe = plain
+    try:
+        m = pool.search(queries, k, expansion_search=expansion)
+    finally:
+        ivf.grouped_probe = probe.grouped_probe
+    if [kern.launches for kern in PROBE_KERNELS] != before or len(calls) != len(pool.mesh.devices):
+        fail(f"the sharded plain-probe search launched a probe kernel or probed {len(calls)} times")
+    return m, calls
+
+
+def only_launched(label: str, launches: dict, kern: str, times: int) -> None:
+    """``kern`` launched ``times`` times and no other kernel did."""
+    if launches[kern] != times or any(launches[name] for name in set(launches) - {kern}):
+        fail(f"{label}: {kern} did not launch {times} times alone: {launches}")
+
+
+def group_search(x, qx, want, spec, card: str) -> None:
+    """Phase 3 (i): a process group of one over NCCL
+    (`distributed_initialize`, tcp://127.0.0.1 at a free port), the pool
+    built again on a mesh merging over it, its exact search through the
+    all-gather equal bit for bit to ``want`` (the search without a group)
+    and the host syncs inside it; the group destroyed."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    distributed_initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                           timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(spec["shards"])
+        if mesh.group is None or dist.get_backend(mesh.group) != "nccl":
+            fail(f"the mesh does not merge over the NCCL group: {mesh}")
+        pool = sharded.ShardedIndex.build(x, metric="ip", dtype="i8", mesh=mesh)
+        q, _ = pool._queries(qx)
+        pool.search(qx, spec["k"], exact=True)  # warm: NCCL's first collective sets up its communicator
+        zero_counters()
+        got, search_s = timed(lambda: pool.search(qx, spec["k"], exact=True))
+        only_launched("the group's exact search", counters(), "binned_minima", spec["shards"])
+        sites, _ = sync_sites(lambda: pool._search_prepared(q, spec["k"], True, spec["expansion"]))
+        if not same_search(got, want):
+            fail(f"the search through the all-gather differs at {int((got.keys != want.keys).sum())} places")
+        log(f"  a group of one over NCCL ({mesh}): the exact search of {qx.shape[0]} queries through the "
+            f"all-gather {search_s * 1e3:.1f} ms, equal bit for bit to the search without a group; host syncs "
+            f"inside it before the read-back: {len(sites)} {sorted(set(sites))}; {time.perf_counter() - t0:.1f} s "
+            f"with the group's setup ({card})")
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_sharded(dev, card: str) -> dict:
+    """Phase 3 (i), the sharded index (SHARDED), each piece timed: build on
+    `make_mesh(4)`, the exact search of member queries (B2 once a shard and
+    no other kernel, keys equal to a single-device `Index.search(exact=True)`
+    over the same rows apart from ties), `optimize` per shard, the probed
+    search of member queries (B3 once a shard and no other kernel, recall@1
+    >= 0.99, recall@10 against the exact answer beside the plain core's,
+    ``PROBE_MODE = "xla"``; equal to the search through B3's plain
+    version), the host syncs of one search; fresh rows found through B2,
+    1% of the keys removed and never returned, `optimize` again, save and
+    load, the loaded pool searching bit for bit as the saved one; then the
+    search through a process group (`group_search`)."""
+    t_step = time.perf_counter()
+    spec = SHARDED
+    n, w, k, shards, e = spec["n"], spec["w"], spec["k"], spec["shards"], spec["expansion"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    x = unit_rows(n, w, gen, dev)
+    pool, build_s = timed(lambda: sharded.ShardedIndex.build(x, metric="ip", dtype="i8", mesh=make_mesh(shards)))
+    if pool._per != n // shards or len(pool) != n:
+        fail(f"the sharded build holds {len(pool)} rows in shards of {pool._per}")
+    member = torch.randperm(n, generator=gen, device=dev)[: spec["q"]]
+    want = member.cpu().numpy().astype(np.uint64)
+    qx = x[member[: spec["exact_q"]]]
+    pool.search(qx, k, exact=True)  # warm
+    zero_counters()
+    exact, exact_s = timed(lambda: pool.search(qx, k, exact=True))
+    exact_launches = counters()
+    only_launched("the sharded exact search", exact_launches, "binned_minima", shards)
+    single = Index(ndim=w, metric="ip", dtype="i8", device=dev)
+    single.add(None, x)
+    single.search(qx, k, exact=True)  # warm
+    one, one_s = timed(lambda: single.search(qx, k, exact=True))
+    if not ties_aside(exact, one):
+        fail("the sharded exact search differs from the single-device exact search beyond ties")
+    log(f"  sharded i8 ip {n} x {w} on {pool.mesh}: build {build_s:.2f} s; exact search of {qx.shape[0]} member "
+        f"queries {exact_s * 1e3:.1f} ms (single-device {one_s * 1e3:.1f} ms), equal to the single-device "
+        f"`search(exact=True)` apart from ties, recall@1 {np.mean(exact.keys[:, 0] == want[: qx.shape[0]]):.4f}; "
+        f"launches {exact_launches}")
+
+    _, opt_s = timed(lambda: pool.optimize(n_partitions=spec["partitions"]))
+    iv = pool._ivf
+    nprobe = pool.nprobe_for(e)
+    queries = x[member]
+    pool.search(x[torch.randperm(n, generator=gen, device=dev)[: spec["q"]]], k, expansion_search=e)  # warm
+    zero_counters()
+    m, probe_s = timed(lambda: pool.search(queries, k, expansion_search=e))
+    probe_launches = counters()
+    only_launched("the sharded probed search", probe_launches, "grouped_probe", shards)
+    gt = pool.search(qx, k, exact=True)
+    recall1, recall10 = recall_at(m, want, gt.keys, k)
+    ivf.PROBE_MODE = "xla"
+    try:
+        mx, xla_s = timed(lambda: pool.search(qx, k, expansion_search=e))
+    finally:
+        ivf.PROBE_MODE = "group"
+    _, xla10 = recall_at(mx, want[: qx.shape[0]], gt.keys, k)
+    log(f"  optimize({spec['partitions']} per shard) {opt_s:.2f} s: {iv['c_max']} chunks a shard at most, longest "
+        f"{iv['p_win']} rows, {iv['avg_rows']:.1f} rows a chunk on average; probed search of {queries.shape[0]} "
+        f"member queries at nprobe {nprobe} a shard {probe_s * 1e3:.1f} ms = {queries.shape[0] / probe_s:.0f} QPS, "
+        f"recall@1 {recall1:.4f}, recall@10 against the exact answer ({qx.shape[0]} queries) {recall10:.4f}, the "
+        f"plain core's (PROBE_MODE xla, {xla_s:.2f} s) {xla10:.4f}; launches {probe_launches}")
+    if not np.all(np.isfinite(m.distances)) or m.keys.shape != (queries.shape[0], k) or recall1 < 0.99:
+        fail(f"sharded probed search: recall@1 {recall1:.4f}")
+    mp, calls = sharded_plain_probe(pool, queries, k, e)
+    if not same_search(mp, m):
+        fail(f"the sharded search through B3's plain version differs at {int((mp.keys != m.keys).sum())} places")
+    log(f"  the same search through B3's plain version: keys and distances equal ({calls[0][1].shape[0]} padded "
+        f"pairs a shard, k {calls[0][8]}, {calls[0][9]} per bin)")
+    q8, _ = pool._queries(queries)
+    probe_sites, _ = sync_sites(lambda: pool._search_prepared(q8, k, False, e))
+    read_sites, _ = sync_sites(lambda: pool.search(queries, k, expansion_search=e))
+    log(f"  host syncs inside one probed search: {len(probe_sites)} {sorted(set(probe_sites))} before the "
+        f"read-back, {len(read_sites)} {sorted(set(read_sites))} with it")
+
+    t0 = time.perf_counter()
+    new = unit_rows(spec["fresh"], w, gen, dev)
+    pool.add(None, new)
+    new_keys = np.arange(n, n + spec["fresh"], dtype=np.uint64)
+    zero_counters()
+    mf = pool.search(new, k)
+    fresh_launches = counters()
+    only_launched("the search after the adds", fresh_launches, "binned_minima", shards)
+    found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
+    if pool._ivf is not None or found < 1.0:
+        fail(f"after the adds: IVF dropped {pool._ivf is None}, fresh rows found {found:.4f}")
+    gone = torch.randperm(n, generator=gen, device=dev)[: int(n * spec["removed"])].cpu().numpy().astype(np.uint64)
+    removed = pool.remove(gone)
+    probe_q = x[torch.as_tensor(gone[: spec["exact_q"]].astype(np.int64), device=dev)]
+    hits = int(np.isin(pool.search(probe_q, k).keys, gone).sum())
+    _, reopt_s = timed(lambda: pool.optimize(n_partitions=spec["partitions"]))
+    hits += int(np.isin(pool.search(probe_q, k, expansion_search=e).keys, gone).sum())
+    mut_s = time.perf_counter() - t0
+    if hits or removed != len(gone) or len(pool) != n + spec["fresh"] - len(gone):
+        fail(f"after the removals: {hits} removed keys came back, {removed} removed, {len(pool)} live")
+    log(f"  {spec['fresh']} rows added: found through B2 ({found:.4f} as members, launches {fresh_launches}); "
+        f"{removed} keys removed: none comes back, exactly or probed after `optimize` again ({reopt_s:.2f} s); "
+        f"{mut_s:.2f} s")
+
+    saved = pool.search(queries, k, expansion_search=e)
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = os.path.join(tmp, "pool")
+        _, save_s = timed(lambda: pool.save(directory))
+        loaded, load_s = timed(lambda: sharded.ShardedIndex.load(directory, mesh=make_mesh(shards)))
+    got = loaded.search(queries, k, expansion_search=e)
+    if loaded._ivf is None or not same_search(got, saved):
+        fail(f"the loaded pool searches other than the saved one at {int((got.keys != saved.keys).sum())} places")
+    log(f"  saved in {save_s:.2f} s, loaded in {load_s:.2f} s with its IVF: the probed search equal bit for bit")
+
+    group_search(x, qx, exact, spec, card)
+    log(f"  step (i) {time.perf_counter() - t_step:.1f} s; {card}")
+    return dict(single=single, qx=qx, queries=queries, exact_launches=exact_launches, probe_launches=probe_launches)
+
+
+def sharded_rows(sh: dict, card: str) -> list:
+    """Phase 4 of the sharded index: a pool of step (i)'s rows as they were
+    before its updates (`from_index` of the single-device index, then
+    `optimize` per shard), its launches per search, B2 and B3 at one shard's
+    shapes (rows held, timed and bound as the other paths'; launches those
+    of step (i)), and each sharded search's wall and device time beside the
+    single-device index's (its IVF of `shards` times the partitions, no
+    spill), split into the shards' work, the merge and the host."""
+    spec = SHARDED
+    k, e, single, qx, queries = spec["k"], spec["expansion"], sh["single"], sh["qx"], sh["queries"]
+    pool = sharded.ShardedIndex.from_index(single, make_mesh(spec["shards"]))
+    q8, _ = pool._queries(qx)
+    b2 = kernel_row("binned_minima", "sharded i8 ip, one shard", "ip", q8, pool._tables[0], pool._stats[0],
+                    pool._valids[0], False, sh["exact_launches"]["binned_minima"], "i8")
+    pool.optimize(n_partitions=spec["partitions"])
+    single.optimize(n_partitions=spec["partitions"] * spec["shards"], reorder=True)
+    single.expansion_search = e
+    calls = []
+
+    def recorded(*args):
+        calls.append(args)
+        return probe.grouped_probe(*args)
+
+    per_search = {}
+    for exact, kern, qs in ((True, scan.binned_minima, qx), (False, probe.grouped_probe, queries)):
+        before = kern.launches
+        ivf.grouped_probe = recorded
+        try:
+            pool.search(qs, k, exact=exact, expansion_search=e)
+        finally:
+            ivf.grouped_probe = probe.grouped_probe
+        per_search[kern.__name__] = kern.launches - before
+    log(f"  launches per search, sharded i8 ip ({pool.mesh}): {per_search}")
+    b3 = b3_row(dict(launches=sh["probe_launches"], probe_args=calls[0]), label="sharded i8 ip, one shard")
+
+    iv = pool._ivf
+    for label, exact, qs in (("exact", True, qx), ("probed", False, queries)):
+        q, _ = pool._queries(qs)
+        args = dict(metric=pool.metric, kind=pool.kind, ndim=pool.ndim, k=k, mesh=pool.mesh)
+        if exact:
+            cands = lambda: sharded.exact_candidates(q, pool._tables, pool._stats, pool._valids,  # noqa: E731
+                                                     tile_rows=pool._per, **args)
+        else:
+            cands = lambda: sharded.probe_candidates(  # noqa: E731
+                q, iv["cents"], iv["starts"], iv["lens"], pool._tables, pool._stats, pool._valids,
+                nprobe=pool.nprobe_for(e), p_win=iv["p_win"], block=iv["block"], **args)
+        shards_ms = time_ms(cands, 3)
+        out = cands()
+        merge_ms = time_ms(lambda: sharded.merge_candidates(out, k, pool.mesh), 10)
+        search = lambda: pool.search(qs, k, exact=exact, expansion_search=e)  # noqa: E731
+        alone = lambda: single.search(qs, k, exact=exact)  # noqa: E731
+        search()
+        alone()
+        walls = [timed(fn)[1] * 1e3 for fn in (search, alone, alone, search)]  # in turns
+        busy = profile_call(search, f"sharded {label} search of {qs.shape[0]} queries")
+        busy_one = profile_call(alone, f"single-device {label} search of {qs.shape[0]} queries")
+        log(f"  sharded {label} search of {qs.shape[0]} queries: wall {walls[0]:.2f} and {walls[3]:.2f} ms "
+            f"(single-device {walls[1]:.2f} and {walls[2]:.2f} ms), device busy {busy:.2f} ms (single-device "
+            f"{busy_one:.2f} ms); the shards' work {shards_ms:.3f} ms, the merge {merge_ms:.3f} ms "
+            f"({merge_ms / (shards_ms + merge_ms):.1%} of the two), the host the rest of the wall; {card}")
+    return [b2, b3]
+
+
 def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None:
     """Device time by kernel over one warm search, and the device's idle
     share of the search's wall time (torch.profiler)."""
@@ -3044,9 +3310,10 @@ def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None
     profile_call(lambda: index.search(queries, k, exact=exact), label)
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str) -> float:
     """Device time by kernel over one warm call of ``fn``, and the device's
-    idle share of its wall time (torch.profiler)."""
+    idle share of its wall time (torch.profiler); returns the device's busy
+    milliseconds (0 when the profiler saw no device events)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3064,11 +3331,12 @@ def profile_call(fn, label: str) -> None:
     busy = sum(by_name.values())
     if busy == 0:
         log(f"  profile of {label}: wall {wall_ms:.2f} ms, device time not measured (no device events)")
-        return
+        return 0.0
     log(f"  profile of {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
         f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.3f} ms  {ms / busy:6.1%}  {name[:100]}")
+    return busy
 
 
 def main() -> int:
@@ -3124,6 +3392,8 @@ def main() -> int:
     drive_serving(dev, ivf_run, card)
     log("== phase 3: metric tail and host modules, " + card)
     drive_metric_tail(dev, ivf_run, card)
+    log("== phase 3: the sharded index, " + card)
+    sharded_run = drive_sharded(dev, card)
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -3207,6 +3477,7 @@ def main() -> int:
     f32_lib_ms = library_ms(qf, cx._table)
     rows += [flavour_row(name, comp, res["launches"], f32_lib_ms, f32_valid, "f32 cos", "tf32x3")
              for name, res in f32_flavours.items()]
+    rows += sharded_rows(sharded_run, card)
 
     log("== phase 5: micro-benchmarks, " + card)
     micro = drive_micro()

@@ -37,12 +37,18 @@ def test_entry_points_need_a_card_or_cpu():
     import numpy as np
 
     import usearch_torch
+    from usearch_torch.parallel.mesh import make_mesh
 
     with pytest.raises(RuntimeError):
         usearch_torch.Index(ndim=8)
     with pytest.raises(RuntimeError):
         usearch_torch.exact_search(np.zeros((4, 8), np.float32), np.zeros((1, 8), np.float32), 1)
+    with pytest.raises(RuntimeError):
+        make_mesh()
+    with pytest.raises(RuntimeError):
+        usearch_torch.ShardedIndex.build(np.zeros((4, 8), np.float32))
     assert len(usearch_torch.Index(ndim=8, device="cpu")) == 0
+    assert len(usearch_torch.ShardedIndex.build(np.zeros((4, 8), np.float32), mesh=make_mesh(2, device="cpu"))) == 4
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])

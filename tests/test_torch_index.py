@@ -275,12 +275,13 @@ def test_exact_search_entry_point():
 
 
 def test_unported_surface_raises():
-    """Only `ShardedIndex` (A.11) is left unported; `join`, `cluster`, a b1
-    index of a dot metric and a haversine index work since A.7b and A.9."""
+    """Nothing is left unported: `ShardedIndex` is the multi-device index of
+    `usearch_torch.parallel` (A.11), and `join`, `cluster`, a b1 index of a
+    dot metric and a haversine index work since A.7b and A.9."""
     import usearch_torch
+    from usearch_torch.parallel import sharded
 
-    with pytest.raises(NotImplementedError, match=r"A\.11"):
-        usearch_torch.ShardedIndex()
+    assert usearch_torch.ShardedIndex is sharded.ShardedIndex
     index = make_index(ndim=8, dtype="f32")
     index.add(None, np.eye(8, dtype=np.float32))
     assert index.join(index) == {k: k for k in range(8)}

@@ -1,12 +1,10 @@
 """Every public name of the JAX package is in the port: each name of
 `usearch_tpu.__all__` in `usearch_torch`, each public attribute of
-`usearch_tpu.Index` on the port's `Index`. A name the port has not ported
-yet raises `NotImplementedError` naming its ROADMAP item when it is called,
-constructed or read, never `AttributeError`."""
+`usearch_tpu.Index` on the port's `Index`, and none of them is a stub (a
+placeholder that raises `NotImplementedError` naming a ROADMAP item)."""
 
 import importlib
 import inspect
-import re
 
 import pytest
 
@@ -17,7 +15,6 @@ import usearch_tpu  # noqa: E402
 import usearch_torch  # noqa: E402
 
 INDEX_NAMES = sorted(n for n in dir(usearch_tpu.Index) if not n.startswith("_"))
-ROADMAP_ITEM = re.compile(r"ROADMAP queue [A-C]\.\d+[a-z]?\)")
 
 
 def unported(obj):
@@ -28,34 +25,18 @@ def unported(obj):
     return obj if getattr(obj, "roadmap", None) else None
 
 
-def assert_names_its_item(call, item: str):
-    with pytest.raises(NotImplementedError) as err:
-        call()
-    assert ROADMAP_ITEM.search(str(err.value)), str(err.value)
-    assert f"queue {item})" in str(err.value)
-
-
 @pytest.mark.parametrize("name", usearch_tpu.__all__)
 def test_package_name(name):
     assert hasattr(usearch_torch, name), f"usearch_torch lacks {name}"
     assert name in usearch_torch.__all__
-    stub = unported(getattr(usearch_torch, name))
-    if stub is not None:
-        assert_names_its_item(getattr(usearch_torch, name), stub.roadmap)
+    assert unported(getattr(usearch_torch, name)) is None, f"usearch_torch.{name} is still a stub"
 
 
 @pytest.mark.parametrize("name", INDEX_NAMES)
 def test_index_name(name):
     static = inspect.getattr_static(usearch_torch.Index, name, None)
     assert static is not None, f"usearch_torch.Index lacks {name}"
-    stub = unported(static)
-    if stub is None:
-        return
-    index = usearch_torch.Index(ndim=8, device="cpu")
-    if isinstance(static, property):
-        assert_names_its_item(lambda: getattr(index, name), stub.roadmap)
-    else:
-        assert_names_its_item(getattr(index, name), stub.roadmap)
+    assert unported(static) is None, f"usearch_torch.Index.{name} is still a stub"
 
 
 def test_ported_names_are_not_stubs():
@@ -66,4 +47,4 @@ def test_ported_names_are_not_stubs():
     for name in ("DEFAULT_CONNECTIVITY", "DEFAULT_EXPANSION_ADD", "DEFAULT_EXPANSION_SEARCH", "USES_OPENMP",
                  "USES_SIMSIMD", "USES_FP16LIB"):
         assert getattr(usearch_torch, name) == getattr(usearch_tpu, name)
-    assert callable(importlib.import_module("usearch_torch.kmeans").kmeans_fit)  # the fit behind the stub
+    assert callable(importlib.import_module("usearch_torch.kmeans").kmeans_fit)  # the fit behind `kmeans`

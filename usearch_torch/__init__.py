@@ -3,8 +3,7 @@
 The port of `usearch_tpu` to an NVIDIA H100: the same `Index` surface, with
 the scan kernels written in CUDA C++ (csrc/). Entry points run on the card
 unless given ``device="cpu"``; with no card they raise. Every public name of
-the JAX package is here; the one not ported yet (`ShardedIndex`) raises
-`NotImplementedError` naming its ROADMAP item.
+the JAX package is here, `ShardedIndex` (parallel/) included.
 """
 
 import numpy as np
@@ -23,14 +22,13 @@ from .enums import (
     ScalarKind,
 )
 from .exact import exact_search
-from .index import Index, IndexStats, _todo_class
+from .index import Index, IndexStats
 from .indexes import Indexes
 # the one-call clustering function; bound after its module is imported, so
 # it hides the module `usearch_torch.kmeans` here, as in the JAX package
 from .kmeans import kmeans
 from .matches import BatchMatches, Clustering, Key, Match, Matches
-
-ShardedIndex = _todo_class("ShardedIndex", "A.11")
+from .parallel.sharded import ShardedIndex
 
 
 def search(dataset, query, count: int = 10, metric=MetricKind.Cos, *, exact: bool = False, threads: int = 0,

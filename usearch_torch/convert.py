@@ -3,7 +3,8 @@
 The JAX package's index state is a handful of arrays; ``np.asarray`` of its
 attributes gives them as numpy. `index_from_arrays` builds a port `Index`
 holding the same rows, stats, deletions and keys, and `install_ivf` gives it
-the same built IVF, so both packages answer the same queries.
+the same built IVF, so both packages answer the same queries;
+`sharded_from_arrays` does the same for a `ShardedIndex`.
 """
 
 from __future__ import annotations
@@ -12,9 +13,12 @@ import numpy as np
 
 import torch
 
+from .enums import normalize_dtype, normalize_metric
 from .index import Index
 from .ivf import IVFPartitions
 from .ops.casts import as_tensor
+from .parallel.mesh import SHARD_AXIS, make_mesh
+from .parallel.sharded import ShardedIndex, _local_ivf
 
 #: the keys `index_from_arrays` reads
 STATE_KEYS = ("table", "stats", "valid", "slot_keys", "count", "next_slot", "free_slots",
@@ -89,3 +93,40 @@ def install_ivf(index: Index, state: dict) -> None:
     ivf.fresh_np = np.array(state["fresh"], dtype=np.int64)
     index._ivf = ivf
     index._ivf_dirty = False
+
+
+#: the keys `sharded_from_arrays` reads
+SHARDED_KEYS = ("table", "stats", "valid", "keys", "metric", "kind", "ndim")
+#: the keys of its optional ``ivf``
+SHARDED_IVF_KEYS = ("cents", "starts", "lens", "p_win", "block", "c_max", "avg_rows")
+
+
+def sharded_from_arrays(state: dict, mesh=None) -> ShardedIndex:
+    """A port `ShardedIndex` from a JAX one's numpy state, every slot where
+    it is: ``table [S per_shard, W]``, ``stats [S per_shard, 2]`` f32,
+    ``valid [S per_shard]`` bool and ``keys [S per_shard]`` u64 over ``S``
+    = the mesh's shards, ``metric``, ``kind`` and ``ndim``; and optionally
+    ``ivf``, a dict of ``cents [S c_max, W]`` f32, ``starts``/``lens [S
+    c_max]`` i32 and the statics ``p_win``, ``block``, ``c_max`` and
+    ``avg_rows``. ``mesh`` defaults to `make_mesh()`."""
+    missing = [k for k in SHARDED_KEYS if k not in state]
+    if missing:
+        raise KeyError(f"state lacks {missing}")
+    mesh = mesh or make_mesh()
+    table = as_tensor(np.asarray(state["table"]))
+    stats = as_tensor(np.asarray(state["stats"], dtype=np.float32))
+    per = table.shape[0] // mesh.shape[SHARD_AXIS]
+    parts = [(table[s * per : (s + 1) * per].to(dev), stats[s * per : (s + 1) * per].to(dev))
+             for s, dev in zip(mesh.shard_ids, mesh.devices)]
+    out = ShardedIndex._assemble(
+        mesh, normalize_metric(state["metric"]), normalize_dtype(state["kind"]), int(state["ndim"]),
+        [t for t, _ in parts], np.array(state["keys"], dtype=np.uint64), np.array(state["valid"], dtype=bool),
+        stats=[st for _, st in parts])
+    iv = state.get("ivf")
+    if iv is not None:
+        missing = [k for k in SHARDED_IVF_KEYS if k not in iv]
+        if missing:
+            raise KeyError(f"ivf state lacks {missing}")
+        out._ivf = _local_ivf(mesh, np.asarray(iv["cents"]), np.asarray(iv["starts"]), np.asarray(iv["lens"]),
+                              iv["p_win"], iv["block"], iv["c_max"], iv["avg_rows"])
+    return out

@@ -18,7 +18,7 @@ from .enums import MetricKind, ScalarKind, kind_of_dtype, normalize_dtype, norma
 from .matches import BatchMatches
 from .ops.casts import cast_vectors
 from .ops.distances import row_stats, tile_dists
-from .ops.scan import search_binned, search_exact, supports
+from .ops.scan import exact_steps, run_steps, search_binned, supports
 from .ops.topk import masked_topk, scan_topk
 
 #: row-tile target in bytes of the plain scan
@@ -105,22 +105,30 @@ def kernel_tiles(metric, kind, n_q: int, n_rows: int, k: int, approx: bool,
     return q_tile, t_tile
 
 
-def search_kernel(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_rows: int,
-                  approx: bool = False, metric_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of prepared queries against a prepared table: ``[Q, k]`` f32
-    distances and i32 rows (-1 where none). ``metric_fn`` is a
-    user-defined metric."""
+def search_steps(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_rows: int,
+                 approx: bool = False, metric_fn=None):
+    """`search_kernel` as a step generator: B2's exact search yields after
+    each launch group (`ops.scan.exact_steps`), every other route runs
+    whole at the first step; returns what `search_kernel` does."""
     if kernel_tiles(metric, kind, q.shape[0], table.shape[0], k, approx, metric_fn) is not None:
         if approx:
             # f32 storage ranks bins on bf16-rounded dots and rescores
             # scan.OVERSAMPLE * k candidates exactly (compact mode)
             compact = kind in (ScalarKind.F32, ScalarKind.F16)
             return search_binned(metric, q, table, stats, valid, k, compact=compact)
-        return search_exact(metric, q, table, stats, valid, k)
+        return (yield from exact_steps(metric, q, table, stats, valid, k))
     q_stats = row_stats(q, kind)
     if table.shape[0] <= tile_rows:
         return masked_topk(tile_dists(metric, kind, q, q_stats, table, stats, ndim, metric_fn), valid, k)
     return scan_topk(metric, kind, q, q_stats, table, stats, valid, k, tile_rows, ndim, approx, metric_fn)
+
+
+def search_kernel(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_rows: int,
+                  approx: bool = False, metric_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of prepared queries against a prepared table: ``[Q, k]`` f32
+    distances and i32 rows (-1 where none). ``metric_fn`` is a
+    user-defined metric."""
+    return run_steps(search_steps(metric, kind, q, table, stats, valid, ndim, k, tile_rows, approx, metric_fn))
 
 
 def exact_search(dataset, queries, count: int = 10, metric=MetricKind.IP, dtype=None, *,

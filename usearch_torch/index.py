@@ -208,23 +208,6 @@ class PendingSearch:
             pass
 
 
-def _todo(item: str):
-    """A name of the JAX package not ported yet: calling it raises naming
-    its ROADMAP item (kept on it as ``roadmap``)."""
-
-    def method(*args, **kwargs):
-        raise NotImplementedError(f"not ported yet (ROADMAP queue {item})")
-
-    method.roadmap = item
-    return method
-
-
-def _todo_class(name: str, item: str) -> type:
-    """A class of the JAX package not ported yet: constructing it raises."""
-    return type(name, (), {"__init__": _todo(item), "roadmap": item,
-                           "__doc__": f"Not ported yet (ROADMAP queue {item})."})
-
-
 class IndexStats:
     """Counters of an index: its rows as nodes, no edges (there is no
     graph), and the bytes it holds (`Index.memory_usage`)."""

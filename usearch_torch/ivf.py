@@ -36,7 +36,9 @@ of the JAX package's flavours, picked by `PROBE_MODE` at each search:
 - ``nofold``, and ``bin`` where B7 does not apply: kernel B5 with 4 per bin
   and an exact merge outside, for ``k <= 64`` on wide probe surfaces;
 - ``group`` (the default) and ``xla``, and ``nofold``/``bin`` otherwise:
-  the grouped probe, kernel B3, within the JAX package's working-set guard.
+  the grouped probe, kernel B3, within the JAX package's working-set guard
+  (a `ShardedIndex`'s shards take B3 in every flavour but ``xla``, which
+  gives them the plain probe).
 
 The rest (the other pairings, the metric tail, user-defined metrics,
 pearson, f16) go through a plain block-gather probe.
@@ -104,8 +106,11 @@ CHUNK_CAP = 4096
 #: fit (`kmeans_hierarchical`). Read at each build.
 MAX_PARTITIONS = 4096
 
-#: the dense probe's flavour, read at each search: "group", "nofold",
-#: "bin", "pair" or "xla" (the grouped probe, as in the JAX package)
+#: the dense probe's flavour, read at each search (`dense_probe`): "group",
+#: "nofold", "bin", "pair" or "xla". An `Index` takes "xla" as "group", as
+#: the JAX index's probe setting does; a `ShardedIndex`, whose shards take
+#: no other flavour, takes "xla" as the plain probe (the JAX sharded path's
+#: own core) and every other value as "group".
 PROBE_MODE = "group"
 PROBE_MODES = ("group", "nofold", "bin", "pair", "xla")
 #: ``bin``: rows per bin of kernel B7, rows kept per bin, and its selection,
@@ -437,6 +442,18 @@ def probe_bin_m(k: int, nprobe: int, w_pad: int) -> int:
     return min(4 if nprobe * (w_pad // 128) >= 8 * k else k, MAX_BIN_M)
 
 
+def padded_window(p_win: int) -> int:
+    """Rows of a probe's padded window: window starts align down to 128
+    rows, so it covers the longest window plus the shift."""
+    return max(((p_win + 127) // 128) * 128 + 128, 256)
+
+
+def grouped_fits(k: int, nprobe: int, w_pad: int) -> bool:
+    """The JAX package's guard on the grouped kernel's working set, kept as
+    it is so both packages take the same path."""
+    return (probe_bin_m(k, nprobe, w_pad) + 15) * w_pad * 512 <= 96 * 1024 * 1024
+
+
 def _merge_windows(d, ids, order, p0: int, n_q: int, k: int):
     """Per-pair candidates ``[P, t]`` back to (query, probe) order through
     the inverse permutation, merged exactly into each query's top-k."""
@@ -555,6 +572,62 @@ def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, sta
     dt = binary_dists(metric, inter, pop_q[:, None], pop_t)
     dt = torch.where((wi >= 0) & (d_h < MASKED / 2), dt, MASKED)
     return _merge_windows(dt, wi, order, p0, q.shape[0], k)
+
+
+def _binned_ok(metric, kind, table, valid, k: int, nprobe: int, w_pad: int, live_share) -> bool:
+    """Kernel B7's preconditions: i8 rows of at most `MAX_BINNED_WIDTH`, a
+    dot-selectable metric, enough bin winners to cover ``8 k``, and a mostly
+    live mask (B7 masks after its merge, not during selection);
+    ``live_share(valid)`` is asked last."""
+    return (kind == ScalarKind.I8 and metric in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq)
+            and table.shape[1] <= MAX_BINNED_WIDTH
+            and nprobe * BIN_KEEP * (w_pad // BIN_BW) >= 8 * k
+            and live_share(valid) >= BIN_LIVE_FLOOR)
+
+
+def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim: int, k: int, nprobe: int,
+                p_win: int, *, shard: bool = False, block: int = DENSE_BLOCK, all_live: bool = False, groups=None,
+                metric_fn=None, live_share=None):
+    """The dense layout's probe of an `Index` and of each shard of a
+    `ShardedIndex`: ``[Q, k]`` distances and table rows, in query chunks of
+    `PROBE_QCHUNK`. Inside the kernels' gates (the padded window within the
+    table, ``k <= 128``, ip/cos/l2sq over i8/bf16/f32 or the binary metrics
+    over b1, no user-defined metric; B6 takes batches of 8 queries),
+    tanimoto and sorensen take B5 and the re-rank, then the `PROBE_MODE`
+    flavour, then B3 under the JAX package's working-set guard; the rest
+    takes the plain probe of ``block``-row blocks. A ``shard`` takes no
+    other flavour: B3, or the plain probe under ``"xla"`` (see
+    `PROBE_MODE`). ``live_share(valid)`` serves ``bin``'s live floor."""
+    mode = PROBE_MODE
+    if mode not in PROBE_MODES:
+        raise ValueError(f"PROBE_MODE must be one of {PROBE_MODES}, got {mode!r}")
+    if q.shape[0] > PROBE_QCHUNK:
+        parts = [dense_probe(metric, kind, q[lo : lo + PROBE_QCHUNK], valid, centroids, table, stats, starts, lens,
+                             ndim, k, nprobe, p_win, shard=shard, block=block, all_live=all_live, groups=groups,
+                             metric_fn=metric_fn, live_share=live_share)
+                 for lo in range(0, q.shape[0], PROBE_QCHUNK)]
+        return torch.cat([d for d, _ in parts]), torch.cat([s for _, s in parts])
+    if shard:
+        mode = "plain" if mode == "xla" else "group"
+    w_pad = padded_window(p_win)
+    binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
+    if (mode != "plain" and w_pad <= table.shape[0] and k <= 128 and (binary or supports(metric, kind))
+            and metric_fn is None and (mode != "pair" or q.shape[0] % 8 == 0)):
+        args = (metric, kind, q, valid, centroids, table, stats, starts, lens, k, nprobe, w_pad)
+        if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
+            # hamming-selected (B5), re-ranked exactly; before the guard,
+            # as in the JAX package
+            return _ivf_probe_search_dense_binary(*args, groups)
+        if mode == "pair":
+            return _ivf_probe_search_dense_pair(*args, groups)
+        if mode == "bin" and _binned_ok(metric, kind, table, valid, k, nprobe, w_pad, live_share):
+            return _ivf_probe_search_dense_binned(*args, groups, BIN_BW, BIN_KEEP, BIN_SEL)
+        if mode in ("nofold", "bin") and k <= 64 and nprobe * (w_pad // LANES) >= 8 * k:
+            return _ivf_probe_search_dense_nofold(*args, groups)
+        if grouped_fits(k, nprobe, w_pad):
+            return _ivf_probe_search_dense_grouped(*args, all_live, groups)
+    return _ivf_probe_search_dense(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim, k, nprobe,
+                                   p_win, block, groups, metric_fn)
 
 
 # ----------------------------------------------------------------------
@@ -894,50 +967,7 @@ class IVFPartitions:
             self._live_cache = c = (valid, valid._version, int(valid.sum()) / max(valid.numel(), 1))
         return c[2]
 
-    def _binned_ok(self, index, valid, k: int, nprobe: int, w_pad: int) -> bool:
-        """Kernel B7's preconditions: i8 rows of at most `MAX_BINNED_WIDTH`,
-        a dot-selectable metric, enough bin winners to cover ``8 k``, and a
-        mostly live mask (B7 masks after its merge, not during selection)."""
-        return (index._kind == ScalarKind.I8
-                and index._metric_kind in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq)
-                and index._table.shape[1] <= MAX_BINNED_WIDTH
-                and nprobe * BIN_KEEP * (w_pad // BIN_BW) >= 8 * k
-                and self._live_share(valid) >= BIN_LIVE_FLOOR)
-
     def _search_dense(self, index, q, valid, k: int, nprobe: int, all_live: bool):
-        mode = PROBE_MODE
-        if mode not in PROBE_MODES:
-            raise ValueError(f"PROBE_MODE must be one of {PROBE_MODES}, got {mode!r}")
-        if q.shape[0] > PROBE_QCHUNK:
-            parts = [self._search_dense(index, q[lo : lo + PROBE_QCHUNK], valid, k, nprobe, all_live)
-                     for lo in range(0, q.shape[0], PROBE_QCHUNK)]
-            return torch.cat([d for d, _ in parts]), torch.cat([s for _, s in parts])
-        # window starts align down to 128 rows: the padded window covers
-        # the longest window plus the shift
-        w_pad = max(((self.p_win + 127) // 128) * 128 + 128, 256)
-        metric, kind = index._metric_kind, index._kind
-        # the probe kernels take ip/cos/l2sq over i8/bf16/f32, the binary
-        # metrics over b1, and k <= 128; B6 takes batches of 8 queries; a
-        # user-defined metric scores its gathered candidates
-        binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
-        if (w_pad <= int(index._capacity) and k <= 128 and (binary or supports(metric, kind))
-                and index._metric_fn is None and (mode != "pair" or q.shape[0] % 8 == 0)):
-            args = (metric, kind, q, valid, self.centroids, index._table, index._stats, self.starts, self.lens, k,
-                    nprobe, w_pad)
-            if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
-                # hamming-selected (B5), re-ranked exactly; before the guard,
-                # as in the JAX package
-                return _ivf_probe_search_dense_binary(*args, self._groups)
-            if mode == "pair":
-                return _ivf_probe_search_dense_pair(*args, self._groups)
-            if mode == "bin" and self._binned_ok(index, valid, k, nprobe, w_pad):
-                return _ivf_probe_search_dense_binned(*args, self._groups, BIN_BW, BIN_KEEP, BIN_SEL)
-            if mode in ("nofold", "bin") and k <= 64 and nprobe * (w_pad // LANES) >= 8 * k:
-                return _ivf_probe_search_dense_nofold(*args, self._groups)
-            # the JAX package's guard on the grouped kernel's working set,
-            # kept as it is so both packages take the same path
-            if (probe_bin_m(k, nprobe, w_pad) + 15) * w_pad * 512 <= 96 * 1024 * 1024:
-                return _ivf_probe_search_dense_grouped(*args, all_live, self._groups)
-        return _ivf_probe_search_dense(metric, kind, q, valid, self.centroids, index._table, index._stats,
-                                       self.starts, self.lens, index._ndim, k, nprobe, self.p_win, DENSE_BLOCK,
-                                       self._groups, index._metric_fn)
+        return dense_probe(index._metric_kind, index._kind, q, valid, self.centroids, index._table, index._stats,
+                           self.starts, self.lens, index._ndim, k, nprobe, self.p_win, all_live=all_live,
+                           groups=self._groups, metric_fn=index._metric_fn, live_share=self._live_share)

@@ -326,10 +326,16 @@ def scan_aux(metric, q, stats, valid):
     return q_sq, t_sq, penalty
 
 
+def _exact_acc(q: torch.Tensor) -> torch.dtype:
+    """The dtype that sums a row's products exactly: f64 for i8 rows wider
+    than f32 keeps integers exact, else f32."""
+    return torch.float64 if q.dtype == torch.int8 and q.shape[-1] > I8_F32_EXACT_WIDTH else torch.float32
+
+
 def _exact_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``[Q, W]`` . ``[Q, R, W]`` -> ``[Q, R]`` at full precision; an
     elementwise product and sum, so no matmul setting (TF32) can round it."""
-    acc = torch.float64 if q.dtype == torch.int8 and q.shape[-1] > I8_F32_EXACT_WIDTH else torch.float32
+    acc = _exact_acc(q)
     return (rows.to(acc) * q.to(acc)[:, None, :]).sum(dim=-1).float()
 
 
@@ -358,32 +364,50 @@ def search_binned(metric, q, table, stats, valid, k: int,
     return finish(d, rows.gather(1, sel))
 
 
-def search_exact(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k: bin minima (B2), the best ``k + 4`` bins, and every row
-    of them rescored, in query chunks of a fixed memory budget."""
+def exact_steps(metric, q, table, stats, valid, k: int):
+    """`search_exact` one launch group at a time: a generator that yields
+    after B2 and after each query chunk's rescore is launched, and returns
+    the ``[Q, k]`` distances and rows. Searches of several shards taken a
+    step each in turn launch every device's first work before any device's
+    last. The dots are `_exact_dots`', a chunk at a time."""
     q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
     vals = binned_minima(metric, q, table, q_sq, t_sq, penalty)
     n_q, n_bins = vals.shape
     width = table.shape[1]
     b = min(k + EXACT_BIN_SLACK, n_bins)
     _, bins = topk_min(vals, b)
+    yield
     t_blk = table.view(n_bins, LANES, width)
-    v_blk = valid.view(n_bins, LANES)
-    s_blk = stats[:, 0].reshape(n_bins, LANES)
-    lane = torch.arange(LANES, device=q.device)
+    acc = _exact_acc(q)
+    qa = q.to(acc)
+    dots = torch.empty((n_q, b * LANES), dtype=acc, device=q.device)
     chunk = max(8, min(512, _RESCORE_BUDGET // (b * LANES * (width * 4 + 8))))
-    out_d, out_i = [], []
     for lo in range(0, n_q, chunk):
         bc = bins[lo : lo + chunk]
         m = bc.shape[0]
-        dots = _exact_dots(q[lo : lo + chunk], t_blk[bc].reshape(m, b * LANES, width))
-        dist = dists_from_dots(metric, dots, q_sq[lo : lo + chunk, None], s_blk[bc].reshape(m, -1))
-        dist = torch.where(v_blk[bc].reshape(m, -1), dist, MASKED)
-        ids = (bc[:, :, None] * LANES + lane).reshape(m, -1)
-        d, sel = topk_min(dist, k)
-        out_d.append(d)
-        out_i.append(ids.gather(1, sel))
-    return finish(torch.cat(out_d), torch.cat(out_i))
+        rows = t_blk[bc].reshape(m, b * LANES, width).to(acc)  # a gathered copy: multiplied in place
+        torch.sum(rows.mul_(qa[lo : lo + m, None, :]), dim=-1, out=dots[lo : lo + m])
+        yield
+    t_sq_rows = stats[:, 0].reshape(n_bins, LANES)[bins].reshape(n_q, -1)
+    dist = dists_from_dots(metric, dots.float(), q_sq[:, None], t_sq_rows)
+    dist = torch.where(valid.view(n_bins, LANES)[bins].reshape(n_q, -1), dist, MASKED)
+    d, sel = topk_min(dist, k)
+    return finish(d, bins.gather(1, sel // LANES) * LANES + sel % LANES)
+
+
+def run_steps(steps):
+    """A step generator (`exact_steps`) run to its end: its result."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def search_exact(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k: bin minima (B2), the best ``k + 4`` bins, and every row
+    of them rescored, in query chunks of a fixed memory budget."""
+    return run_steps(exact_steps(metric, q, table, stats, valid, k))
 
 
 def search_fused(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
