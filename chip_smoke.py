@@ -7,8 +7,12 @@ against their plain versions.
 Phases, each fatal on failure:
 
 1. setup: the card's name and power limit, TF32 off, the kernels built from
-   usearch_torch/csrc (one nvcc per source, all started together), and the
-   SASS of the scan and fused libraries (cuobjdump -sass): every wgmma
+   usearch_torch/csrc (one nvcc per source, all started together; beside
+   them, on a thread, the C library of usearch_torch/cabi built by g++ and
+   its test.c and test.cpp run as programs on the card, step (j) reading
+   their results), and the SASS of the scan and fused libraries
+   (cuobjdump -sass, one process a library, all at once, on a thread while
+   phase 2 runs; checked after phase 2): every wgmma
    instantiation of B1/B2 and of B8/B9/B10 must hold its tensor-core
    product, IGMMA for i8, HGMMA for bf16 and compact f32, an HGMMA of TF32
    for B8/B9/B10 over f32 (the three-pass TF32 product), and B1/B2's SIMT
@@ -166,9 +170,27 @@ Phases, each fatal on failure:
    bit for bit as the saved one; then a process group of one over NCCL
    (`distributed_initialize`), the exact search through the all-gather
    equal to the search without a group; each piece timed;
+   (j) the C ABI (CABI): libusearch_torch.so loaded into this process
+   through ctypes, on the card (no USEARCH_TORCH_DEVICE); the IVF path's
+   index saved, `usearch_metadata` (ip, i8, 256), `usearch_init`,
+   `usearch_load`, `usearch_change_expansion_search(1024)`; 1,024 one-query
+   `usearch_search` calls of live member queries, each equal bit for bit to
+   `Index.search` of the query on the file restored in Python, recall@1 >=
+   0.99, B3 once a call and no other kernel, the median and p99 us a call
+   beside the Python one-query search's and `usearch_size`'s; 64
+   `usearch_filtered_search` calls against 10% of the keys equal to
+   `Index.search(filter=...)`; `usearch_view` of the file searching as the
+   loaded handle; `usearch_get` in i8 and f32 equal to `Index.get`; 1% of
+   the keys removed one call each, none returned; `usearch_exact_search`
+   over bench.py's 1M x 256 unit i8 rows in host memory with 16,384 member
+   queries, distances bit for bit and keys apart from ties against
+   `exact_search`, B2 launched, its upload share; 16,384 one-row
+   `usearch_add` calls into a fresh i8 ip index (adds/s), every row found
+   by an exact search; test.c and test.cpp exited 0 on the card;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
-   time and one library call's time as a yardstick (none for the probe
+   time (the hold's own call, synchronised) and one library call's time as
+   a yardstick (none for the probe
    kernels B3-B7); B3 also over the IVF pairs with queries and table in
    bf16, and at the pairs of a batch of 1,024 queries (that search through
    B3's plain version held equal to the kernel's); B3, B5 (`nofold`) and B6
@@ -214,6 +236,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import datetime
 import importlib
@@ -237,11 +260,12 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from usearch_torch import Index, build, ivf, keymap, persist
+from usearch_torch import Index, build, cabi, exact_search, ivf, keymap, persist
 from usearch_torch.client import IndexClient
 from usearch_torch.rpc import BinaryIndexClient, BinaryIndexServer
 from usearch_torch.server import IndexServer
 from usearch_torch.enums import CompiledMetric, MetricKind, ScalarKind, normalize_metric
+from usearch_torch.matches import BatchMatches
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
 from usearch_torch.ops import casts, microbench, probe, scan, tf32
@@ -360,6 +384,16 @@ TAIL = dict(hav_n=1 << 20, div_n=1 << 20, div_w=64, div_anchors=4096, set_n=1 <<
 #: and `removed` of the keys removed
 SHARDED = dict(n=1 << 20, w=256, shards=4, exact_q=1024, q=16384, k=10, partitions=256, expansion=1024,
                fresh=4096, removed=0.01)
+#: phase 3 (j): the C ABI (usearch_torch.cabi) in this process, on the IVF
+#: path's index saved to a file: `q` one-query searches at `expansion`,
+#: `filtered` filtered ones against `allowed` of the keys, `view_q` on a
+#: view, `get_keys` gets, `removed` of the keys removed (`removed_q` of
+#: them searched for after); usearch_exact_search over bench.py's 1M x 256
+#: unit i8 rows in host memory with `exact_q` member queries; `adds`
+#: one-row adds into a fresh index; the port's test.c and test.cpp as
+#: programs, each within `timeout` s
+CABI = dict(q=1024, k=10, expansion=1024, filtered=64, allowed=0.1, view_q=64, get_keys=64, removed=0.01,
+            removed_q=256, exact_q=16384, adds=16384, timeout=180)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -477,6 +511,15 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+#: perf_counter at the start of `main`
+T_START = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """The seconds since the start, after ``label``: where the run's time goes."""
+    log(f"-- {label} done at {time.perf_counter() - T_START:.1f} s")
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -582,14 +625,21 @@ def check_scan_edges(dev) -> None:
                                   (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
 
 
-def sass_functions(name: str) -> dict:
-    """The SASS of the built library of csrc/<name>.cu (cuobjdump -sass), by
+def sass_functions(names=("scan", "fused", "probe")) -> dict:
+    """The SASS of the built libraries of csrc/<name>.cu (cuobjdump -sass,
+    one process a library, all started together), by library and
     function."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
-    lib = build.build_all([name])[name]
-    sass = subprocess.run([str(exe), "-sass", str(lib)], check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    return dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    libs = build.build_all(names)
+    procs = {n: subprocess.Popen([str(exe), "-sass", str(libs[n])], stdout=subprocess.PIPE, text=True)
+             for n in names}
+    out = {}
+    for n, proc in procs.items():
+        sass, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            fail(f"cuobjdump -sass of {libs[n].name} exited {proc.returncode}")
+        out[n] = dict(block.split("\n", 1) for block in sass.split("Function : ")[1:])
+    return out
 
 
 def products(body: str, op) -> int:
@@ -599,7 +649,7 @@ def products(body: str, op) -> int:
     return sum(all(w in line for w in words) for line in body.splitlines())
 
 
-def check_scan_sass() -> dict:
+def check_scan_sass(sass: dict) -> dict:
     """Phase 1: the SASS of the built scan library holds a wgmma
     instantiation of B1/B2 for every storage type and mode, and the fused
     library one of B8/B9/B10 for every storage type, metric and flavour;
@@ -609,7 +659,7 @@ def check_scan_sass() -> dict:
     product; fused.cu's SIMT kernels are gone. Returns the count of product
     instructions by wgmma instantiation."""
     found = {}
-    for name, body in sass_functions("scan").items():
+    for name, body in sass["scan"].items():
         m = re.search(r"wgmma_scanI(a|13__nv_bfloat16|f)Li(\d)ELi(\d)ELb(\d)E", name)
         if m:
             kind, mode, metric, small = m.groups()
@@ -620,7 +670,7 @@ def check_scan_sass() -> dict:
     if have != want or any(n == 0 for n in found.values()):
         fail(f"scan.cu's wgmma instantiations lack their tensor-core product: {found}")
     simt = {}
-    for name, body in sass_functions("scan").items():
+    for name, body in sass["scan"].items():
         m = re.search(r"simt_scanILi(\d)E", name)
         if m:
             simt[f"simt mode {m.group(1)}"] = {op: len(re.findall(rf"\b{op}\b", body))
@@ -630,7 +680,7 @@ def check_scan_sass() -> dict:
             c[SIMT_SASS[0]] == 0 or any(c[op] for op in SIMT_SASS[1]) for c in simt.values()):
         fail(f"scan.cu's SIMT f32 kernel lacks FFMA or holds a tensor-core product: {simt}")
     fused, gone = {}, []
-    for name, body in sass_functions("fused").items():
+    for name, body in sass["fused"].items():
         m = re.search(r"fused_wgmmaI(a|13__nv_bfloat16|f)Li(\d)ELb(\d)ELi(\d)E", name)
         if m:
             kind, metric, small, flavour = m.groups()
@@ -645,7 +695,7 @@ def check_scan_sass() -> dict:
     return {**found, **fused}
 
 
-def check_probe_sass() -> dict:
+def check_probe_sass(sass: dict) -> dict:
     """Phase 1: the SASS of the built probe library holds the tensor-core
     kernel (`grouped_wgmma`) of B3, B5 and B6's lists for i8 (rows up to 256
     bytes and wider), bf16, f32 and packed b1 (hamming; B5 with lists of 8
@@ -654,7 +704,7 @@ def check_probe_sass() -> dict:
     no SIMT `grouped_probe_kernel` is left. Returns the count of product
     instructions by instantiation."""
     found, simt = {}, []
-    for name, body in sass_functions("probe").items():
+    for name, body in sass["probe"].items():
         m = re.search(r"grouped_wgmmaI(a|13__nv_bfloat16|h|f)Li(\d)ELi(\d+)ELi(\d)ELb(\d)E", name)
         if m:
             kind, metric, lists, flavour, small = m.groups()
@@ -2424,14 +2474,15 @@ def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, pe
         kern = lambda: scan.binned_scan(*args, compact=compact)
         plain = lambda: scan.binned_scan_plain(*args, compact=compact)
         out_bytes = (2 + 1) if compact else (4 + 4)
-        err = hold_b1(tag, args, compact, kern(), plain())
+        want, plain_ms = plain_timed(plain)
+        err = hold_b1(tag, args, compact, kern(), want)
     else:
         kern = lambda: scan.binned_minima(*args)
         plain = lambda: scan.binned_minima_plain(*args)
         out_bytes = 4
-        err = hold_b2(tag, args, kern(), plain())
+        want, plain_ms = plain_timed(plain)
+        err = hold_b2(tag, args, kern(), want)
     ms = time_ms(kern, 5)
-    plain_ms = time_ms(plain, 1)
     nq, (n, w) = q.shape[0], table.shape
     ops = 2.0 * nq * n * w
     nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + nq * (n // 128) * out_bytes
@@ -2472,9 +2523,9 @@ def b3_row(run, args=None, label: str = "i8 ip IVF", peak: str = "i8") -> dict:
     _, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k, bin_m = args
     n_pairs, (n_rows, w) = q_g.shape[0], table.shape
     tag = f"grouped_probe {label} P={n_pairs} k={k} bin_m={bin_m}"
-    err = hold_probe(tag, args, probe.grouped_probe(*args), probe.grouped_probe_plain(*args))
+    want, plain_ms = plain_timed(lambda: probe.grouped_probe_plain(*args))
+    err = hold_probe(tag, args, probe.grouped_probe(*args), want)
     ms = time_ms(lambda: probe.grouped_probe(*args), 5)
-    plain_ms = time_ms(lambda: probe.grouped_probe_plain(*args), 1)
     # bytes: every 128-row bin some window touches, read once with its aux
     # rows, plus the pairs' inputs and the [P, k] outputs; operations: each
     # window's own rows against its pair's query
@@ -2538,9 +2589,9 @@ def binary_row(run) -> dict:
     q_g, q_sq, table, win_start, win_len = args[1], args[2], args[3], args[-4], args[-3]
     n_pairs, (n_rows, w) = q_g.shape[0], table.shape
     tag = f"{name} b1 {run['index'].metric.value} IVF P={n_pairs}"
-    err = hold_exact(tag, name, kern(*args), plain(*args))
+    want, plain_ms = plain_timed(lambda: plain(*args))
+    err = hold_exact(tag, name, kern(*args), want)
     ms = time_ms(lambda: kern(*args), 5)
-    plain_ms = time_ms(lambda: plain(*args), 1)
     out_cols = args[8] if name == "grouped_probe" else probe.nofold_width(args[-1], args[-2])
     in_bytes = q_g.numel() + 4 * q_sq.numel() + 4 * n_pairs * (2 if name == "grouped_probe" else 3)
     # bytes: each touched bin's rows with their popcount and penalty, the
@@ -2577,7 +2628,8 @@ def mode_row(run, mode: str, label: str = "i8 ip IVF", peak: str = "i8") -> dict
         n_rows, w = table.shape
         n_pairs = q.shape[0]
         tag = f"{name} i8 ip IVF P={n_pairs} w_pad={w_pad} bw={bw} keep={keep} {sel}"
-        err = hold_exact(tag, "B7", kern(*args), plain(*args))
+        want, plain_ms = plain_timed(lambda: plain(*args))
+        err = hold_exact(tag, "B7", kern(*args), want)
         touched = touched_rows(n_rows, win_base, torch.full_like(win_base, w_pad))
         nbytes = touched * w + q.numel() + 4 * n_pairs + n_pairs * probe.binned_width(keep, w_pad, bw) * 8
         ops = 2.0 * w * w_pad * n_pairs
@@ -2596,14 +2648,14 @@ def mode_row(run, mode: str, label: str = "i8 ip IVF", peak: str = "i8") -> dict
             in_bytes, out_cols = 4 * 3 * q.shape[0], probe.nofold_width(bin_m, w_pad)
             tag = f"{name} {label} P={q.shape[0]} w_pad={w_pad} bin_m={bin_m}"
             source, replaces = "usearch_torch/csrc/probe.cu", "usearch_tpu/ops/pallas_probe.py:453"
-        err = hold_probe(tag, args, kern(*args), plain(*args), {"pair_probe": "B6"}.get(name, "B5"))
+        want, plain_ms = plain_timed(lambda: plain(*args))
+        err = hold_probe(tag, args, kern(*args), want, {"pair_probe": "B6"}.get(name, "B5"))
         row_bytes = w * table.element_size() + 4 * sum(x is not None for x in (t_sq, penalty))
         touched = touched_rows(n_rows, win_start, win_len)
         nbytes = (touched * row_bytes + q.numel() * q.element_size() + 4 * q_sq.numel() + in_bytes
                   + q.shape[0] * out_cols * 8)
         ops = 2.0 * w * float(win_len.sum())
     ms = time_ms(lambda: kern(*args), 3)
-    plain_ms = time_ms(lambda: plain(*args), 1)
     b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
     log(f"  {tag} W={w}: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {touched} table rows touched, "
         f"{nbytes / 1e9:.4f} GB, {ops / 1e9:.2f} G operations){simt_bound(peak, ops, nbytes)}, plain "
@@ -2634,17 +2686,18 @@ def flavour_row(name: str, run, launches: int, lib_ms: float, valid=None, label:
     tag = f"{kern.__name__} {label} Q={nq} N={n}"
     if kern is scan.binned_scan_lanes:
         call, plain = (lambda: kern(*args)), (lambda: scan.binned_scan_lanes_plain(*args))
-        (kv, ki), (pv, pi) = call(), plain()
+        (pv, pi), plain_ms = plain_timed(plain)
+        kv, ki = call()
         atol = tf32_atol(*args[:3]) if table.dtype == torch.float32 else FLOAT_ATOL
         err = hold_b1(tag, args, False, (kv.T, ki.T), (pv.T, pi.T), tag_name, atol)
         out_bytes = nq * (n // 128) * 8
     else:
         call, plain = (lambda: kern(*args, k)), (lambda: scan.fused_topk_plain(*args, k))
-        err = hold_probe(tag, args, call(), plain(), tag_name)
+        want, plain_ms = plain_timed(plain)
+        err = hold_probe(tag, args, call(), want, tag_name)
         out_bytes = nq * k * 8
     product = "wgmma tf32x3" if table.dtype == torch.float32 else "wgmma"
     ms = time_ms(call, 3)
-    plain_ms = time_ms(plain, 1)
     nbytes = (n + nq) * w * table.element_size() + 4 * (2 * n + nq) + out_bytes
     ops = 2.0 * nq * n * w
     b_ms, b_by = bound_ms(ops, PEAK_OPS[peak], nbytes)
@@ -3240,6 +3293,266 @@ def drive_sharded(dev, card: str) -> dict:
     return dict(single=single, qx=qx, queries=queries, exact_launches=exact_launches, probe_launches=probe_launches)
 
 
+def c_call(lib, name: str, *args):
+    """``name(*args, &error)`` of the C library; a set error fails the run."""
+    err = ctypes.c_char_p(None)
+    out = getattr(lib, name)(*args, ctypes.byref(err))
+    if err.value is not None:
+        fail(f"{name}: {err.value.decode()}")
+    return out
+
+
+def c_search(lib, handle, queries: np.ndarray, kind: int, k: int, allowed=None):
+    """One C search per query row: keys, distances, each call's seconds."""
+    n = queries.shape[0]
+    keys, dists, secs = np.zeros((n, k), np.uint64), np.zeros((n, k), np.float32), np.zeros(n)
+    kp, dp = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_float)
+    for i in range(n):
+        t0 = time.perf_counter()
+        if allowed is None:
+            got = c_call(lib, "usearch_search", handle, queries[i].ctypes.data, kind, k, keys[i].ctypes.data_as(kp),
+                         dists[i].ctypes.data_as(dp))
+        else:
+            got = c_call(lib, "usearch_filtered_search", handle, queries[i].ctypes.data, kind, k,
+                         allowed.ctypes.data_as(kp), len(allowed), keys[i].ctypes.data_as(kp),
+                         dists[i].ctypes.data_as(dp))
+        secs[i] = time.perf_counter() - t0
+        if got != k:
+            fail(f"a C search returned {got} matches, not {k}")
+    return keys, dists, secs
+
+
+def us(secs) -> str:
+    p50, p99 = np.percentile(np.asarray(secs) * 1e6, [50, 99])
+    return f"median {p50:.1f} us, p99 {p99:.1f} us"
+
+
+def run_c_programs() -> dict:
+    """The port's test.c and test.cpp built over the library and run as
+    programs on the card (no USEARCH_TORCH_DEVICE), both at once, each
+    within CABI["timeout"]: exit codes, outputs, seconds. Phase 1 runs this
+    on a thread while nvcc builds the kernels (the programs need none of
+    them); step (j) reads the result."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cabi_programs_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        cabi.build()
+        lib_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        progs = {name: cabi.build_program(cabi.SRC_DIR / name, tmp / name.replace(".", "_"))
+                 for name in ("test.c", "test.cpp")}
+        build_s = time.perf_counter() - t0
+        env = dict(os.environ)
+        env.pop("USEARCH_TORCH_DEVICE", None)
+        root = str(Path(__file__).resolve().parent)
+        site = [p for p in sys.path if p.endswith(("site-packages", "dist-packages"))]
+        env["PYTHONPATH"] = os.pathsep.join([root, *site])
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen([str(exe), str(tmp / f"{name}.usearch")], env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True) for name, exe in progs.items()}
+        out = {}
+        try:
+            for name, proc in procs.items():
+                try:
+                    text, _ = proc.communicate(timeout=CABI["timeout"])
+                except subprocess.TimeoutExpired:
+                    fail(f"{name} did not finish within {CABI['timeout']} s")
+                out[name] = (proc.returncode, text.strip())
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return dict(out=out, lib_s=lib_s, build_s=build_s, run_s=time.perf_counter() - t0)
+
+
+def drive_cabi(dev, ivf_run: dict, card: str, programs) -> None:
+    """Phase 3 (j), the C ABI (`usearch_torch.cabi`, CABI): libusearch_torch.so
+    built (g++) and loaded into this process through ctypes, its helper on
+    the card (no USEARCH_TORCH_DEVICE). The IVF path's i8 index saved to a
+    file: `usearch_metadata` (ip, i8, 256), `usearch_init`, `usearch_load`,
+    `usearch_change_expansion_search`; one-query `usearch_search` calls of
+    live member queries, each equal bit for bit to `Index.search` of the
+    query on the same file restored in Python (recall@1 >= 0.99), B3 once a
+    call and no other kernel (counters zeroed just before, read just after),
+    their times beside the Python one-query search's and a call that
+    searches nothing (`usearch_size`); filtered searches against 10% of the
+    keys equal to `Index.search(filter=...)`; `usearch_view` of the file
+    searching as the loaded handle; `usearch_get` in i8 and f32 equal to
+    `Index.get`; 1% of the keys removed one call each, none coming back.
+    `usearch_exact_search` over bench.py's 1M x 256 i8 rows in host memory
+    with 16,384 member queries equal to `exact_search` (distances bit for
+    bit, keys apart from ties), the kernels it launched and its upload
+    share; 16,384 one-row `usearch_add` calls into a fresh i8 ip index, every
+    row found by an exact search; and the port's test.c and test.cpp as
+    programs on the card, each exiting 0 (``programs``: the future of
+    `run_c_programs`, started in phase 1)."""
+    t_step = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = cabi.library()
+    load_lib_s = time.perf_counter() - t0
+    kinds, metrics = cabi.SCALARS, cabi.METRICS
+    k, e, tmp = CABI["k"], CABI["expansion"], Path(tempfile.mkdtemp(prefix="chip_smoke_cabi_"))
+    try:
+        progs = programs.result()
+        log(f"  libusearch_torch.so built (g++) in {progs['lib_s']:.2f} s in phase 1, loaded in {load_lib_s:.2f} s; "
+            f"test.c and test.cpp built in {progs['build_s']:.2f} s and run at once on the card in "
+            f"{progs['run_s']:.1f} s, during the kernels' build:")
+        for name, (rc, text) in progs["out"].items():
+            log(f"    {name}: exit {rc}: {text[-300:]}")
+            if rc != 0:
+                fail(f"the port's {name} exited {rc} on the card")
+        if "NVIDIA" not in progs["out"]["test.c"][1]:
+            fail("test.c did not run on the card")
+
+        index, gen = ivf_run["index"], np.random.default_rng(SEED + 31)
+        path = tmp / "ivf.usearch"
+        index.save(str(path))
+        opts = cabi.InitOptions()
+        c_call(lib, "usearch_metadata", str(path).encode(), ctypes.byref(opts))
+        if (opts.metric_kind, opts.quantization, opts.dimensions) != (metrics["ip"], kinds["i8"], IVF["w"]):
+            fail(f"usearch_metadata: {(opts.metric_kind, opts.quantization, opts.dimensions)}")
+        handle = c_call(lib, "usearch_init", ctypes.byref(opts))
+        t0 = time.perf_counter()
+        c_call(lib, "usearch_load", handle, str(path).encode())
+        load_s = time.perf_counter() - t0
+        c_call(lib, "usearch_change_expansion_search", handle, e)
+        hw = c_call(lib, "usearch_hardware_acceleration", handle).decode()
+        if hw != torch.cuda.get_device_name(0) or c_call(lib, "usearch_size", handle) != len(index):
+            fail(f"the C index: hardware {hw!r}, size {c_call(lib, 'usearch_size', handle)} of {len(index)}")
+        py = Index.restore(str(path), device=dev)
+        py.expansion_search = e
+        log(f"  the IVF path's index ({len(index)} rows, {path.stat().st_size / 2**20:.0f} MiB) saved; "
+            f"usearch_metadata (ip, i8, {opts.dimensions}), usearch_init, usearch_load {load_s:.2f} s, "
+            f"expansion_search {e}, on {hw}")
+
+        live = np.nonzero(~np.isin(ivf_run["want"], ivf_run["gone"]))[0][: CABI["q"]]
+        queries = np.ascontiguousarray(ivf_run["queries"][torch.as_tensor(live, device=dev)].cpu().numpy())
+        want = ivf_run["want"][live]
+        c_call(lib, "usearch_search", handle, queries[0].ctypes.data, kinds["f32"], k,  # warm
+               np.zeros(k, np.uint64).ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+               np.zeros(k, np.float32).ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        py.search(queries[0], k)
+        zero_counters()
+        keys, dists, c_secs = c_search(lib, handle, queries, kinds["f32"], k)
+        launches = counters()
+        if launches["grouped_probe"] != len(queries) or sum(launches.values()) != len(queries):
+            fail(f"{len(queries)} one-query C searches did not launch B3 once each and nothing else: {launches}")
+        py_secs, differ = np.zeros(len(queries)), 0
+        for i, q in enumerate(queries):
+            t0 = time.perf_counter()
+            m = py.search(q, k)
+            py_secs[i] = time.perf_counter() - t0
+            differ += int(not (np.array_equal(m.keys, keys[i]) and np.array_equal(m.distances, dists[i])))
+        size_secs = np.zeros(len(queries))
+        for i in range(len(queries)):
+            t0 = time.perf_counter()
+            c_call(lib, "usearch_size", handle)
+            size_secs[i] = time.perf_counter() - t0
+        recall1 = float(np.mean(keys[:, 0] == want))
+        log(f"  {len(queries)} one-query usearch_search calls, k={k}: {us(c_secs)} a call "
+            f"({len(queries) / c_secs.sum():.0f} calls/s); Python's Index.search of one query {us(py_secs)}; "
+            f"usearch_size {us(size_secs)}; recall@1 {recall1:.4f}; {differ} differ from Index.search; "
+            f"launches {launches}; {card}")
+        if differ or recall1 < 0.99:
+            fail(f"one-query C searches: {differ} differ from Index.search, recall@1 {recall1:.4f}")
+        one = queries[:1]
+        profile_call(lambda: c_search(lib, handle, one, kinds["f32"], k), "one one-query usearch_search call")
+
+        keyspace = py._live_keys()
+        allowed = np.sort(gen.choice(keyspace, int(len(keyspace) * CABI["allowed"]), replace=False)).astype(np.uint64)
+        fq = queries[: CABI["filtered"]]
+        fkeys, fdists, f_secs = c_search(lib, handle, fq, kinds["f32"], k, allowed)
+        differ = sum(not (np.array_equal(m.keys, fkeys[i]) and np.array_equal(m.distances, fdists[i]))
+                     for i, m in enumerate(py.search(q, k, filter=allowed) for q in fq))
+        if differ or not np.isin(fkeys, allowed).all():
+            fail(f"filtered C searches: {differ} differ from Index.search(filter=...)")
+        viewed = c_call(lib, "usearch_init", ctypes.byref(opts))
+        c_call(lib, "usearch_view", viewed, str(path).encode())
+        c_call(lib, "usearch_change_expansion_search", viewed, e)
+        vq = queries[: CABI["view_q"]]
+        vkeys, vdists, _ = c_search(lib, viewed, vq, kinds["f32"], k)
+        if not (np.array_equal(vkeys, keys[: len(vq)]) and np.array_equal(vdists, dists[: len(vq)])):
+            fail("usearch_view's searches differ from usearch_load's")
+        got_keys = gen.choice(keyspace, CABI["get_keys"], replace=False)
+        for key in got_keys.tolist():
+            for kind, dtype, want_row in (("i8", np.int8, py.get(key, "i8")), ("f32", np.float32, py.get(key))):
+                row = np.zeros(IVF["w"], dtype)
+                if c_call(lib, "usearch_get", handle, ctypes.c_uint64(key), 1, row.ctypes.data, kinds[kind]) != 1 \
+                        or not np.array_equal(row, want_row):
+                    fail(f"usearch_get({key}, {kind}) differs from Index.get")
+        log(f"  {len(fq)} usearch_filtered_search calls against {len(allowed)} allowed keys ({us(f_secs)} a call) "
+            f"equal to Index.search(filter=...); usearch_view's {len(vq)} searches equal to usearch_load's; "
+            f"usearch_get of {len(got_keys)} keys in i8 and f32 equal to Index.get")
+
+        gone = gen.choice(keyspace, int(len(keyspace) * CABI["removed"]), replace=False)
+        gone_rows = np.zeros((CABI["removed_q"], IVF["w"]), np.int8)
+        for i, key in enumerate(gone[: len(gone_rows)].tolist()):
+            c_call(lib, "usearch_get", handle, ctypes.c_uint64(key), 1, gone_rows[i].ctypes.data, kinds["i8"])
+        t0 = time.perf_counter()
+        removed = sum(c_call(lib, "usearch_remove", handle, ctypes.c_uint64(key)) for key in gone.tolist())
+        remove_s = time.perf_counter() - t0
+        rkeys, _, _ = c_search(lib, handle, gone_rows, kinds["i8"], k)
+        back = int(np.isin(rkeys, gone).sum())
+        log(f"  {len(gone)} usearch_remove calls in {remove_s:.2f} s ({len(gone) / remove_s:.0f}/s), {removed} rows "
+            f"removed; {len(gone_rows)} searches for them (i8 queries): {back} removed keys returned")
+        if removed != len(gone) or back or c_call(lib, "usearch_size", handle) != len(index) - len(gone):
+            fail(f"after usearch_remove: {removed} of {len(gone)} removed, {back} removed keys returned")
+        for h in (handle, viewed):
+            c_call(lib, "usearch_free", h)
+        del py
+
+        tgen = torch.Generator(device=dev).manual_seed(SEED + 32)
+        n, w, nq = IVF["n"], IVF["w"], CABI["exact_q"]
+        data = cast_rows(unit_rows(n, w, tgen, dev), ScalarKind.F32, ScalarKind.I8).cpu().numpy()
+        member = np.sort(torch.randperm(n, generator=tgen, device=dev)[:nq].cpu().numpy())
+        eq = np.ascontiguousarray(data[member])
+        ekeys, edists = np.zeros((nq, k), np.uint64), np.zeros((nq, k), np.float32)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_call(lib, "usearch_exact_search", data.ctypes.data, n, w, eq.ctypes.data, nq, w, kinds["i8"], w,
+               metrics["ip"], k, 0, ekeys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), k * 8,
+               edists.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), k * 4)
+        exact_s = time.perf_counter() - t0
+        launches = counters()
+        t0 = time.perf_counter()
+        torch.from_numpy(data).to(dev)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        m = exact_search(data, eq, k, metric="ip", device=dev)
+        ok = ties_aside(BatchMatches(keys=ekeys, distances=edists, counts=np.full(nq, k, np.uint64)), m)
+        recall1 = float(np.mean(ekeys[:, 0] == member))
+        log(f"  usearch_exact_search of {nq} member queries over {n} x {w} i8 rows in host memory, k={k}: "
+            f"{exact_s:.3f} s ({nq / exact_s:.0f} QPS), the upload of the rows alone {upload_s:.3f} s "
+            f"({upload_s / exact_s:.1%}); recall@1 {recall1:.4f}; against exact_search: "
+            f"{'distances bit for bit, keys apart from ties' if ok else 'DIFFERENT'}; launches {launches}; {card}")
+        if not ok or launches["binned_minima"] == 0:
+            fail(f"usearch_exact_search: equal to exact_search {ok}, launches {launches}")
+        del data
+
+        rows = unit_rows(CABI["adds"], w, tgen, dev).cpu().numpy()
+        fresh = c_call(lib, "usearch_init", ctypes.byref(cabi.InitOptions(
+            metric_kind=metrics["ip"], quantization=kinds["i8"], dimensions=w)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(len(rows)):
+            c_call(lib, "usearch_add", fresh, ctypes.c_uint64(i), rows[i].ctypes.data, kinds["f32"])
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        c_call(lib, "usearch_save", fresh, str(tmp / "adds.usearch").encode())
+        c_call(lib, "usearch_free", fresh)
+        found = Index.restore(str(tmp / "adds.usearch"), device=dev).search(rows, k, exact=True)
+        recall1 = float(np.mean(found.keys[:, 0] == np.arange(len(rows))))
+        log(f"  {len(rows)} one-row usearch_add calls (f32 rows into a fresh i8 ip index): {add_s:.2f} s = "
+            f"{len(rows) / add_s:.0f} adds/s; an exact search finds {recall1:.4f} of them first; {card}")
+        if recall1 < 1.0:
+            fail(f"rows added through usearch_add: recall@1 {recall1:.4f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  step (j) {time.perf_counter() - t_step:.1f} s; {card}")
+
+
 def sharded_rows(sh: dict, card: str) -> list:
     """Phase 4 of the sharded index: a pool of step (i)'s rows as they were
     before its updates (`from_index` of the single-device index, then
@@ -3344,13 +3657,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     log("== phase 1: setup")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("USEARCH_TORCH_DEVICE", None)  # the C library on the card, as a C caller gets it
+    programs = concurrent.futures.ThreadPoolExecutor(1).submit(run_c_programs)
     t0 = time.perf_counter()
     build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -3363,37 +3679,62 @@ def main() -> int:
     if not all(native.values()):
         fail(f"a native host helper did not build or load: {native}")
 
-    check_scan_sass()
-    check_probe_sass()
+    sass = concurrent.futures.ThreadPoolExecutor(1).submit(sass_functions)  # dumped while phase 2 runs
+    stamp("phase 1")
 
     log("== phase 2: kernels against their plain versions")
     check_kernels(dev)
+    stamp("check_kernels")
     check_scan_edges(dev)
+    stamp("check_scan_edges")
     check_probe(dev)
+    stamp("check_probe")
     check_probe_edges(dev)
+    stamp("check_probe_edges")
     check_binary_probe(dev)
+    stamp("check_binary_probe")
     check_pair(dev)
+    stamp("check_pair")
     check_binned(dev)
+    stamp("check_binned")
     check_flavours(dev)
+    stamp("check_flavours")
+    check_scan_sass(sass.result())
+    check_probe_sass(sass.result())
+    stamp("the SASS checks")
 
     log("== phase 3: main paths")
     head, comp = run_main_path(dev)
+    stamp("the flat paths")
     flavours = drive_flavours(head)
     f32_valid, f32_gone = f32_removal(comp, torch.Generator(device=dev).manual_seed(SEED + 12))
     f32_flavours = drive_flavours(comp, f32_valid, f32_gone)
+    stamp("the flat-scan flavours")
     ivf_run = drive_ivf(dev)
+    stamp("the i8 IVF path")
     f32_ivf = drive_f32_ivf(dev)
+    stamp("the f32 IVF path")
     binary = run_binary_paths(dev)
+    stamp("the binary paths")
     log("== phase 3: the index lifecycle, " + card)
     life = drive_lifecycle(dev, ivf_run, card)
+    stamp("step (a)-(d)")
     log("== phase 3: serving, " + card)
     streamed_row = drive_streamed(dev, card)
+    stamp("step (e)")
     drive_async(dev, ivf_run, card)
+    stamp("step (f)")
     drive_serving(dev, ivf_run, card)
+    stamp("step (g)")
     log("== phase 3: metric tail and host modules, " + card)
     drive_metric_tail(dev, ivf_run, card)
+    stamp("step (h)")
     log("== phase 3: the sharded index, " + card)
     sharded_run = drive_sharded(dev, card)
+    stamp("step (i)")
+    log("== phase 3: the C ABI, " + card)
+    drive_cabi(dev, ivf_run, card, programs)
+    stamp("step (j)")
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):
@@ -3432,6 +3773,7 @@ def main() -> int:
     for label, runs in (("i8", flavours), ("f32", f32_flavours)):
         per_search = {FLAVOURS[name][1].__name__: res["launches"] for name, res in runs.items()}
         log(f"  launches per search, the {label} flat-scan flavours: {per_search}")
+    stamp("phase 4's launches a search")
     ix, cx = head["index"], comp["index"]
     profile_search(ix, head["queries"], MAIN["k"], exact=False)
     profile_search(ix, head["queries"][: MAIN["exact_q"]], MAIN["k"], exact=True)
@@ -3454,6 +3796,7 @@ def main() -> int:
     f32_args = flavour_args(comp, f32_valid)
     for name, (search, _, _, _) in FLAVOURS.items():
         profile_call(lambda: search(*f32_args, COMPACT["k"]), f"{name} f32 cos search of {q8.shape[0]} queries")
+    stamp("phase 4's profiles")
     qf = cx._cast_device(comp["queries"], ScalarKind.F32)
     hl, cl = head["launches"], comp["launches"]
     rows = [
@@ -3478,12 +3821,14 @@ def main() -> int:
     rows += [flavour_row(name, comp, res["launches"], f32_lib_ms, f32_valid, "f32 cos", "tf32x3")
              for name, res in f32_flavours.items()]
     rows += sharded_rows(sharded_run, card)
+    stamp("phase 4")
 
     log("== phase 5: micro-benchmarks, " + card)
     micro = drive_micro()
     rows += loop_rows(dev, micro["i8_matmul_probe"])
     rows += select_rows(dev, micro["select_microbench"])
     rows += bisect_rows(dev, micro["probe_v2_bisect"])
+    stamp("phase 5")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"total {time.perf_counter() - t_start:.1f} s")
 
