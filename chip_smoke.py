@@ -126,10 +126,10 @@ Phases, each fatal on failure:
    without its shadow rows: recall@1 >= 0.99 over its live member queries,
    no removed key returned, every fresh row found; the files deleted.
    Serving, each step fatal and timed: (e) a streamed view at a real size
-   (STREAMED): 2**23 unit rows in an i8 ip index (2 GiB), saved and
+   (STREAMED): 2**22 unit rows in an i8 ip index (1 GiB), saved and
    `Index.restore(path, view=True, stream=True)`, 1,024 member queries at
    k=10 equal to the resident `search(exact=True)` apart from ties, through
-   B2 once a tile (64) and no other kernel, a filter (even keys) against the
+   B2 once a tile (32) and no other kernel, a filter (even keys) against the
    resident filtered search, `get` from the map, `add`/`remove` refused,
    the search's time beside the host copy of the rows out of the map into
    pinned memory and a pinned upload of the same bytes, a streamed
@@ -184,7 +184,7 @@ Phases, each fatal on failure:
    the keys removed one call each, none returned; `usearch_exact_search`
    over bench.py's 1M x 256 unit i8 rows in host memory with 16,384 member
    queries, distances bit for bit and keys apart from ties against
-   `exact_search`, B2 launched, its upload share; 16,384 one-row
+   `exact_search`, B2 launched, its upload share; 4,096 one-row
    `usearch_add` calls into a fresh i8 ip index (adds/s), every row found
    by an exact search; test.c and test.cpp exited 0 on the card;
 4. each kernel at each path's shapes: held against its plain version with
@@ -239,8 +239,10 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import datetime
+import faulthandler
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -258,13 +260,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
-from usearch_torch import Index, build, cabi, exact_search, ivf, keymap, persist
+from usearch_torch import Index, build, cabi, exact_search, graphs, ivf, keymap, persist
 from usearch_torch.client import IndexClient
 from usearch_torch.rpc import BinaryIndexClient, BinaryIndexServer
 from usearch_torch.server import IndexServer
 from usearch_torch.enums import CompiledMetric, MetricKind, ScalarKind, normalize_metric
+from usearch_torch.exact import pad_queries
 from usearch_torch.matches import BatchMatches
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
@@ -353,10 +356,11 @@ F32_REMOVED = 0.01
 #: saved and restored, then 1% of the keys removed and 4,096 rows added
 LIFECYCLE = dict(n=1 << 20, w=256, q=16384, k=10, partitions=8192, expansion=1024, gt_q=2048, removed=0.01,
                  fresh=4096)
-#: phase 3 (e): a streamed view of 2**23 unit rows x 256 i8 (2 GiB of rows,
-#: 64 tiles of stream.DEFAULT_TILE_ROWS), 1,024 member queries at k=10; and
-#: bench.py's streamed shape (bench.py:225-253: 2**18 rows, 1,024 queries)
-STREAMED = dict(n=1 << 23, w=256, q=1024, k=10, tiles=64, bench_n=1 << 18)
+#: phase 3 (e): a streamed view of 2**22 unit rows x 256 i8 (1 GiB of rows,
+#: 32 tiles of stream.DEFAULT_TILE_ROWS; 2**23 until step (k) came, whose
+#: time it pays for), 1,024 member queries at k=10; and bench.py's streamed
+#: shape (bench.py:225-253: 2**18 rows, 1,024 queries)
+STREAMED = dict(n=1 << 22, w=256, q=1024, k=10, tiles=32, bench_n=1 << 18)
 #: phase 3 (f): batches of member queries in flight at once on the IVF path's
 #: index; phase 3 (g): single-query requests over the binary RPC; every
 #: socket's and wait's timeout, s
@@ -390,10 +394,18 @@ SHARDED = dict(n=1 << 20, w=256, shards=4, exact_q=1024, q=16384, k=10, partitio
 #: view, `get_keys` gets, `removed` of the keys removed (`removed_q` of
 #: them searched for after); usearch_exact_search over bench.py's 1M x 256
 #: unit i8 rows in host memory with `exact_q` member queries; `adds`
-#: one-row adds into a fresh index; the port's test.c and test.cpp as
+#: one-row adds into a fresh index (16,384 until step (k) came, whose time
+#: the cut pays for, with step (e)'s); the port's test.c and test.cpp as
 #: programs, each within `timeout` s
 CABI = dict(q=1024, k=10, expansion=1024, filtered=64, allowed=0.1, view_q=64, get_keys=64, removed=0.01,
-            removed_q=256, exact_q=16384, adds=16384, timeout=180)
+            removed_q=256, exact_q=16384, adds=4096, timeout=180)
+#: phase 3 (k): whole-search capture (graphs.py): each path's eager body and
+#: its replay timed `reps` times each, in turns; the updates' IVF of `n`
+#: unit rows x 256 i8 (`partitions`, spill, `q` member queries), `removed`
+#: of its keys removed, `fresh` rows added, then `grow` rows (past its
+#: capacity: the IVF gives way to the flat search)
+CAPTURE = dict(reps=10, n=1 << 18, partitions=256, spill=0.05, expansion=1024, q=1024, k=10, removed=0.01,
+               fresh=1024, grow=80000)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -1800,6 +1812,46 @@ def same_search(got, want) -> bool:
     return np.array_equal(got.keys, want.keys) and np.array_equal(got.distances, want.distances)
 
 
+def eager_body(index, queries, k: int, exact: bool = False):
+    """The body ``index.search(queries, k, exact=exact)`` captures on the
+    card (graphs.py), called directly, each op launched from Python:
+    ``[Q, k]`` distances and slots of the padded queries."""
+    if not isinstance(queries, torch.Tensor):
+        queries = torch.from_numpy(np.ascontiguousarray(queries))
+    q = index._cast_device(*index._device_rows(queries))
+    approx, use_ivf = index._route(exact)
+    _, body, _ = index._search_plan(pad_queries(q.shape[0]), min(k, len(index)), index._valid, approx, use_ivf)
+    return body(index._padded_queries(q), index._valid)
+
+
+def eager_search(index, queries, k: int, exact: bool = False):
+    """`eager_body`'s result as ``index.search`` gives it."""
+    n = queries.shape[0]
+    d, slots = eager_body(index, queries, k, exact)
+    return index._finish_search(d[:n].cpu().numpy(), slots[:n].cpu().numpy(), n, False, math.inf, 0, None)
+
+
+def sharded_eager_prepared(pool, q, k: int, exact: bool = False, expansion: int = 64, merge: bool = True):
+    """The shards' searches ``pool.search`` captures, run eagerly on the
+    prepared queries ``q`` (`sharded.eager_candidates`), then the merge:
+    ``[Q, k]`` distances and global rows (``merge=False``: each shard's
+    candidates)."""
+    k = min(k, max(len(pool), 1), pool._per)
+    plans = pool._shard_plans(q.shape[0], k, exact, expansion)
+    cands = sharded.eager_candidates(plans, sharded._replicate(q, pool.mesh.devices))
+    return sharded.merge_candidates(cands, k, pool.mesh) if merge else cands
+
+
+def sharded_eager_search(pool, queries, k: int, exact: bool = False, expansion: int = 64):
+    """`sharded_eager_prepared`'s result as ``pool.search`` gives it."""
+    q, n = pool._queries(queries)
+    d, i = sharded_eager_prepared(pool, q, k, exact, expansion)
+    d, i = d[:n].cpu().numpy(), i[:n].cpu().numpy()
+    found = i >= 0
+    return BatchMatches(keys=np.where(found, pool._keys[np.clip(i, 0, None)], 0).astype(np.uint64), distances=d,
+                        counts=found.sum(axis=1).astype(np.uint64))
+
+
 def searched_through_b3(label: str, index, queries, k: int):
     """One search with the launch counters zeroed just before and read just
     after: B3 and no other kernel must launch."""
@@ -1999,7 +2051,7 @@ def ties_aside(got, want) -> bool:
 
 
 def drive_streamed(dev, card: str):
-    """Phase 3 (e), the streamed view at a real size (STREAMED): 2**23 unit
+    """Phase 3 (e), the streamed view at a real size (STREAMED): 2**22 unit
     rows in an i8 ip index on the card, saved, and `Index.restore(path,
     view=True, stream=True)`; 1,024 member queries at k=10 equal to the
     resident `search(exact=True)` apart from ties, through B2 once a tile
@@ -2312,9 +2364,9 @@ def tie_recall(got_d: np.ndarray, want_d: np.ndarray) -> float:
 
 
 def plain_probe_search(index, queries, k: int, name: str):
-    """`Index.search` with probe kernel ``name``'s plain version (its
-    wrapper in PROBE_KERNELS) bound in the kernel's place for this one
-    call. Returns the matches and the arguments of the probe; fails if a
+    """`Index.search`'s eager body (`eager_search`) with probe kernel
+    ``name``'s plain version (its wrapper in PROBE_KERNELS) bound in the
+    kernel's place for this one call. Returns the matches and the arguments of the probe; fails if a
     probe kernel launched or the probe ran other than once."""
     calls = []
     kern = getattr(probe, name)
@@ -2327,7 +2379,7 @@ def plain_probe_search(index, queries, k: int, name: str):
     before = [kern.launches for kern in PROBE_KERNELS]
     setattr(ivf, name, plain)
     try:
-        m = index.search(queries, k)
+        m = eager_search(index, queries, k)  # a replay would launch the kernel its graph holds
     finally:
         setattr(ivf, name, kern)
     if [kern.launches for kern in PROBE_KERNELS] != before or len(calls) != 1:
@@ -3121,8 +3173,8 @@ def drive_metric_tail(dev, ivf_run: dict, card: str) -> None:
 
 
 def sharded_plain_probe(pool, queries, k: int, expansion: int):
-    """``pool``'s probed search with B3's plain version bound in the
-    kernel's place: the matches and each shard's probe arguments; fails if
+    """``pool``'s probed search (its eager bodies, `sharded_eager_search`)
+    with B3's plain version bound in the kernel's place: the matches and each shard's probe arguments; fails if
     a probe kernel launched or a shard did not probe once."""
     calls = []
 
@@ -3133,7 +3185,7 @@ def sharded_plain_probe(pool, queries, k: int, expansion: int):
     before = [kern.launches for kern in PROBE_KERNELS]
     ivf.grouped_probe = plain
     try:
-        m = pool.search(queries, k, expansion_search=expansion)
+        m = sharded_eager_search(pool, queries, k, expansion=expansion)
     finally:
         ivf.grouped_probe = probe.grouped_probe
     if [kern.launches for kern in PROBE_KERNELS] != before or len(calls) != len(pool.mesh.devices):
@@ -3290,7 +3342,8 @@ def drive_sharded(dev, card: str) -> dict:
 
     group_search(x, qx, exact, spec, card)
     log(f"  step (i) {time.perf_counter() - t_step:.1f} s; {card}")
-    return dict(single=single, qx=qx, queries=queries, exact_launches=exact_launches, probe_launches=probe_launches)
+    return dict(single=single, qx=qx, queries=queries, exact_launches=exact_launches, probe_launches=probe_launches,
+                pool=pool)
 
 
 def c_call(lib, name: str, *args):
@@ -3383,7 +3436,7 @@ def drive_cabi(dev, ivf_run: dict, card: str, programs) -> None:
     `usearch_exact_search` over bench.py's 1M x 256 i8 rows in host memory
     with 16,384 member queries equal to `exact_search` (distances bit for
     bit, keys apart from ties), the kernels it launched and its upload
-    share; 16,384 one-row `usearch_add` calls into a fresh i8 ip index, every
+    share; 4,096 one-row `usearch_add` calls into a fresh i8 ip index, every
     row found by an exact search; and the port's test.c and test.cpp as
     programs on the card, each exiting 0 (``programs``: the future of
     `run_c_programs`, started in phase 1)."""
@@ -3553,6 +3606,263 @@ def drive_cabi(dev, ivf_run: dict, card: str, programs) -> None:
     log(f"  step (j) {time.perf_counter() - t_step:.1f} s; {card}")
 
 
+#: seconds between a profile's unmeasured call and its measured one. The
+#: runtime's and the device's events carry CUPTI's clock, which can stand
+#: off the host's: without a pause, the window of a call as short as the
+#: sharded merge (11 launches) once took in the unmeasured call's launches
+#: too (22). The window opens half the pause before the measured call.
+PROFILE_GAP_S = 0.05
+
+
+def profiled(fn):
+    """``(wall ms, events, launches)`` of one warm call of ``fn`` under
+    torch.profiler: the session's first call is not measured (a captured
+    search captures its graphs there: a session replays only graphs
+    captured within it, `graphs.profiler_epoch`), the second is,
+    `PROFILE_GAP_S` later; its events are those that start within its
+    window, its launches what each kernel wrapper's counter gained in it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_GAP_S)
+        before = counters()
+        with record_function("measured call"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = counters()
+    events = prof.events()
+    start = min(ev.time_range.start for ev in events if ev.name == "measured call") - PROFILE_GAP_S * 1e6 / 2
+    events = [ev for ev in events if ev.time_range.start >= start and ev.name != "measured call"]
+    return wall_ms, events, {name: after[name] - before[name] for name in after}
+
+
+#: the kernels of the captured paths by the name of their device function,
+#: and the wrappers that launch them
+CAPTURED_KERNELS = {"scan.cu": (("wgmma_scan", "simt_scan"), ("binned_scan", "binned_minima")),
+                    "probe.cu": (("grouped_wgmma",), ("grouped_probe", "grouped_probe_nofold"))}
+
+
+def api_profile(fn, label: str):
+    """One warm call of ``fn`` under torch.profiler (`profiled`): its wall
+    ms, device busy ms, idle share, the CUDA runtime's graph launches and
+    kernel launches (any ``*LaunchKernel*`` call) on the host, and, for
+    each source of CAPTURED_KERNELS, its kernels' executions on the device
+    beside the launches its wrappers counted in the call. Fails when the
+    profiler recorded no runtime call."""
+    wall_ms, events, launched = profiled(fn)
+    busy, graph, kernels, runtime = 0.0, 0, 0, 0
+    ran = {src: 0 for src in CAPTURED_KERNELS}
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.time_range.elapsed_us() / 1e3
+            for src, (names, _) in CAPTURED_KERNELS.items():
+                ran[src] += any(name in ev.name for name in names)
+        elif ev.name.startswith("cuda") or (ev.name.startswith("cu") and ev.name[2:3].isupper()):
+            runtime += 1
+            graph += ev.name == "cudaGraphLaunch"
+            kernels += "LaunchKernel" in ev.name
+    if not runtime:
+        fail(f"the profile of {label} recorded no CUDA runtime call")
+    counted = {src: sum(launched[w] for w in wrappers) for src, (_, wrappers) in CAPTURED_KERNELS.items()}
+    return dict(wall=wall_ms, busy=busy, idle=max(0.0, 1 - busy / wall_ms) if busy else None, graph=graph,
+                kernels=kernels, ran=ran, counted=counted, label=label)
+
+
+def held_caches(target) -> list:
+    """The graph caches of an `Index` or of a `ShardedIndex`'s cards."""
+    if isinstance(target, sharded.ShardedIndex):
+        return list({id(c): c for c in target._graphs.values()}.values())
+    return [target._graphs]
+
+
+def capture_path(label: str, target, queries, k: int, card: str, exact: bool = False, expansion: int = 1024):
+    """Step (k), one path: its replay (``target.search``) equal to its eager
+    body bit for bit, then both timed CAPTURE["reps"] times in turns
+    (medians): the whole search, results on the host, and its prepared
+    part alone, prepared queries to results on the card; one replay
+    profiled with host queries (a graph launch a graph; no kernel launch
+    outside the merge of a sharded search; the path's kernels run on the
+    device as often as the graphs' recorded launches say), the captures
+    made and the pool's GiB."""
+    pool_search = isinstance(target, sharded.ShardedIndex)
+    if pool_search:
+        replay = lambda qs: target.search(qs, k, exact=exact, expansion_search=expansion)  # noqa: E731
+        eager = lambda qs: sharded_eager_search(target, qs, k, exact, expansion)  # noqa: E731
+        q, _ = target._queries(queries)
+        kk = min(k, len(target), target._per)
+        prepared = dict(eager=lambda: sharded_eager_prepared(target, q, k, exact, expansion),
+                        replay=lambda: target._search_prepared(q, kk, exact, expansion))
+    else:
+        replay = lambda qs: target.search(qs, k, exact=exact)  # noqa: E731
+        eager = lambda qs: eager_search(target, qs, k, exact)  # noqa: E731
+        q = target._cast_device(*target._device_rows(queries))
+        approx, use_ivf = target._route(exact)
+        kk = min(k, len(target))
+        _, body, _ = target._search_plan(pad_queries(q.shape[0]), kk, target._valid, approx, use_ivf)
+        qp = target._padded_queries(q)
+        prepared = dict(eager=lambda: body(qp, target._valid),
+                        replay=lambda: target._search_prepared(q, kk, target._valid, approx, use_ivf))
+    got = replay(queries)
+    if not same_search(got, eager(queries)) or not same_search(replay(queries), got):
+        fail(f"(k) {label}: the replay differs from the eager body")
+    walls = dict(eager=[], replay=[], eager_prepared=[], replay_prepared=[])
+    for _ in range(CAPTURE["reps"]):
+        for name, fn in (("eager", eager), ("replay", replay)):
+            walls[name].append(timed(lambda: fn(queries))[1] * 1e3)
+            walls[f"{name}_prepared"].append(timed(prepared[name])[1] * 1e3)
+    host_q = queries.cpu().numpy()
+    eager_prof = api_profile(lambda: eager(host_q), f"eager {label}")
+    n_graphs = len(target.mesh.devices) if pool_search else 1  # a graph a shard
+    merge_kernels = 0
+    if pool_search:
+        q, _ = target._queries(queries)
+        cands = sharded_eager_prepared(target, q, k, exact, expansion, merge=False)
+        merge_kernels = api_profile(lambda: sharded.merge_candidates(cands, kk, target.mesh), "merge")["kernels"]
+    prof = api_profile(lambda: replay(host_q), f"replay of {label}")  # last: its graphs stay held
+    caches = held_caches(target)
+    if prof["graph"] != n_graphs or prof["kernels"] - merge_kernels != 0:
+        fail(f"(k) {label}: the profiled replay made {prof['graph']} graph launches (want {n_graphs}) and "
+             f"{prof['kernels']} kernel launches ({merge_kernels} of them the merge's)")
+    if prof["ran"] != prof["counted"] or not sum(prof["ran"].values()):
+        fail(f"(k) {label}: the profiled replay ran {prof['ran']} kernels on the device, its graphs' recorded "
+             f"launches say {prof['counted']}")
+    pool_gib = [c.pool_bytes() for c in caches]
+    pool_txt = "not measured" if None in pool_gib else f"{sum(pool_gib) / 2**30:.3f} GiB"
+    med = {name: float(np.median(v)) for name, v in walls.items()}
+    idle = "not measured" if prof["idle"] is None else f"{prof['idle']:.3f}"
+    # the profiler's own host cost stretches a short call's wall: the idle
+    # share of the unprofiled median replay beside the profiled one
+    idle_med = "not measured" if not prof["busy"] else f"{max(0.0, 1 - prof['busy'] / med['replay']):.3f}"
+    log(f"  (k) {label}, Q={queries.shape[0]}: replay equal to the eager body bit for bit; wall eager "
+        f"{med['eager']:.3f} ms, replay {med['replay']:.3f} ms (medians of {CAPTURE['reps']}, in turns; device "
+        f"queries, results on the host), of it the prepared search (results on the card) eager "
+        f"{med['eager_prepared']:.3f} ms, replay {med['replay_prepared']:.3f} ms; the profiled replay (host "
+        f"queries): wall {prof['wall']:.3f} ms, device busy "
+        f"{prof['busy']:.3f} ms, idle share {idle} ({idle_med} of the median replay's wall), cudaGraphLaunch "
+        f"{prof['graph']}, kernel launches {prof['kernels']}"
+        f"{f' ({merge_kernels} the merge outside the graphs)' if pool_search else ''}, kernels run on the device by "
+        f"source {prof['ran']} (the graphs' recorded launches the same); the profiled eager body "
+        f"{eager_prof['wall']:.3f} ms, busy {eager_prof['busy']:.3f} ms, kernel launches {eager_prof['kernels']}; "
+        f"captures {sum(c.captures for c in caches)}, {sum(len(c) for c in caches)} graphs held, pool {pool_txt} "
+        f"({card})")
+    return dict(label=label, eager_ms=med["eager"], replay_ms=med["replay"], busy_ms=prof["busy"], idle=prof["idle"],
+                pool_bytes=None if None in pool_gib else sum(pool_gib), prepared=(med["eager_prepared"],
+                                                                                  med["replay_prepared"]))
+
+
+def capture_updates(dev, card: str) -> None:
+    """Step (k)'s updates on an IVF of its own (CAPTURE): a replay after a
+    removal (no recapture: the mask is updated in place), after fresh adds
+    (a recapture: the fresh list is new) and after an add that grows the
+    table (a recapture of the flat search), each equal to the eager body
+    bit for bit; no removed key comes back."""
+    spec = CAPTURE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    x = unit_rows(spec["n"], 256, gen, dev)
+    index = Index(ndim=256, metric="ip", dtype="i8", device=dev)
+    keys = index.add(None, x)
+    index.optimize(n_partitions=spec["partitions"], reorder=True, spill=spec["spill"])
+    index.expansion_search = spec["expansion"]
+    q = x[torch.randperm(spec["n"], generator=gen, device=dev)[: spec["q"]]]
+    cache, k = index._graphs, spec["k"]
+
+    def held(step: str, captures: int):
+        got = index.search(q, k)
+        if not same_search(got, eager_search(index, q, k)) or cache.captures != captures:
+            fail(f"(k) after {step}: the replay differs from the eager body, or {cache.captures} captures "
+                 f"(want {captures})")
+        return got
+
+    index.search(q, k)
+    held("the first capture", 1)
+    gone = keys[torch.randperm(spec["n"], generator=gen, device=dev)[: int(spec["n"] * spec["removed"])].cpu().numpy()]
+    index.remove(gone)
+    m = held("a removal", 1)
+    hits = int(np.isin(m.keys, gone).sum())
+    index.add(None, unit_rows(spec["fresh"], 256, gen, dev))
+    held("fresh adds", 2)
+    cap, generation = index.capacity, index._generation
+    index.add(None, unit_rows(spec["grow"], 256, gen, dev))
+    if index.capacity <= cap or index._generation == generation or not index._ivf_dirty:
+        fail(f"(k) the growing add: capacity {cap} -> {index.capacity}, generation {generation} -> "
+             f"{index._generation}, the IVF kept")
+    held("a growing add", 3)
+    if hits:
+        fail(f"(k) {hits} removed keys came back from the replay")
+    log(f"  (k) updates on an i8 ip IVF of {spec['n']} rows: after removing {len(gone)} keys the graph replayed "
+        f"(no removed key returned), after {spec['fresh']} fresh adds and after {spec['grow']} more rows (capacity "
+        f"{cap} -> {index.capacity}, the flat search) it was captured again; each replay equal to the eager body "
+        f"bit for bit ({card})")
+
+
+def drive_capture(dev, runs: dict, card: str) -> list:
+    """Phase 3 (k), whole-search capture (graphs.py) on phase 3's indexes:
+    `Index.jit` true on the card; each captured path's replay against its
+    eager body (`capture_path`): B1 i8 and compact, B2 i8, B3 i8 IVF with
+    shadows and fresh rows at 16,384 queries and at one, B3 f32 cos IVF,
+    b1 hamming (B4) and tanimoto (B5), 4 shards on one card exact and
+    probed; then the updates (`capture_updates`)."""
+    t_step = time.perf_counter()
+    head, comp, ivf_run, f32_ivf, binary, sh = (runs[name] for name in ("head", "comp", "ivf", "f32_ivf", "binary",
+                                                                          "sharded"))
+    if not head["index"].jit:
+        fail("(k) Index.jit is False on the card")
+    paths = [
+        ("B1 i8 ip flat, 1M rows", head["index"], head["queries"], MAIN["k"], {}),
+        ("B1 compact f32 cos flat, 262,144 rows", comp["index"], comp["queries"], COMPACT["k"], {}),
+        ("B2 i8 ip exact, 1M rows", head["index"], head["queries"][: MAIN["exact_q"]], MAIN["k"], dict(exact=True)),
+        ("B3 i8 ip IVF (shadows, fresh rows)", ivf_run["index"], ivf_run["queries"], IVF["k"], {}),
+        ("B3 i8 ip IVF, one query", ivf_run["index"], ivf_run["queries"][:1], IVF["k"], {}),
+        ("B3 f32 cos IVF", f32_ivf["index"], f32_ivf["queries"], IVF["k"], {}),
+    ] + [(f"b1 {metric} IVF ({'B4' if metric == 'hamming' else 'B5 + re-rank'})", run["index"], run["queries"],
+          BINARY["k"], {}) for metric, run in binary.items()] + [
+        ("4 shards on one card, exact (B2 a shard)", sh["pool"], sh["qx"], SHARDED["k"], dict(exact=True)),
+        ("4 shards on one card, probed (B3 a shard)", sh["pool"], sh["queries"], SHARDED["k"],
+         dict(expansion=SHARDED["expansion"])),
+    ]
+    rows = [capture_path(label, target, qs, k, card, **kw) for label, target, qs, k, kw in paths]
+    capture_threads("B3 i8 ip IVF", ivf_run["index"], ivf_run["queries"], IVF["k"], card)
+    capture_updates(dev, card)
+    card_dev = torch.device("cuda", torch.cuda.current_device())
+    held = [c.pool_bytes() for c in list(graphs._CACHES) if c.device == card_dev]
+    budget = graphs.pool_budget(card_dev)
+    if None not in held and sum(held) > budget:
+        fail(f"(k) the card's graph pools hold {sum(held)} bytes, past their budget of {budget}")
+    held_txt = "not measured" if None in held else f"{sum(held) / 2**30:.3f} GiB"
+    log(f"  (k) the graph pools of the card's {len(held)} caches hold {held_txt} together, the budget "
+        f"{budget / 2**30:.3f} GiB ({graphs.POOL_BUDGET_SHARE} of the card's memory); {card}")
+    log(f"  step (k) {time.perf_counter() - t_step:.1f} s; {card}")
+    return rows
+
+
+def capture_threads(label: str, index, queries, k: int, card: str, reps: int = 12) -> None:
+    """Step (k): two threads search one index at once with two keys of its
+    cache (one query, and the whole batch), whose graphs share one pool:
+    every result equal to the eager body's bit for bit."""
+    batches = (queries[:1], queries)
+    want = [eager_search(index, qs, k) for qs in batches]
+    wrong = []
+
+    def hammer(qs, w):
+        for _ in range(reps):
+            if not same_search(index.search(qs, k), w):
+                wrong.append(qs.shape[0])
+
+    threads = [threading.Thread(target=hammer, args=(qs, w)) for qs, w in zip(batches, want)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if wrong:
+        fail(f"(k) {label}: searches from two threads at once differ from the eager body at Q={sorted(set(wrong))}")
+    log(f"  (k) {label}: two threads, Q=1 and Q={queries.shape[0]}, {reps} searches each at once, each equal to the "
+        f"eager body bit for bit ({card})")
+
+
 def sharded_rows(sh: dict, card: str) -> list:
     """Phase 4 of the sharded index: a pool of step (i)'s rows as they were
     before its updates (`from_index` of the single-device index, then
@@ -3588,17 +3898,9 @@ def sharded_rows(sh: dict, card: str) -> list:
     log(f"  launches per search, sharded i8 ip ({pool.mesh}): {per_search}")
     b3 = b3_row(dict(launches=sh["probe_launches"], probe_args=calls[0]), label="sharded i8 ip, one shard")
 
-    iv = pool._ivf
     for label, exact, qs in (("exact", True, qx), ("probed", False, queries)):
         q, _ = pool._queries(qs)
-        args = dict(metric=pool.metric, kind=pool.kind, ndim=pool.ndim, k=k, mesh=pool.mesh)
-        if exact:
-            cands = lambda: sharded.exact_candidates(q, pool._tables, pool._stats, pool._valids,  # noqa: E731
-                                                     tile_rows=pool._per, **args)
-        else:
-            cands = lambda: sharded.probe_candidates(  # noqa: E731
-                q, iv["cents"], iv["starts"], iv["lens"], pool._tables, pool._stats, pool._valids,
-                nprobe=pool.nprobe_for(e), p_win=iv["p_win"], block=iv["block"], **args)
+        cands = lambda: sharded_eager_prepared(pool, q, k, exact, e, merge=False)  # noqa: E731
         shards_ms = time_ms(cands, 3)
         out = cands()
         merge_ms = time_ms(lambda: sharded.merge_candidates(out, k, pool.mesh), 10)
@@ -3624,23 +3926,14 @@ def profile_search(index, queries, k: int, exact: bool, label: str = "") -> None
 
 
 def profile_call(fn, label: str) -> float:
-    """Device time by kernel over one warm call of ``fn``, and the device's
-    idle share of its wall time (torch.profiler); returns the device's busy
+    """Device time by kernel over one warm call of ``fn`` (`profiled`), and
+    the device's idle share of its wall time; returns the device's busy
     milliseconds (0 when the profiler saw no device events)."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, events, _ = profiled(fn)
     by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # operator events repeat their kernels' device time
-        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     if busy == 0:
         log(f"  profile of {label}: wall {wall_ms:.2f} ms, device time not measured (no device events)")
@@ -3653,6 +3946,7 @@ def profile_call(fn, label: str) -> float:
 
 
 def main() -> int:
+    faulthandler.enable(all_threads=True)  # a crash inside torch or a kernel library prints the Python stacks
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3735,6 +4029,10 @@ def main() -> int:
     log("== phase 3: the C ABI, " + card)
     drive_cabi(dev, ivf_run, card, programs)
     stamp("step (j)")
+    log("== phase 3: whole-search capture, " + card)
+    drive_capture(dev, dict(head=head, comp=comp, ivf=ivf_run, f32_ivf=f32_ivf, binary=binary, sharded=sharded_run),
+                  card)
+    stamp("step (k)")
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):

@@ -15,6 +15,11 @@ user-defined metrics (`enums.CompiledMetric`) through the plain scan and
 probes, f64 rows as f32 on the device beside an exact host copy.
 `cluster` (cluster.py) and `join` (join.py) run on the index's searches.
 
+On the card each search of a kernel path (B1, B2, and the IVF's B3, B4 and
+B5 flavours) runs as a CUDA graph, captured at the first search of its key
+and replayed after (graphs.py, the counterpart of the JAX package's
+``jax.jit``); on the CPU the same body runs eagerly.
+
 `search_async` enqueues a search and returns a `PendingSearch`; its
 ``result()`` waits for that search alone. A streamed view (``view(path,
 stream=True)``) keeps its rows in the file's memory map and searches them
@@ -45,8 +50,9 @@ from .enums import (
     normalize_metric,
     to_torch_dtype,
 )
-from .exact import (pad_queries, pad_rows, pick_tile_rows, prepare_rows, prepare_set_rows, resolve_device,
-                    search_kernel, storage_width)
+from .exact import (kernel_tiles, pad_queries, pad_rows, pick_tile_rows, prepare_rows, prepare_set_rows,
+                    resolve_device, search_kernel, storage_width)
+from .graphs import GraphCache
 from .keymap import KeyMap
 from .matches import BatchMatches, Clustering, Matches
 from .ops.casts import as_tensor, cast_rows
@@ -280,6 +286,11 @@ class Index:
             self._rwlock = _RWLock()
         self._version = 0
         self._filter_cache: dict = {}
+        # captured searches (graphs.py), made at the first search on the
+        # card; `_generation` counts the changes that replace the tensors
+        # they read
+        self._graphs = GraphCache(self._device) if self._device.type == "cuda" else None
+        self._generation = 0
         self._reset_state()
         self._path = None
         if path is not None and os.path.exists(str(path)):
@@ -301,6 +312,7 @@ class Index:
             self._metric_kind = normalize_metric(metric)
 
     def _reset_state(self) -> None:
+        self._generation += 1
         self._capacity = 0
         self._table: Optional[torch.Tensor] = None  # [capacity, width]
         self._stats: Optional[torch.Tensor] = None  # [capacity, 2] f32
@@ -396,7 +408,9 @@ class Index:
 
     @property
     def jit(self) -> bool:
-        return False  # eager torch ops and prebuilt CUDA kernels: nothing is traced or compiled per call
+        """True on the card, where each search path is captured whole as a
+        CUDA graph and replayed (graphs.py); the CPU runs it eagerly."""
+        return self._device.type == "cuda"
 
     @property
     def hardware_acceleration(self) -> str:
@@ -503,6 +517,7 @@ class Index:
         table = torch.zeros((extra, self._width), dtype=self._torch_dtype, device=dev)
         stats = torch.zeros((extra, 2), dtype=torch.float32, device=dev)
         valid = torch.zeros((extra,), dtype=torch.bool, device=dev)
+        self._generation += 1
         if self._table is None:
             self._table, self._stats, self._valid = table, stats, valid
         else:
@@ -805,6 +820,7 @@ class Index:
         self._free_slots = []
         self._next_slot = count
         self._ivf_dirty = True
+        self._generation += 1
         return count
 
     @_mutates
@@ -821,6 +837,7 @@ class Index:
         self._count = 0
         self._ivf = None
         self._ivf_dirty = True
+        self._generation += 1
 
     @_mutates
     def reset(self) -> None:
@@ -891,6 +908,7 @@ class Index:
                 raise ValueError(f"host_f64 of shape {self._host_f64.shape} does not fit ({capacity}, {self._ndim})")
         self._ivf = None
         self._ivf_dirty = True
+        self._generation += 1
 
     # ------------------------------------------------------------------
     # Search
@@ -962,38 +980,75 @@ class Index:
             d, slots = self._streamed_topk(q, k, filter)
             return PendingSearch(self, d, slots, n_q, single, radius, self._count, lock_token, progress)
         valid = self._valid if filter is None else self._filter_mask(filter)
-        use_ivf = not exact and self._ivf_serveable()
-        approx = (not exact and not use_ivf and not self._is_set_index and self._metric_fn is None
-                  and self._count >= APPROX_MIN_ROWS)
+        approx, use_ivf = self._route(exact)
         d, slots, scanned = self._search_prepared(q, k, valid, approx, use_ivf)
         return PendingSearch(self, d, slots, n_q, single, radius, scanned, lock_token, progress)
 
-    def _padded_queries(self, q: torch.Tensor) -> torch.Tensor:
+    def _route(self, exact: bool):
+        """``(approx, use_ivf)`` of a search: through the IVF when one serves
+        and not ``exact``, else approximate from `APPROX_MIN_ROWS` rows on."""
+        use_ivf = not exact and self._ivf_serveable()
+        approx = (not exact and not use_ivf and not self._is_set_index and self._metric_fn is None
+                  and self._count >= APPROX_MIN_ROWS)
+        return approx, use_ivf
+
+    def _padded_queries(self, q: torch.Tensor, upload: bool = True) -> torch.Tensor:
         """Prepared queries padded to `pad_queries` rows, on the device; the
         pads are copies of the first query, as in the JAX package (they
         probe the same partitions). A host batch is uploaded from pinned
-        memory without waiting."""
+        memory without waiting (``upload=False``: left pinned on the host,
+        for a graph's static input)."""
         n_q = q.shape[0]
         q_pad = pad_queries(n_q)
         if q_pad > n_q:
             q = torch.cat([q, q[:1].expand(q_pad - n_q, -1)])
         if q.device.type == "cpu" and self._device.type == "cuda":
-            return q.pin_memory().to(self._device, non_blocking=True)
+            q = q.pin_memory()
+            return q.to(self._device, non_blocking=True) if upload else q
         return q.to(self._device)
 
-    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):
-        """``(distances, slots, rows scanned per query)`` of prepared queries."""
-        q = self._padded_queries(q)
+    def _search_plan(self, n_q: int, k: int, valid, approx: bool, use_ivf: bool):
+        """The host's part of a search of ``n_q`` padded queries: ``(key,
+        body, rows scanned per query)``, ``body(q, valid)`` its device part
+        (``[Q, k]`` distances and slots), ``key`` every host decision the
+        body takes, or None where it stays eager on the card
+        (`graphs.EAGER`)."""
         if use_ivf:
-            d, slots = self._ivf.search(self, q, valid, k, self._expansion_search)
-            return d, slots, self._ivf.scanned_rows(self._expansion_search, self._connectivity)
-        tile_rows = pick_tile_rows(self._capacity, self._width * self._table.element_size(), self._metric_kind,
-                                   self._ndim, q.shape[0], self._metric_fn)
+            key, body = self._ivf.plan(self, n_q, valid, k, self._expansion_search)
+            return key, body, self._ivf.scanned_rows(self._expansion_search, self._connectivity)
+        metric, kind, table, stats, ndim, fn = (self._metric_kind, self._kind, self._table, self._stats, self._ndim,
+                                                self._metric_fn)
+        tile_rows = pick_tile_rows(self._capacity, self._width * table.element_size(), metric, ndim, n_q, fn)
         while self._capacity % tile_rows:
             tile_rows //= 2
-        d, slots = search_kernel(self._metric_kind, self._kind, q, self._table, self._stats, valid, self._ndim, k,
-                                 tile_rows, approx, self._metric_fn)
-        return d, slots, self._count
+
+        def body(q, valid):
+            return search_kernel(metric, kind, q, table, stats, valid, ndim, k, tile_rows, approx, fn)
+
+        key = None
+        if kernel_tiles(metric, kind, n_q, self._capacity, k, approx, fn) is not None:
+            key = ("flat", approx, tile_rows)
+        return key, body, self._count
+
+    def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):
+        """``(distances, slots, rows scanned per query)`` of prepared queries:
+        on the card through the captured graph of the search's key where
+        its path is captured (graphs.py), else eagerly."""
+        n_q = pad_queries(q.shape[0])
+        key, body, scanned = self._search_plan(n_q, k, valid, approx, use_ivf)
+        if key is None or self._graphs is None:  # no cache off the card
+            d, slots = body(self._padded_queries(q), valid)
+            return d, slots, scanned
+        own = valid is self._valid
+        key = key + (self._metric_kind, self._kind, n_q, k, not own)
+        if own:
+            run, args = (lambda qq: body(qq, valid)), (self._padded_queries(q, upload=False),)
+        else:  # a filter's mask: copied into the graph's static mask
+            run, args = body, (self._padded_queries(q, upload=False), valid)
+        iv = self._ivf
+        generation = (self._generation, None if iv is None else (iv.serial, iv.generation))
+        d, slots = self._graphs.run(key, generation, run, args)
+        return d, slots, scanned
 
     def _finish_search(self, d, slots, n_q, single, radius, scanned, progress):
         """Slots to keys, radius cut, and the result containers."""
@@ -1071,6 +1126,7 @@ class Index:
         build = IVFPartitions.build_inplace if reorder else IVFPartitions.build
         self._ivf = build(self, n_partitions, spill=spill)
         self._ivf_dirty = False
+        self._generation += 1
 
     @_reads
     def pairwise_distance(self, left, right) -> Union[np.ndarray, float]:

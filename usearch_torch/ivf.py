@@ -63,6 +63,7 @@ exactly, until ``optimize`` runs again. Where the JAX package differs:
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -121,6 +122,11 @@ BIN_SEL = "pack"
 #: ``bin`` masks deleted and filtered rows after its merge: below this live
 #: share the search takes the in-kernel penalty paths instead
 BIN_LIVE_FLOOR = 0.5
+#: the dense probe's flavours whose search an `Index` captures as a CUDA
+#: graph on the card (graphs.py; the others stay eager, `graphs.EAGER`)
+CAPTURED_ROUTES = ("binary", "nofold", "group")
+
+_SERIALS = itertools.count()
 
 
 # ----------------------------------------------------------------------
@@ -585,6 +591,38 @@ def _binned_ok(metric, kind, table, valid, k: int, nprobe: int, w_pad: int, live
             and live_share(valid) >= BIN_LIVE_FLOOR)
 
 
+def _nofold_fits(k: int, nprobe: int, w_pad: int) -> bool:
+    """B5's gate in the ``nofold`` (and ``bin``) flavour: ``k <= 64`` on a
+    wide probe surface."""
+    return k <= 64 and nprobe * (w_pad // LANES) >= 8 * k
+
+
+def dense_route(metric, kind, n_q: int, n_rows: int, k: int, nprobe: int, p_win: int, *, shard: bool = False,
+                metric_fn=None) -> str:
+    """The flavour `dense_probe` takes for a chunk of ``n_q`` queries over
+    ``n_rows`` table rows, from host values alone: "binary" (tanimoto and
+    sorensen: B5 and the re-rank), "pair" (B6), "bin" (B7 where the mask
+    passes `_binned_ok`, else as ``nofold``), "nofold" (B5), "group" (B3) or
+    "plain" (the plain block-gather probe)."""
+    mode = PROBE_MODE
+    if mode not in PROBE_MODES:
+        raise ValueError(f"PROBE_MODE must be one of {PROBE_MODES}, got {mode!r}")
+    if shard:
+        mode = "plain" if mode == "xla" else "group"
+    w_pad = padded_window(p_win)
+    binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
+    if not (mode != "plain" and w_pad <= n_rows and k <= 128 and (binary or supports(metric, kind))
+            and metric_fn is None and (mode != "pair" or n_q % 8 == 0)):
+        return "plain"
+    if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
+        return "binary"  # before the guard, as in the JAX package
+    if mode in ("pair", "bin"):
+        return mode
+    if mode == "nofold" and _nofold_fits(k, nprobe, w_pad):
+        return "nofold"
+    return "group" if grouped_fits(k, nprobe, w_pad) else "plain"
+
+
 def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim: int, k: int, nprobe: int,
                 p_win: int, *, shard: bool = False, block: int = DENSE_BLOCK, all_live: bool = False, groups=None,
                 metric_fn=None, live_share=None):
@@ -595,37 +633,31 @@ def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, n
     over b1, no user-defined metric; B6 takes batches of 8 queries),
     tanimoto and sorensen take B5 and the re-rank, then the `PROBE_MODE`
     flavour, then B3 under the JAX package's working-set guard; the rest
-    takes the plain probe of ``block``-row blocks. A ``shard`` takes no
-    other flavour: B3, or the plain probe under ``"xla"`` (see
-    `PROBE_MODE`). ``live_share(valid)`` serves ``bin``'s live floor."""
-    mode = PROBE_MODE
-    if mode not in PROBE_MODES:
-        raise ValueError(f"PROBE_MODE must be one of {PROBE_MODES}, got {mode!r}")
+    takes the plain probe of ``block``-row blocks (`dense_route`). A
+    ``shard`` takes no other flavour: B3, or the plain probe under
+    ``"xla"`` (see `PROBE_MODE`). ``live_share(valid)`` serves ``bin``'s
+    live floor."""
     if q.shape[0] > PROBE_QCHUNK:
         parts = [dense_probe(metric, kind, q[lo : lo + PROBE_QCHUNK], valid, centroids, table, stats, starts, lens,
                              ndim, k, nprobe, p_win, shard=shard, block=block, all_live=all_live, groups=groups,
                              metric_fn=metric_fn, live_share=live_share)
                  for lo in range(0, q.shape[0], PROBE_QCHUNK)]
         return torch.cat([d for d, _ in parts]), torch.cat([s for _, s in parts])
-    if shard:
-        mode = "plain" if mode == "xla" else "group"
+    route = dense_route(metric, kind, q.shape[0], table.shape[0], k, nprobe, p_win, shard=shard, metric_fn=metric_fn)
     w_pad = padded_window(p_win)
-    binary = kind == ScalarKind.B1 and metric in BINARY_PROBE_METRICS
-    if (mode != "plain" and w_pad <= table.shape[0] and k <= 128 and (binary or supports(metric, kind))
-            and metric_fn is None and (mode != "pair" or q.shape[0] % 8 == 0)):
-        args = (metric, kind, q, valid, centroids, table, stats, starts, lens, k, nprobe, w_pad)
-        if metric in (MetricKind.Tanimoto, MetricKind.Sorensen):
-            # hamming-selected (B5), re-ranked exactly; before the guard,
-            # as in the JAX package
-            return _ivf_probe_search_dense_binary(*args, groups)
-        if mode == "pair":
-            return _ivf_probe_search_dense_pair(*args, groups)
-        if mode == "bin" and _binned_ok(metric, kind, table, valid, k, nprobe, w_pad, live_share):
+    args = (metric, kind, q, valid, centroids, table, stats, starts, lens, k, nprobe, w_pad)
+    if route == "binary":
+        return _ivf_probe_search_dense_binary(*args, groups)
+    if route == "pair":
+        return _ivf_probe_search_dense_pair(*args, groups)
+    if route == "bin":
+        if _binned_ok(metric, kind, table, valid, k, nprobe, w_pad, live_share):
             return _ivf_probe_search_dense_binned(*args, groups, BIN_BW, BIN_KEEP, BIN_SEL)
-        if mode in ("nofold", "bin") and k <= 64 and nprobe * (w_pad // LANES) >= 8 * k:
-            return _ivf_probe_search_dense_nofold(*args, groups)
-        if grouped_fits(k, nprobe, w_pad):
-            return _ivf_probe_search_dense_grouped(*args, all_live, groups)
+        route = "nofold" if _nofold_fits(k, nprobe, w_pad) else "group" if grouped_fits(k, nprobe, w_pad) else "plain"
+    if route == "nofold":
+        return _ivf_probe_search_dense_nofold(*args, groups)
+    if route == "group":
+        return _ivf_probe_search_dense_grouped(*args, all_live, groups)
     return _ivf_probe_search_dense(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim, k, nprobe,
                                    p_win, block, groups, metric_fn)
 
@@ -661,6 +693,11 @@ class IVFPartitions:
         self._shadow_dev = None             # (pos, src) on the device, made at the first search
         self._groups = centroid_groups(centroids)
         self._live_cache = None             # (mask, its version, live share)
+        # a structure's own number, and the count of its device tensors
+        # made anew since (the fresh list's, the shadows'): a captured
+        # search reads them by address (graphs.py)
+        self.serial = next(_SERIALS)
+        self.generation = 0
 
     def set_shadows(self, pos: np.ndarray, src: np.ndarray) -> None:
         o = np.argsort(pos, kind="stable")
@@ -675,6 +712,7 @@ class IVFPartitions:
         if self._shadow_dev is None or self._shadow_dev[0].device != dev:
             self._shadow_dev = (torch.as_tensor(self.shadow_np_pos, device=dev),
                                 torch.as_tensor(self.shadow_np_src, device=dev))
+            self.generation += 1
         return self._shadow_dev
 
     # ------------------------------------------------------------------
@@ -901,6 +939,7 @@ class IVFPartitions:
             padded[: len(f)] = f
             fresh = torch.as_tensor(padded, device=dev)
             self._fresh_cache = (cap, fresh, _fresh_probe_mask(fresh, cap))
+            self.generation += 1
         return self._fresh_cache[1], self._fresh_cache[2]
 
     # ------------------------------------------------------------------
@@ -915,27 +954,48 @@ class IVFPartitions:
     def scanned_rows(self, expansion_search: int, connectivity: int = 16) -> int:
         return int(self.nprobe_for(expansion_search, connectivity) * self._shape()[1] + self.fresh_np.size)
 
-    def search(self, index, q, valid, k: int, expansion_search: int):
-        """Top-k of prepared queries: ``[Q, k]`` f32 distances and i32
-        slots, -1 where none."""
+    def plan(self, index, n_q: int, valid, k: int, expansion_search: int):
+        """The host's part of a search of ``n_q`` queries: ``(key, body)``,
+        ``body(q, valid)`` the device part (the top-k of prepared queries:
+        ``[Q, k]`` f32 distances and i32 slots, -1 where none), ``key`` the
+        decisions it takes on the host, or None where the body stays eager on
+        the card (the copied layout, and the dense routes outside
+        `CAPTURED_ROUTES`: `graphs.EAGER`). The fresh list's and the
+        shadows' tensors are made here, outside the body."""
         nprobe = self.nprobe_for(expansion_search, index._connectivity)
         fresh_n = int(self.fresh_np.size)
-        probe_valid = valid
+        fresh = probe_mask = None
         if fresh_n:
             fresh, probe_mask = self._fresh_state(int(valid.shape[0]), valid.device)
-            probe_valid = valid & probe_mask
         # every position live, from host-side counts (no device read): the
         # index's own mask, no fresh rows, and each position a live row or a
         # shadow (live rows fill every other position, so every primary is)
         all_live = (valid is index._valid and not fresh_n
                     and index._count + self.shadow_np_pos.size == int(index._capacity))
-        d, slots = self._search_built(index, q, probe_valid, k, nprobe, all_live)
-        if fresh_n:
+        shadowed = self.inplace_shape is not None and self.spilled and self.shadow_np_pos.size > 0
+        if shadowed:
+            self._shadows(valid.device)
+
+        def body(q, valid):
+            probe_valid = valid if probe_mask is None else valid & probe_mask
+            d, slots = self._search_built(index, q, probe_valid, k, nprobe, all_live)
+            if fresh is None:
+                return d, slots
             df, sf = _fresh_topk(index._metric_kind, index._kind, q, index._table, index._stats, valid,
                                  fresh, index._ndim, min(k, int(fresh.shape[0])), index._metric_fn)
             # on equal distances the probed entries, then earlier ones, win
-            return staged_topk(torch.cat([d, df], dim=1), torch.cat([slots.to(torch.int32), sf.to(torch.int32)], dim=1), k)
-        return d, slots
+            return staged_topk(torch.cat([d, df], dim=1),
+                               torch.cat([slots.to(torch.int32), sf.to(torch.int32)], dim=1), k)
+
+        key = None
+        if self.inplace_shape is not None:
+            kk = min(2 * k, 128) if shadowed else k
+            route = dense_route(index._metric_kind, index._kind, min(n_q, PROBE_QCHUNK), index._table.shape[0], kk,
+                                nprobe, self.p_win, metric_fn=index._metric_fn)
+            if route in CAPTURED_ROUTES:
+                key = ("ivf", route, nprobe, kk, all_live, 0 if fresh is None else int(fresh.shape[0]),
+                       int(self.shadow_np_pos.size) if shadowed else 0)
+        return key, body
 
     def _search_built(self, index, q, valid, k: int, nprobe: int, all_live: bool):
         if self.inplace_shape is not None:

@@ -17,6 +17,18 @@ import torch
 
 #: shifts that take bit 7 (the first) down to bit 0 (the last) of a byte
 _SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)
+#: the small constant tensors below, one copy a device: made at the first
+#: use there, so a search captured as a CUDA graph (graphs.py) makes no
+#: host-to-device copy while it is captured
+_ON_DEVICE: dict = {}
+
+
+def _on_device(name: str, values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    key = (name, torch.device(device))
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.as_tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def pack_bits_np(values: np.ndarray) -> np.ndarray:
@@ -37,13 +49,13 @@ def pack_bits(values: torch.Tensor) -> torch.Tensor:
     if d % 8:
         bits = torch.nn.functional.pad(bits, (0, 8 - d % 8))
     bits = bits.reshape(*bits.shape[:-1], -1, 8)
-    weights = torch.tensor([1 << s for s in _SHIFTS], dtype=torch.uint8, device=values.device)
+    weights = _on_device("weights", [1 << s for s in _SHIFTS], torch.uint8, values.device)
     return (bits * weights).sum(dim=-1, dtype=torch.uint8)
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """Packed uint8 ``[..., B]`` to int8 bits {0, 1} ``[..., 8 B]``."""
-    shifts = torch.tensor(_SHIFTS, dtype=torch.uint8, device=packed.device)
+    shifts = _on_device("shifts", _SHIFTS, torch.uint8, packed.device)
     bits = (packed[..., None] >> shifts) & 1
     return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8).to(torch.int8)
 
@@ -54,7 +66,7 @@ _POPCOUNT = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.in
 
 def popcount_bytes(packed: torch.Tensor) -> torch.Tensor:
     """Set bits of each packed uint8 row ``[..., B]``, as int32 ``[...]``."""
-    return _POPCOUNT.to(packed.device)[packed.long()].sum(dim=-1, dtype=torch.int32)
+    return _on_device("popcount", _POPCOUNT, torch.int32, packed.device)[packed.long()].sum(dim=-1, dtype=torch.int32)
 
 
 def bit_dot(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -75,6 +75,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..enums import MetricKind
+from ..graphs import count_launch
 from .distances import I8_F32_EXACT_WIDTH, MASKED, _sqrt, dot
 from .packbits import bit_dot
 from .scan import _launch, _ptr
@@ -286,7 +287,7 @@ def grouped_probe(metric, q_g, q_sq, table, t_sq, penalty, win_start, win_len, k
             _ptr(win_start), _ptr(win_len), _ptr(out_d), _ptr(out_i), n_pairs, n_rows, width,
             DTYPE_CODES[q_g.dtype], METRIC_CODES[metric], k, min(bin_m, max(k, 8)), _stream(),
         )
-    grouped_probe.launches += 1
+    count_launch(grouped_probe)
     return out_d, out_i
 
 
@@ -354,7 +355,7 @@ def grouped_probe_nofold(metric, q_g, q_sq, table, t_sq, penalty, win_base, win_
             _ptr(win_base), _ptr(win_start), _ptr(win_len), _ptr(out_d), _ptr(out_i), n_pairs, n_rows, width,
             DTYPE_CODES[q_g.dtype], METRIC_CODES[metric], w_pad, bin_m, _stream(),
         )
-    grouped_probe_nofold.launches += 1
+    count_launch(grouped_probe_nofold)
     return out_d, out_i
 
 
@@ -526,7 +527,7 @@ def pair_probe(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k: int
     cells = pair_cells(starts, offs, lens, table.shape[0], w_pad)
     lists_d, lists_i = pair_lists(metric, q, q_sq, table, t_sq, penalty, cells, k, min(bin_m, k))
     out = pair_fold(metric, lists_d, lists_i, cells[3], q_sq, k)
-    pair_probe.launches += 1
+    count_launch(pair_probe)
     return out
 
 
@@ -625,7 +626,7 @@ def binned_probe(q_g, table, win_base, w_pad: int, bw: int, keep: int,
             lib.usearch_binned_probe, _ptr(q_g), _ptr(table), _ptr(win_base), _ptr(out_d), _ptr(out_i), n_pairs,
             n_rows, width, w_pad, bw, keep, int(sel == "fminarg"), _stream(),
         )
-    binned_probe.launches += 1
+    count_launch(binned_probe)
     return out_d, out_i
 
 

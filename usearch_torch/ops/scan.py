@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..enums import MetricKind, ScalarKind
+from ..graphs import count_launch
 from .distances import I8_F32_EXACT_WIDTH, MASKED, dists_from_dots, dot, scan_epilogue
 from .topk import finish, sort_pairs, stable_topk, topk_min
 
@@ -171,7 +172,7 @@ def binned_scan(metric, q, table, q_sq, t_sq, penalty, compact: bool = False):
             _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[table.dtype], _METRIC_CODES[metric],
             int(compact), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    binned_scan.launches += 1
+    count_launch(binned_scan)
     return out_v, out_i
 
 
@@ -197,7 +198,7 @@ def binned_minima(metric, q, table, q_sq, t_sq, penalty):
             _ptr(out_v), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    binned_minima.launches += 1
+    count_launch(binned_minima)
     return out_v
 
 
@@ -246,7 +247,7 @@ def _launch_fused(wrapper, fn_name: str, metric, q, table, q_sq, t_sq, penalty, 
             _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric], k, *extra,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out_d, out_i
 
 
@@ -309,7 +310,7 @@ def binned_scan_lanes(metric, q, table, q_sq, t_sq, penalty):
             _ptr(out_v), _ptr(out_i), n_q, n, width, _DTYPE_CODES[q.dtype], _METRIC_CODES[metric],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
-    binned_scan_lanes.launches += 1
+    count_launch(binned_scan_lanes)
     return out_v, out_i
 
 

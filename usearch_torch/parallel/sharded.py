@@ -46,7 +46,9 @@ import torch.distributed as dist
 
 from .. import ivf
 from ..enums import MetricKind, ScalarKind, kind_of_dtype, normalize_dtype, normalize_metric, to_torch_dtype
-from ..exact import pad_queries, pad_rows, pick_tile_rows, prepare_rows, search_steps, storage_width
+from ..exact import (kernel_tiles, pad_queries, pad_rows, pick_tile_rows, prepare_rows, run_steps, search_steps,
+                     storage_width)
+from ..graphs import MAX_GRAPHS, GraphCache
 from ..index import Index
 from ..keymap import KeyMap
 from ..kmeans import kmeans_fit, kmeans_hierarchical
@@ -157,47 +159,11 @@ def merge_candidates(cands, k: int, mesh: Mesh) -> Tuple[torch.Tensor, torch.Ten
     return out_d, torch.where(out_d >= MASKED / 2, -1, i.gather(1, sel))
 
 
-def exact_candidates(q, tables, stats, valids, *, metric, kind, ndim: int, k: int, tile_rows: int, mesh: Mesh):
-    """Each local shard's exact top-k of the prepared queries, rows offset
-    to global ids; every shard is launched before any is read, B2's rescore
-    chunks a shard at a time in turn."""
-    per = tables[0].shape[0]
-    steps = [search_steps(metric, kind, qs, t, st, v, ndim, k, tile_rows)
-             for qs, t, st, v in zip(_replicate(q, mesh.devices), tables, stats, valids)]
-    return [(d, _global_rows(i, s * per)) for s, (d, i) in zip(mesh.shard_ids, _interleave(steps))]
-
-
-def sharded_search_kernel(q, tables, stats, valids, *, metric, kind, ndim: int, k: int, tile_rows: int,
-                          mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Replicated queries against the row-sharded table: the global top-k,
-    ``[Q, k]`` distances and global row ids (-1 where none)."""
-    cands = exact_candidates(q, tables, stats, valids, metric=metric, kind=kind, ndim=ndim, k=k,
-                             tile_rows=tile_rows, mesh=mesh)
-    return merge_candidates(cands, k, mesh)
-
-
-def probe_candidates(q, cents, starts, lens, tables, stats, valids, *, metric, kind, ndim: int, k: int,
-                     nprobe: int, p_win: int, block: int, mesh: Mesh):
-    """Each local shard's probed top-k, rows offset to global ids; every
-    shard is launched before any is read."""
-    per = tables[0].shape[0]
-    return [
-        (d, _global_rows(i, s * per))
-        for s, qs, c, st, ln, t, sta, v in zip(mesh.shard_ids, _replicate(q, mesh.devices), cents, starts, lens,
-                                               tables, stats, valids)
-        for d, i in [ivf.dense_probe(metric, kind, qs, v, c, t, sta, st, ln, ndim, k, nprobe, p_win, shard=True,
-                                     block=block)]
-    ]
-
-
-def sharded_ivf_kernel(q, cents, starts, lens, tables, stats, valids, *, metric, kind, ndim: int, k: int,
-                       nprobe: int, p_win: int, block: int, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sharded probe: every shard probes its own chunks, then the
-    merge of the exact search. ``cents``/``starts``/``lens`` are per local
-    shard, ``[c_max, W]`` f32 and ``[c_max]`` i32 (empty chunks len 0)."""
-    cands = probe_candidates(q, cents, starts, lens, tables, stats, valids, metric=metric, kind=kind, ndim=ndim,
-                             k=k, nprobe=nprobe, p_win=p_win, block=block, mesh=mesh)
-    return merge_candidates(cands, k, mesh)
+def eager_candidates(plans: list, queries: list) -> list:
+    """Each shard's search of `ShardedIndex._shard_plans` run eagerly on its
+    device's queries: every shard launched before any is read, B2's rescore
+    chunks a shard at a time in turn (`_interleave`)."""
+    return _interleave([steps(q) for (_, steps), q in zip(plans, queries)])
 
 
 # ----------------------------------------------------------------------
@@ -231,6 +197,12 @@ class ShardedIndex:
         # c_max, avg_rows
         self._ivf = None
         self._rebuild_host_maps()
+        # each local shard's searches captured on its card (graphs.py), one
+        # cache a card; `_generation` counts the changes that replace the
+        # shards' tensors
+        self._graphs = {dev: GraphCache(dev, max_graphs=MAX_GRAPHS * mesh.devices.count(dev))
+                        for dev in mesh.devices if dev.type == "cuda"}
+        self._generation = 0
 
     @staticmethod
     def _assemble(mesh, metric, kind, ndim, tables, keys, live, stats=None) -> "ShardedIndex":
@@ -316,6 +288,7 @@ class ShardedIndex:
         if want <= per:
             return
         extra = want - per
+        self._generation += 1
         for j, t in enumerate(self._tables):
             grown = t.new_zeros((extra, t.shape[1]))
             self._tables[j] = torch.cat([t, grown])
@@ -576,6 +549,7 @@ class ShardedIndex:
         # avg_rows over the real chunks (padding chunks would inflate nprobe)
         self._ivf = dict(cents=cents_l, starts=starts_l, lens=lens_l, p_win=int(p_win), block=block,
                          c_max=int(c_max), avg_rows=float(max(self._count / max(n_chunks, 1), 1.0)))
+        self._generation += 1
 
     def nprobe_for(self, expansion_search: int = 64, connectivity: int = 16) -> int:
         """Chunks probed per shard, from the reference's ef semantics."""
@@ -597,21 +571,64 @@ class ShardedIndex:
         q = _as_rows(vectors, self.kind, self.ndim)
         return torch.nn.functional.pad(q, (0, 0, 0, pad_queries(n_q) - n_q)), n_q
 
-    def _search_prepared(self, q: torch.Tensor, k: int, exact: bool, expansion_search: int):
-        """``[Q, k]`` distances and global rows on the mesh's first device."""
-        if self._ivf is not None and not exact:
-            iv = self._ivf
-            return sharded_ivf_kernel(
-                q, iv["cents"], iv["starts"], iv["lens"], self._tables, self._stats, self._valids, metric=self.metric,
-                kind=self.kind, ndim=self.ndim, k=k, nprobe=self.nprobe_for(expansion_search), p_win=iv["p_win"],
-                block=iv["block"], mesh=self.mesh)
+    def _tile_rows(self, n_q: int) -> int:
         per = self._per
         tile_rows = pick_tile_rows(per, self._tables[0].shape[1] * self._tables[0].element_size(), self.metric,
-                                   self.ndim, q.shape[0])
+                                   self.ndim, n_q)
         while per % tile_rows:
             tile_rows //= 2
-        return sharded_search_kernel(q, self._tables, self._stats, self._valids, metric=self.metric, kind=self.kind,
-                                     ndim=self.ndim, k=k, tile_rows=tile_rows, mesh=self.mesh)
+        return tile_rows
+
+    def _shard_plans(self, n_q: int, k: int, exact: bool, expansion_search: int) -> list:
+        """Each local shard's search of ``n_q`` padded queries as ``(key,
+        steps)``: ``steps(q)`` a step generator (`_interleave`) that returns
+        its ``[Q, k]`` distances and global rows on its device, ``key`` its
+        host decisions, or None where it stays eager on the card (the plain
+        scan and probes, `graphs.EAGER`)."""
+        per, plans = self._per, []
+        probed = self._ivf is not None and not exact
+        if probed:
+            iv = self._ivf
+            nprobe = self.nprobe_for(expansion_search)
+            route = ivf.dense_route(self.metric, self.kind, min(n_q, ivf.PROBE_QCHUNK), per, k, nprobe, iv["p_win"],
+                                    shard=True)
+            key = ("probe", nprobe, n_q, k) if route == "group" else None
+        else:
+            tile_rows = self._tile_rows(n_q)
+            b2 = kernel_tiles(self.metric, self.kind, n_q, per, k, False) is not None
+            key = ("exact", tile_rows, n_q, k) if b2 else None
+        for j, s in enumerate(self.mesh.shard_ids):
+            t, st, v, off = self._tables[j], self._stats[j], self._valids[j], s * per
+            if probed:
+                c, sta, ln = iv["cents"][j], iv["starts"][j], iv["lens"][j]
+
+                def steps(q, t=t, st=st, v=v, off=off, c=c, sta=sta, ln=ln):
+                    d, i = ivf.dense_probe(self.metric, self.kind, q, v, c, t, st, sta, ln, self.ndim, k, nprobe,
+                                           iv["p_win"], shard=True, block=iv["block"])
+                    yield  # launched whole, as one step
+                    return d, _global_rows(i, off)
+            else:
+                def steps(q, t=t, st=st, v=v, off=off):
+                    d, i = yield from search_steps(self.metric, self.kind, q, t, st, v, self.ndim, k, tile_rows)
+                    return d, _global_rows(i, off)
+            plans.append((None if key is None else key + (j,), steps))
+        return plans
+
+    def _search_prepared(self, q: torch.Tensor, k: int, exact: bool, expansion_search: int):
+        """``[Q, k]`` distances and global rows on the mesh's first device:
+        each local shard's search (`_shard_plans`), then `merge_candidates`,
+        eagerly. On the cards each shard's search replays its graph
+        (graphs.py), the shards in turn from this thread; elsewhere, and
+        where the path stays eager, `eager_candidates` runs them."""
+        plans = self._shard_plans(q.shape[0], k, exact, expansion_search)
+        queries = _replicate(q, self.mesh.devices)
+        if self._graphs and plans[0][0] is not None:
+            generation = (self._generation, id(self._ivf))
+            cands = [self._graphs[dev].run(key, generation, lambda x, steps=steps: run_steps(steps(x)), (qs,))
+                     for (key, steps), dev, qs in zip(plans, self.mesh.devices, queries)]
+        else:
+            cands = eager_candidates(plans, queries)
+        return merge_candidates(cands, k, self.mesh)
 
     def search(self, vectors, count: int = 10, *, exact: bool = False, expansion_search: int = 64,
                **kwargs) -> BatchMatches:
