@@ -187,6 +187,16 @@ Phases, each fatal on failure:
    `exact_search`, B2 launched, its upload share; 4,096 one-row
    `usearch_add` calls into a fresh i8 ip index (adds/s), every row found
    by an exact search; test.c and test.cpp exited 0 on the card;
+   (k) whole-search capture (CAPTURE): each captured path's replay (B1,
+   B2, B3 and its `pair` (B6) and `bin` (B7) flavours, B4, B5, the sharded
+   searches) equal to its eager body bit for bit, both timed, one replay
+   profiled (a graph launch a graph, no kernel launch outside it); the
+   updates' replays and recaptures; (l) the k-means fits captured (FITS):
+   phase 3's two builds split again with their fits eager, beside the
+   replayed splits; a two-level fit's sub-fits in at least two size buckets and a flat fit
+   with its early exits, each equal bit for bit (assignments, centroids,
+   the exit iteration) to its eager steps at the same seed, timed both
+   ways, and one sub-fit's launches profiled eager and replayed;
 4. each kernel at each path's shapes: held against its plain version with
    phase 2's tolerances, then timed beside its bound, the plain version's
    time (the hold's own call, synchronised) and one library call's time as
@@ -406,6 +416,18 @@ CABI = dict(q=1024, k=10, expansion=1024, filtered=64, allowed=0.1, view_q=64, g
 #: capacity: the IVF gives way to the flat search)
 CAPTURE = dict(reps=10, n=1 << 18, partitions=256, spill=0.05, expansion=1024, q=1024, k=10, removed=0.01,
                fresh=1024, grow=80000)
+#: phase 3 (l): the k-means fits captured (kmeans.py, graphs.py
+#: `GraphCache.repeat`): a two-level fit of `n` rows x 256 in i8 (unit rows
+#: around `blobs` centers, the i-th drawn i + 1 times as often, so the coarse
+#: clusters differ in size) into `k` centroids (46 coarse, 45 a sub-fit of
+#: ~5,700 rows on average, in more than one size bucket), `iters` fused steps
+#: each; a flat fit of the first `flat_n` rows into `flat_k` centroids with
+#: its early exits; one sub-fit at `optimize(8192)`'s level-2 shape
+#: (`sub_rows` rows into `sub_k`) profiled eager and replayed; the seeding
+#: steps of `optimize(1024)`'s fit (`seed_k` over `seed_rows`: a quarter of
+#: its 1,023 steps, each the same work) profiled
+FITS = dict(n=1 << 18, blobs=64, k=2048, iters=25, flat_n=1 << 17, flat_k=256, seed=0, sub_rows=11500, sub_k=91,
+            seed_rows=1 << 20, seed_k=256)
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
@@ -1608,17 +1630,14 @@ def drive_ivf(dev) -> dict:
     zero_counters()
     index = Index(ndim=w, metric="ip", dtype="i8", device=dev)
     keys = index.add(None, x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index.optimize(n_partitions=spec["partitions"], reorder=True, spill=spec["spill"])
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    split = timed_flat_build(index, n_partitions=spec["partitions"], reorder=True, spill=spec["spill"])
+    build_s = split["total"]
     index.expansion_search = spec["expansion"]
     iv = index._ivf
     nprobe = iv.nprobe_for(index.expansion_search, index.connectivity)
     log(f"  i8 ip IVF {n} x {w}: optimize({spec['partitions']} partitions, reorder, spill {spec['spill']}) "
-        f"{build_s:.2f} s: {iv._shape()[0]} chunks, longest {iv.p_win} rows, {iv.shadow_np_pos.size} shadow rows, "
-        f"capacity {index.capacity}")
+        f"{build_s:.2f} s: {flat_split_text(split)}; {iv._shape()[0]} chunks, longest {iv.p_win} rows, "
+        f"{iv.shadow_np_pos.size} shadow rows, capacity {index.capacity}")
     member = torch.randperm(n, generator=gen, device=dev)[:nq]
     index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k)  # warm, on another batch
     m, search_s = search_timed(index, x[member], k)
@@ -1673,8 +1692,8 @@ def drive_ivf(dev) -> dict:
         after = mode_after_updates(index, mode, new, new_keys, probe_q, gone, k)
         modes[mode]["launches"] = {name: count + modes[mode]["launches"][name] for name, count in after.items()}
     return dict(index=index, queries=x[member], recall1=recall1, recall10=recall10, qps=nq / search_s,
-                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, modes=modes, want=want,
-                gone=gone, new=new, new_keys=new_keys, probe_q=probe_q)
+                nprobe=nprobe, build_s=build_s, build_split=split, launches=launches, probe_args=args, modes=modes,
+                want=want, gone=gone, new=new, new_keys=new_keys, probe_q=probe_q)
 
 
 def drive_f32_ivf(dev) -> dict:
@@ -1733,23 +1752,28 @@ def drive_f32_ivf(dev) -> dict:
 
 
 class CallTimer:
-    """Within a with-block, ``owner.name`` is wrapped to count its calls and
-    time each (the device synchronised before and after it); a staticmethod
-    or a class's function is put back as it was."""
+    """Within a with-block, ``owner.name`` is wrapped to count its calls,
+    time each (the device synchronised before and after it, unless not
+    ``sync``: then the host's time alone) and keep its results; a
+    staticmethod or a class's function is put back as it was."""
 
-    def __init__(self, owner, name: str):
-        self.owner, self.name, self.calls, self.seconds = owner, name, 0, []
+    def __init__(self, owner, name: str, sync: bool = True):
+        self.owner, self.name, self.calls, self.seconds, self.results = owner, name, 0, [], []
+        self.sync = sync
         self.saved = owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
         self.fn = getattr(owner, name)
 
     def __enter__(self):
         def timed(*args, **kwargs):
-            torch.cuda.synchronize()
+            if self.sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                return self.fn(*args, **kwargs)
+                self.results.append(self.fn(*args, **kwargs))
+                return self.results[-1]
             finally:
-                torch.cuda.synchronize()
+                if self.sync:
+                    torch.cuda.synchronize()
                 self.calls += 1
                 self.seconds.append(time.perf_counter() - t0)
 
@@ -1788,24 +1812,54 @@ def timed_host_add(index, rows: np.ndarray):
 
 
 def timed_build(index, **kwargs) -> dict:
-    """`optimize` with the two-level fit's stages timed: level 1 (the first
-    `kmeans_fit`), the coarse assignment, level 2 (the other fits), the flat
-    pass, the rest of the quantizer (the gather of live rows, the chunks)
-    and the layout (the table's permutation after the quantizer)."""
-    with CallTimer(kmeans, "kmeans_fit") as fits, CallTimer(kmeans, "_coarse_assign") as coarse, \
+    """`optimize` with the two-level fit's stages timed: level 1 (the coarse
+    fit, `kmeans._fit`), the coarse assignment, level 2 (the sub-fits,
+    `_sub_fits`, its `_sub_fit` calls counted, not timed apart), the flat pass, the rest of the
+    quantizer (the gather of live rows, the chunks) and the layout (the
+    table's permutation after the quantizer)."""
+    with CallTimer(kmeans, "_fit") as fits, CallTimer(kmeans, "_coarse_assign") as coarse, \
+            CallTimer(kmeans, "_sub_fits") as level2, CallTimer(kmeans, "_sub_fit", sync=False) as sub_fits, \
             CallTimer(kmeans, "_flat_pass") as flat, CallTimer(ivf.IVFPartitions, "_quantize") as quantize:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         index.optimize(**kwargs)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-    if fits.calls < 2 or coarse.calls != 1 or flat.calls != 1:
-        fail(f"optimize({kwargs}) did not take the two-level fit: {fits.calls} fits, {coarse.calls} coarse "
-             f"assignments, {flat.calls} flat passes")
-    level1, level2 = fits.seconds[0], sum(fits.seconds[1:])
-    return dict(total=total, level1=level1, coarse=coarse.total, level2=level2, sub_fits=fits.calls - 1,
-                flat=flat.total, quantize_rest=quantize.total - level1 - coarse.total - level2 - flat.total,
+    if fits.calls != 1 or coarse.calls != 1 or level2.calls != 1 or flat.calls != 1:
+        fail(f"optimize({kwargs}) did not take the two-level fit: {fits.calls} coarse fits, {coarse.calls} coarse "
+             f"assignments, {level2.calls} levels 2, {flat.calls} flat passes")
+    level1 = fits.total
+    return dict(total=total, level1=level1, coarse=coarse.total, level2=level2.total, sub_fits=sub_fits.calls,
+                flat=flat.total, quantize_rest=quantize.total - level1 - coarse.total - level2.total - flat.total,
                 layout=total - quantize.total)
+
+
+def timed_flat_build(index, **kwargs) -> dict:
+    """`optimize` with the flat fit's stages timed: the k-means++ seeding,
+    the Lloyd iterations (`kmeans._lloyd_loop`, less its final assignment)
+    and how many, the final assignment (`_final_step`), the fit's set-up,
+    the spill sweep (`assign_flat`'s top-2), the quantizer's rest and the
+    layout."""
+    with CallTimer(ivf, "kmeans_fit") as fit, CallTimer(kmeans, "_kmeanspp_init") as seeding, \
+            CallTimer(kmeans, "_lloyd_loop") as loop, CallTimer(kmeans, "_final_step") as final, \
+            CallTimer(ivf, "assign_flat") as sweep, CallTimer(ivf.IVFPartitions, "_quantize") as quantize:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.optimize(**kwargs)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    if fit.calls != 1 or loop.calls != 1:
+        fail(f"optimize({kwargs}) did not take the flat fit: {fit.calls} fits, {loop.calls} Lloyd loops")
+    return dict(total=total, seeding=seeding.total, lloyd=loop.total - final.total, iterations=loop.results[0][-1],
+                final=final.total, fit_rest=fit.total - seeding.total - loop.total, sweep=sweep.total,
+                quantize_rest=quantize.total - fit.total - sweep.total, layout=total - quantize.total)
+
+
+def flat_split_text(split: dict) -> str:
+    return (f"seeding {split['seeding']:.3f} s, {split['iterations']} Lloyd iterations {split['lloyd']:.3f} s, "
+            f"final assignment {split['final']:.3f} s, the fit's set-up {split['fit_rest']:.3f} s, spill sweep "
+            f"{split['sweep']:.3f} s, the quantizer's rest {split['quantize_rest']:.3f} s, layout "
+            f"{split['layout']:.3f} s")
 
 
 def same_search(got, want) -> bool:
@@ -3643,7 +3697,9 @@ def profiled(fn):
 #: the kernels of the captured paths by the name of their device function,
 #: and the wrappers that launch them
 CAPTURED_KERNELS = {"scan.cu": (("wgmma_scan", "simt_scan"), ("binned_scan", "binned_minima")),
-                    "probe.cu": (("grouped_wgmma",), ("grouped_probe", "grouped_probe_nofold"))}
+                    "probe.cu": (("grouped_wgmma",), ("grouped_probe", "grouped_probe_nofold", "binned_probe",
+                                                      "pair_probe")),
+                    "pair.cu": (("pair_fold",), ("pair_probe",))}
 
 
 def api_profile(fn, label: str):
@@ -3651,14 +3707,16 @@ def api_profile(fn, label: str):
     ms, device busy ms, idle share, the CUDA runtime's graph launches and
     kernel launches (any ``*LaunchKernel*`` call) on the host, and, for
     each source of CAPTURED_KERNELS, its kernels' executions on the device
-    beside the launches its wrappers counted in the call. Fails when the
-    profiler recorded no runtime call."""
+    beside the launches its wrappers counted in the call, and the device's
+    events (kernels and copies) of all sources. Fails when the profiler
+    recorded no runtime call."""
     wall_ms, events, launched = profiled(fn)
-    busy, graph, kernels, runtime = 0.0, 0, 0, 0
+    busy, graph, kernels, runtime, device_events = 0.0, 0, 0, 0, 0
     ran = {src: 0 for src in CAPTURED_KERNELS}
     for ev in events:
         if ev.device_type == DeviceType.CUDA:
             busy += ev.time_range.elapsed_us() / 1e3
+            device_events += 1
             for src, (names, _) in CAPTURED_KERNELS.items():
                 ran[src] += any(name in ev.name for name in names)
         elif ev.name.startswith("cuda") or (ev.name.startswith("cu") and ev.name[2:3].isupper()):
@@ -3669,7 +3727,7 @@ def api_profile(fn, label: str):
         fail(f"the profile of {label} recorded no CUDA runtime call")
     counted = {src: sum(launched[w] for w in wrappers) for src, (_, wrappers) in CAPTURED_KERNELS.items()}
     return dict(wall=wall_ms, busy=busy, idle=max(0.0, 1 - busy / wall_ms) if busy else None, graph=graph,
-                kernels=kernels, ran=ran, counted=counted, label=label)
+                kernels=kernels, ran=ran, counted=counted, label=label, device_events=device_events)
 
 
 def held_caches(target) -> list:
@@ -3679,15 +3737,24 @@ def held_caches(target) -> list:
     return [target._graphs]
 
 
-def capture_path(label: str, target, queries, k: int, card: str, exact: bool = False, expansion: int = 1024):
-    """Step (k), one path: its replay (``target.search``) equal to its eager
-    body bit for bit, then both timed CAPTURE["reps"] times in turns
-    (medians): the whole search, results on the host, and its prepared
-    part alone, prepared queries to results on the card; one replay
-    profiled with host queries (a graph launch a graph; no kernel launch
-    outside the merge of a sharded search; the path's kernels run on the
-    device as often as the graphs' recorded launches say), the captures
-    made and the pool's GiB."""
+def capture_path(label: str, target, queries, k: int, card: str, exact: bool = False, expansion: int = 1024,
+                 mode: str = "group"):
+    """Step (k), one path in probe flavour ``mode``: its replay
+    (``target.search``) equal to its eager body bit for bit, then both
+    timed CAPTURE["reps"] times in turns (medians): the whole search,
+    results on the host, and its prepared part alone, prepared queries to
+    results on the card; one replay profiled with host queries (a graph
+    launch a graph; no kernel launch outside the merge of a sharded search;
+    the path's kernels run on the device as often as the graphs' recorded
+    launches say), the captures made and the pool's GiB."""
+    ivf.PROBE_MODE = mode
+    try:
+        return capture_path_in_mode(label, target, queries, k, card, exact, expansion)
+    finally:
+        ivf.PROBE_MODE = "group"
+
+
+def capture_path_in_mode(label: str, target, queries, k: int, card: str, exact: bool, expansion: int):
     pool_search = isinstance(target, sharded.ShardedIndex)
     if pool_search:
         replay = lambda qs: target.search(qs, k, exact=exact, expansion_search=expansion)  # noqa: E731
@@ -3803,7 +3870,8 @@ def drive_capture(dev, runs: dict, card: str) -> list:
     """Phase 3 (k), whole-search capture (graphs.py) on phase 3's indexes:
     `Index.jit` true on the card; each captured path's replay against its
     eager body (`capture_path`): B1 i8 and compact, B2 i8, B3 i8 IVF with
-    shadows and fresh rows at 16,384 queries and at one, B3 f32 cos IVF,
+    shadows and fresh rows at 16,384 queries and at one, B6 (`pair`) and
+    B7 (`bin`) on that IVF, B3 f32 cos IVF,
     b1 hamming (B4) and tanimoto (B5), 4 shards on one card exact and
     probed; then the updates (`capture_updates`)."""
     t_step = time.perf_counter()
@@ -3817,6 +3885,10 @@ def drive_capture(dev, runs: dict, card: str) -> list:
         ("B2 i8 ip exact, 1M rows", head["index"], head["queries"][: MAIN["exact_q"]], MAIN["k"], dict(exact=True)),
         ("B3 i8 ip IVF (shadows, fresh rows)", ivf_run["index"], ivf_run["queries"], IVF["k"], {}),
         ("B3 i8 ip IVF, one query", ivf_run["index"], ivf_run["queries"][:1], IVF["k"], {}),
+        ("B6 i8 ip IVF `pair` (shadows, fresh rows)", ivf_run["index"], ivf_run["queries"], IVF["k"],
+         dict(mode="pair")),
+        ("B7 i8 ip IVF `bin` (shadows, fresh rows)", ivf_run["index"], ivf_run["queries"], IVF["k"],
+         dict(mode="bin")),
         ("B3 f32 cos IVF", f32_ivf["index"], f32_ivf["queries"], IVF["k"], {}),
     ] + [(f"b1 {metric} IVF ({'B4' if metric == 'hamming' else 'B5 + re-rank'})", run["index"], run["queries"],
           BINARY["k"], {}) for metric, run in binary.items()] + [
@@ -3837,6 +3909,140 @@ def drive_capture(dev, runs: dict, card: str) -> list:
         f"{budget / 2**30:.3f} GiB ({graphs.POOL_BUDGET_SHARE} of the card's memory); {card}")
     log(f"  step (k) {time.perf_counter() - t_step:.1f} s; {card}")
     return rows
+
+
+def same_bits(got, want) -> bool:
+    """Arrays equal bit for bit, dtype and shape included."""
+    return all(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g.view(np.uint8), w.view(np.uint8))
+               for g, w in zip(got, want))
+
+
+def fit_both_ways(label: str, fn, card: str):
+    """Step (l), one fit: ``fn()`` through its captured steps, eagerly (no
+    graph cache, `kmeans._fit_cache`) and captured again, each timed; the
+    results and the Lloyd loop's step counts equal bit for bit, or the step
+    fails. Returns the first captured run's caches."""
+    make, caches = kmeans._fit_cache, []
+
+    def recorded(device):
+        caches.append(make(device))
+        return caches[-1]
+
+    runs = []
+    for cache_of in (recorded, lambda device: None, recorded):  # captured, eager, captured again
+        kmeans._fit_cache = cache_of
+        try:
+            with CallTimer(kmeans, "_lloyd_loop", sync=False) as loops:
+                out, secs = timed(fn)
+        finally:
+            kmeans._fit_cache = make
+        runs.append((out, secs, [r[-1] for r in loops.results]))
+    (got, got_s, got_steps), (want, want_s, want_steps), (again, again_s, _) = runs
+    if not (same_bits(got, want) and same_bits(again, want)) or got_steps != want_steps:
+        fail(f"(l) {label}: the captured fit differs from the eager one (steps {got_steps} and {want_steps})")
+    cache = caches[0]
+    log(f"  (l) {label}: assignments and centroids equal bit for bit to the eager steps'"
+        f"{f', the same exit after {got_steps[0]} steps' if got_steps else ''}; captured {got_s:.3f} s and "
+        f"{again_s:.3f} s (each {cache.captures} captures, {cache.replays} replays), eager {want_s:.3f} s between "
+        f"them ({card})")
+    return caches[:1]
+
+
+def eager_builds(dev) -> dict:
+    """Step (l): phase 3's two builds again over the rows they were given
+    (the IVF path's, step (b)'s, drawn from the same seeds on the card),
+    their fits eager (`kmeans._fit_cache` gives no graph cache), split as
+    phase 3 splits them."""
+    make = kmeans._fit_cache
+    kmeans._fit_cache = lambda device: None
+    out = {}
+    try:
+        for name, spec, seed, timer, spill in (("flat", IVF, SEED + 3, timed_flat_build, IVF["spill"]),
+                                               ("two_level", LIFECYCLE, SEED + 16, timed_build, 0.0)):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            index = Index(ndim=spec["w"], metric="ip", dtype="i8", device=dev)
+            index.add(None, unit_rows(spec["n"], spec["w"], gen, dev))
+            out[name] = timer(index, n_partitions=spec["partitions"], reorder=True, spill=spill)
+            del index
+    finally:
+        kmeans._fit_cache = make
+    return out
+
+
+def drive_fits(dev, builds: dict, card: str) -> None:
+    """Phase 3 (l), the k-means fits captured (FITS): the splits of phase
+    3's builds (``builds``: the IVF path's `optimize(1024)`, step (b)'s
+    `optimize(8192)`) again, and the same builds' splits with their fits
+    eager (`eager_builds`); a two-level fit whose sub-fits fall in at
+    least two size buckets and a flat fit with its early exits, each held
+    bit for bit against its eager steps at the same seed and timed both
+    ways (`fit_both_ways`); then one sub-fit's launches, eager and
+    replayed, profiled (`api_profile`): the replay makes one graph launch a
+    step; and replayed seeding steps of a flat fit at `optimize(1024)`'s
+    size, their device time by kernel (`profile_call`)."""
+    t_step = time.perf_counter()
+    flat, two = builds["flat"], builds["two_level"]
+    log(f"  (l) the builds' fits, replayed: optimize({IVF['partitions']}, spill {IVF['spill']}) {flat['total']:.3f} s: "
+        f"{flat_split_text(flat)}; optimize({LIFECYCLE['partitions']}) {two['total']:.3f} s: level 1 "
+        f"{two['level1']:.3f} s, level 2 {two['level2']:.3f} s ({two['sub_fits']} sub-fits) ({card})")
+    eager = eager_builds(dev)
+    flat, two = eager["flat"], eager["two_level"]
+    log(f"  (l) the same builds, their fits eager: optimize({IVF['partitions']}, spill {IVF['spill']}) "
+        f"{flat['total']:.3f} s: {flat_split_text(flat)}; optimize({LIFECYCLE['partitions']}) {two['total']:.3f} s: "
+        f"level 1 {two['level1']:.3f} s, coarse assignment {two['coarse']:.3f} s, level 2 {two['level2']:.3f} s "
+        f"({two['sub_fits']} sub-fits), flat pass {two['flat']:.3f} s, the quantizer's rest "
+        f"{two['quantize_rest']:.3f} s, layout {two['layout']:.3f} s ({card})")
+    spec = FITS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    centers = unit_rows(spec["blobs"], 256, gen, dev)
+    weights = torch.arange(1, spec["blobs"] + 1, dtype=torch.float32, device=dev)
+    near = centers[torch.multinomial(weights, spec["n"], replacement=True, generator=gen)]
+    x = near + 0.5 * unit_rows(spec["n"], 256, gen, dev)
+    rows = torch.round(x / x.norm(dim=1, keepdim=True) * 100).clamp(-127, 127).to(torch.int8)
+    k, iters = spec["k"], spec["iters"]
+    k1 = math.ceil(math.sqrt(k))
+    k2 = math.ceil(k / k1)
+    (cache,) = fit_both_ways(
+        f"two-level fit of {spec['n']} i8 rows x 256 into {k} ({k1} coarse, {k2} a sub-fit, {iters} steps)",
+        lambda: kmeans.kmeans_hierarchical(rows, k, metric=MetricKind.L2sq, max_iterations=iters,
+                                           seed=spec["seed"]), card)
+    sub_buckets = {key[4] for key in cache.keys() if key[6] == k2}
+    if len(sub_buckets) < 2:
+        fail(f"(l) the sub-fits took {len(sub_buckets)} size buckets, not two or more: {sorted(sub_buckets)}")
+    log(f"  (l) the sub-fits' size buckets (padded rows): {sorted(sub_buckets)}")
+    flat_rows = rows[: spec["flat_n"]]
+    fit_both_ways(f"flat fit of {spec['flat_n']} rows into {spec['flat_k']}",
+                  lambda: kmeans.kmeans_fit(flat_rows, spec["flat_k"], metric=MetricKind.IP, max_iterations=iters,
+                                            seed=spec["seed"]),
+                  card)
+
+    # one sub-fit of `optimize(8192)`'s level 2 over 2^20 rows (91 coarse
+    # clusters of ~11,500 rows, 91 centroids each), in the bucket of 16,384
+    m, k2 = spec["sub_rows"], spec["sub_k"]
+    members = torch.randperm(spec["n"], generator=gen, device=dev)[:m].sort().values
+    profiles = {}
+    for name, cached in (("eager", False), ("replayed", True)):
+        units = kmeans._Units(dev)
+        if not cached:
+            units.cache = None
+        bucket = kmeans._sub_bucket(units, MetricKind.L2sq, rows, m, k2)
+        profiles[name] = api_profile(lambda: kmeans._sub_fit(bucket, rows, members, k2, iters, spec["seed"]),
+                                     f"one sub-fit {name}")
+    steps = k2 - 1 + iters + 1  # the seeding's, the Lloyd steps and the final assignment's
+    eager_p, replay_p = profiles["eager"], profiles["replayed"]
+    if replay_p["graph"] != steps or eager_p["graph"]:
+        fail(f"(l) one sub-fit: {replay_p['graph']} graph launches replayed (want {steps}), {eager_p['graph']} eager")
+    log(f"  (l) one sub-fit of {m} rows into {k2} ({iters} steps): eager {eager_p['kernels']} kernel launches, wall "
+        f"{eager_p['wall']:.2f} ms, device busy {eager_p['busy']:.2f} ms in {eager_p['device_events']} device events; "
+        f"replayed {replay_p['graph']} graph launches and {replay_p['kernels']} kernel launches outside them, wall "
+        f"{replay_p['wall']:.2f} ms (profiled), device busy {replay_p['busy']:.2f} ms in {replay_p['device_events']} "
+        f"device events ({card})")
+    # seeding steps of `optimize(1024)`'s flat fit, over its 2^20 rows
+    pts = rows.repeat(spec["seed_rows"] // spec["n"], 1)
+    bucket = kmeans._Bucket(kmeans._Units(dev), MetricKind.L2sq, pts, spec["seed_k"], kmeans.ASSIGN_TILE)
+    profile_call(lambda: kmeans._kmeanspp_init(pts, bucket.gen, spec["seed_k"], bucket),
+                 f"the replayed k-means++ seeding of {spec['seed_k']} centroids over {pts.shape[0]} i8 rows x 256")
+    log(f"  step (l) {time.perf_counter() - t_step:.1f} s; {card}")
 
 
 def capture_threads(label: str, index, queries, k: int, card: str, reps: int = 12) -> None:
@@ -4033,6 +4239,9 @@ def main() -> int:
     drive_capture(dev, dict(head=head, comp=comp, ivf=ivf_run, f32_ivf=f32_ivf, binary=binary, sharded=sharded_run),
                   card)
     stamp("step (k)")
+    log("== phase 3: the k-means fits captured, " + card)
+    drive_fits(dev, dict(flat=ivf_run["build_split"], two_level=life["build"]), card)
+    stamp("step (l)")
 
     log("== phase 4: kernels at the main path's shapes, " + card)
     for run, spec in ((head, MAIN), (comp, COMPACT)):

@@ -61,7 +61,7 @@ from usearch_torch.parallel.sharded import ShardedIndex  # noqa: E402
 #: the kernel wrappers whose plain versions stand in for one launch, by the
 #: modules that call them
 KERNELS = {scan: ("binned_scan", "binned_minima"), probe: ("grouped_probe", "grouped_probe_nofold"),
-           ivf: ("grouped_probe", "grouped_probe_nofold")}
+           ivf: ("grouped_probe", "grouped_probe_nofold", "binned_probe")}
 #: Tensor methods that read a value to the host
 READS = ("item", "tolist", "__bool__", "__int__", "__float__", "cpu", "numpy")
 #: torch functions that read to the host or copy host data to the device
@@ -148,7 +148,7 @@ class StandIn:
     def warm(self, body, args):
         return body(*args)
 
-    def capture(self, body, args):
+    def capture(self, body, args, generators=()):
         with self._armed():
             outputs = body(*args)
         self.held += 1
@@ -344,6 +344,69 @@ def test_ivf_probe(pallas_backend, guard, monkeypatch, jax_ivf_i8, mode, route, 
     assert cache.captures == 1 and cache.replays == 1 and key[:2] == ("ivf", route)
     assert key[5] == 128 and key[6] == port._ivf.shadow_np_pos.size > 0  # the fresh list's length, the shadows
     assert_same_ivf(got[0], ref.search(q[:32], k), "i8", "ip")
+
+
+def pair_on_the_card(guard):
+    """B6's wrapper as the card runs it (`probe.pair_probe`'s card branch):
+    `pair_cells` under the guard, the two kernel steps through their plain
+    versions (test_torch_pair_fold.py's decomposition) unguarded."""
+
+    def pair_probe(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m):
+        probe._check_pair(metric, q, q_sq, table, t_sq, penalty, starts, offs, lens, k, w_pad, bin_m)
+        qid, win_start, win_len, inv = probe.pair_cells(starts, offs, lens, table.shape[0], w_pad)
+        with guard.armed(False):
+            lists = probe.grouped_probe_plain(metric, q[qid].contiguous(), q_sq[qid].contiguous(), table, t_sq,
+                                              penalty, win_start, win_len, k, min(bin_m, k), rank_form=True)
+            out = probe.pair_fold_plain(metric, *lists, inv, q_sq, k)
+        graphs.count_launch(probe.pair_probe)
+        return out
+
+    return pair_probe
+
+
+@pytest.mark.parametrize("mode", ["pair", "bin"])
+def test_ivf_opt_in_flavours(pallas_backend, guard, monkeypatch, jax_ivf_i8, mode):
+    """The opt-in flavours over test_ivf_probe's index: B6 (``pair``, its
+    card path's cells under the guard) and B7 (``bin``, its gate decided
+    in the plan) as whole bodies; replays equal eager, and the JAX index in
+    the same flavour as test_torch_probe_modes.py holds it."""
+    ref, q = jax_ivf_i8
+    monkeypatch.setattr(ivf, "PROBE_MODE", mode)
+    monkeypatch.setattr(jivf, "_PROBE_MODE", mode)
+    monkeypatch.setattr(ref, "expansion_search", 200)  # B7 needs a wide surface: 8 k bin winners
+    monkeypatch.setattr(ivf, "pair_probe", pair_on_the_card(guard))
+    port = carried(ref)
+    cache = cache_on(port, guard)
+    launches = probe.pair_probe.launches
+    got = replays_equal_eager(port, [q[:32], q[4:36]], 10)
+    assert cache.captures == 1 and cache.replays == 1 and cache.keys()[0][:2] == ("ivf", mode)
+    if mode == "pair":  # the warm run, one replay, two eager searches
+        assert probe.pair_probe.launches - launches == 4
+    assert_same_ivf(got[0], ref.search(q[:32], 10), "i8", "ip")
+
+
+def test_bin_gate_follows_removals(guard, monkeypatch, jax_ivf_i8):
+    """Removals that leave less than `ivf.BIN_LIVE_FLOOR` of the rows live
+    switch ``bin`` to its fallback at the next search, as eager does: a new
+    key, whose replays equal eager and find no removed key. The share is
+    read once a version of the mask."""
+    ref, q = jax_ivf_i8
+    monkeypatch.setattr(ivf, "PROBE_MODE", "bin")
+    monkeypatch.setattr(ref, "expansion_search", 200)
+    port = carried(ref)
+    cache = cache_on(port, guard)
+    reads = []
+    share = ivf._live_fraction
+    monkeypatch.setattr(ivf, "_live_fraction", lambda v: (reads.append(1), share(v))[1])
+    replays_equal_eager(port, [q[:16], q[16:32]], 10)
+    assert [key[1] for key in cache.keys()] == ["bin"] and len(reads) == 1
+    built = np.setdiff1d(np.nonzero(port._valid.numpy())[0], port._ivf.fresh_np)  # removed in place
+    gone = port._slot_keys[built[: int(0.6 * len(built))]]
+    port.remove(gone)
+    got = replays_equal_eager(port, [q[:16], q[16:32]], 10)
+    # the fallback: B5's surface is too narrow for 2 k with the shadows, so B3
+    assert [key[1] for key in cache.keys()] == ["bin", "group"] and cache.captures == 2 and len(reads) == 2
+    assert not np.isin(np.concatenate([g.keys for g in got]), gone).any()
 
 
 @pytest.mark.parametrize("metric,route", [("hamming", "group"), ("tanimoto", "binary")])
@@ -607,13 +670,14 @@ def test_index_keys_and_generation(guard):
     port.optimize(n_partitions=8, reorder=True)
     assert port._generation == g + 2
     assert plan(8, 4, ivf_=True)[:2] == ("ivf", "group")
-    for mode in ("pair", "bin"):
+    for mode in ("pair", "bin"):  # captured too: bin's gate is decided in the plan
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(ivf, "PROBE_MODE", mode)
-            assert plan(8, 4, ivf_=True) is None
+            assert plan(8, 4, ivf_=True)[:2] == ("ivf", mode)
     port.compact()
     assert port._generation == g + 3
     port.clear()
     assert port._generation == g + 4
     assert not port.jit  # on the CPU the body runs eagerly
-    assert pad_queries(5) == 8 and set(graphs.EAGER) >= {"pair", "bin", "streamed views", "exact_search"}
+    assert pad_queries(5) == 8 and set(graphs.EAGER) >= {"streamed views", "exact_search", "add"}
+    assert not {"pair", "bin"} & set(graphs.EAGER)

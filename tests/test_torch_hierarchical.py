@@ -31,7 +31,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.fixture
 def same_start(monkeypatch):
     monkeypatch.setattr(jkm, "_kmeanspp_init", lambda points, key, k: points[:k].astype(jnp.float32))
-    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k: points[:k].float())
+    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k, bucket=None: points[:k].float())
 
 
 def blobs(rng, n_per, centers, ndim, spread):

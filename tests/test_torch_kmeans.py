@@ -86,7 +86,7 @@ def test_kmeans_fit_matches_reference_from_same_start(monkeypatch, metric):
     init = pts[rng.choice(len(pts), 6, replace=False)].copy()
     init[5] = init[4]
     monkeypatch.setattr(jkm, "_kmeanspp_init", lambda points, key, k: jnp.asarray(init))
-    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k: torch.from_numpy(init.copy()))
+    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k, bucket=None: torch.from_numpy(init.copy()))
     wa, wd, wc = jkm.kmeans_fit(pts, 6, metric=JMetric(metric), max_iterations=25, seed=0)
     ga, gd, gc = km.kmeans_fit(pts, 6, metric=MetricKind(metric), max_iterations=25, seed=0)
     assert ga.shape == wa.shape == (897,) and gc.shape == wc.shape == (6, 16)

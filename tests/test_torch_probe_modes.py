@@ -121,9 +121,9 @@ def test_mode_fallbacks(monkeypatch, calls):
     assert calls[-1] == "_ivf_probe_search_dense_grouped"
     monkeypatch.setattr(ivf, "PROBE_MODE", "pair")
     iv, q = index._ivf, index._cast_device(torch.from_numpy(x[:12]), ScalarKind.F32)
-    iv._search_dense(index, q, index._valid, 10, 4, False)
+    iv._search_dense(index, q, index._valid, 10, 4, False, False)
     assert calls[-1] == "_ivf_probe_search_dense"
-    iv._search_dense(index, q[:8], index._valid, 10, 4, False)
+    iv._search_dense(index, q[:8], index._valid, 10, 4, False, False)
     assert calls[-1] == "_ivf_probe_search_dense_pair"
     bits = (np.random.default_rng(81).random((600, 256)) > 0.5).astype(np.float32)
     for metric, mode, want in (("tanimoto", "pair", "_ivf_probe_search_dense_binary"),

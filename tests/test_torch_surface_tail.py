@@ -127,7 +127,7 @@ def test_package_kmeans_matches_reference(monkeypatch):
     x = np.concatenate([c + rng.standard_normal((60, 8)) * 0.3 for c in rng.standard_normal((5, 8)) * 4])
     init = x[rng.choice(len(x), 5, replace=False)].astype(np.float32)
     monkeypatch.setattr(jkm, "_kmeanspp_init", lambda points, key, k: jnp.asarray(init))
-    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k: torch.from_numpy(init.copy()))
+    monkeypatch.setattr(km, "_kmeanspp_init", lambda points, gen, k, bucket=None: torch.from_numpy(init.copy()))
     wa, wd, wc = usearch_tpu.kmeans(x, 5, metric="l2sq", max_iterations=20, seed=0)
     ga, gd, gc = usearch_torch.kmeans(x, 5, metric="l2sq", max_iterations=20, seed=0, device="cpu")
     np.testing.assert_array_equal(ga, wa)

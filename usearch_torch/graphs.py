@@ -46,6 +46,14 @@ captured, and it is what runs on the CPU.
   capture stream (the warm run, whose result it returns), then captures it.
   A capture that fails raises: no search falls back from a graph to eager
   without saying so. The paths that stay eager are named in `EAGER`.
+- **Steps.** The k-means fits (kmeans.py) repeat small steps that update
+  their state in place: `GraphCache.repeat` runs such a step a number of
+  times, the first of a key as the warm run and then a capture, every
+  other as a replay. The step's tensors are the graph's own inputs, read
+  by address and allocated outside the pool; a generator it draws from is
+  registered with the graph, so each replay draws what the eager step
+  would. A fit's graphs live in a cache of their own (one a top-level fit),
+  under the same budget.
 """
 
 from __future__ import annotations
@@ -66,12 +74,8 @@ MAX_GRAPHS = 8
 #: together
 POOL_BUDGET_SHARE = 0.25
 
-#: the searches that stay eager on the card, and why (ROADMAP A.14b onward)
+#: the paths that stay eager on the card, and why (ROADMAP A.14d onward)
 EAGER = {
-    "pair": "the opt-in B6 flavour (ivf.PROBE_MODE = 'pair'): left eager in this slice (ROADMAP A.14b); its "
-            "plain version reads each window's bounds to the host (ops/probe.py `_windows`)",
-    "bin": "the opt-in B7 flavour (ivf.PROBE_MODE = 'bin'): its gate reads the mask's live share to the host "
-           "(`IVFPartitions._live_share`), a value a graph would freeze (ROADMAP A.14c)",
     "streamed views": "driven tile by tile from the host: each tile's rows are copied out of the file's map "
                       "and uploaded while the last tile is searched (stream.py; ROADMAP A.14d)",
     "exact_search": "the package-level `exact_search` builds a new table at each call, so no graph would be "
@@ -79,8 +83,13 @@ EAGER = {
     "plain scans and probes": "no kernel on the path: the plain scan (`ops/topk.scan_topk`: k past the kernels' "
                               "gates, f16, pearson), the plain probes (the copied IVF layout, windows past B3's "
                               "guard), the metric tail and user-defined metrics (ROADMAP A.14f)",
-    "add and the k-means fits": "jitted in the JAX package, launch-bound here, but not searches: each call's "
-                                "shapes and host decisions differ (ROADMAP A.14g)",
+    "add": "`Index._scatter` and `_cast_device` are 3-6 launches a batch against a host-bound call, and a "
+           "bucketed `index_copy_` would need the drop slot the JAX scatter gets from out-of-bounds semantics "
+           "(ROADMAP A.14h)",
+    "the fits' once-a-build bodies": "the coarse assignment (`kmeans._coarse_assign`), the flat pass "
+                                     "(`_flat_pass`, `assign_flat`), the assigned distances (`_assigned_dists`) and "
+                                     "a fit's set-up (the padded copy, the seeding's norms and first draw): each "
+                                     "runs once a build, so a capture would cost more than it saves (ROADMAP A.14g)",
 }
 
 
@@ -195,14 +204,16 @@ class CudaBackend:
         with self._on(self._side):
             return body(*args)
 
-    def capture(self, body, args):
-        """``(graph, outputs)`` of ``body(*args)`` captured; in
-        ``thread_local`` mode, so other threads' searches go on. The cached
-        free blocks of the other pools go back to the card first, as
-        `torch.cuda.graph` does: a capture cannot free them when its pool
-        needs room."""
+    def capture(self, body, args, generators=()):
+        """``(graph, outputs)`` of ``body(*args)`` captured, with the draws
+        from ``generators`` registered; in ``thread_local`` mode, so other
+        threads' searches go on. The cached free blocks of the other pools
+        go back to the card first, as `torch.cuda.graph` does: a capture
+        cannot free them when its pool needs room."""
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         with self._on(self._side):
             graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
             try:
@@ -298,12 +309,8 @@ class GraphCache:
         the graph's static inputs (host tensors should be pinned); the
         outputs are new tensors. The cache's lock is held from the copy in
         to the copy out."""
-        generation = (generation, profiler_epoch())
         with self._lock:
-            self.last_used = next(_ticks)
-            if generation != self.generation:
-                self._drop()
-                self.generation = generation
+            self._enter(generation)
             entry = self._graphs.get(key)
             if entry is None:
                 out = self._capture(key, body, args)
@@ -314,6 +321,24 @@ class GraphCache:
             hold_budget(self.device, self)
         return out
 
+    def _enter(self, generation) -> None:
+        """The cache used now (its lock held): a new ``generation``, or a
+        new profiler epoch, drops its graphs."""
+        generation = (generation, profiler_epoch())
+        self.last_used = next(_ticks)
+        if generation != self.generation:
+            self._drop()
+            self.generation = generation
+
+    def _keep(self, key, entry: Captured) -> Captured:
+        """A new graph kept under ``key``, the least recently used out past
+        ``max_graphs``."""
+        while len(self._graphs) >= self.max_graphs:
+            self._graphs.popitem(last=False)
+        self._graphs[key] = entry
+        self.captures += 1
+        return entry
+
     def _capture(self, key, body, args):
         backend = self.backend
         inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=self.device) for a in args)
@@ -322,11 +347,53 @@ class GraphCache:
         warm = backend.warm(body, inputs)
         with recording() as recorded:
             graph, outputs = backend.capture(body, inputs)
-        while len(self._graphs) >= self.max_graphs:
-            self._graphs.popitem(last=False)
-        self._graphs[key] = Captured(graph, inputs, tuple(outputs), recorded)
-        self.captures += 1
+        self._keep(key, Captured(graph, inputs, tuple(outputs), recorded))
         return warm
+
+    def repeat(self, key: tuple, generation, body: Callable, args: Tuple[torch.Tensor, ...], times: int = 1,
+               writes: Tuple[torch.Tensor, ...] = (), generators: tuple = ()) -> None:
+        """``body(*args)`` run ``times`` times through the graph of ``key``:
+        a step that updates ``writes`` (some of ``args``) in place and
+        returns an empty tuple. At the key's first call in ``generation``
+        the first run is the warm run; the graph is then captured, with
+        ``generators`` registered, and ``writes`` and ``generators`` are
+        put back as the warm run left them (a capture runs nothing on the
+        card, but a stand-in's may). Every other run is a replay. The graph
+        reads ``args`` by address, so the caller keeps one set of them a
+        key."""
+        if times <= 0:
+            return
+        with self._lock:
+            self._enter(generation)
+            entry = self._graphs.get(key)
+            captured = entry is None
+            if captured:
+                entry = self._capture_step(key, body, args, writes, generators)
+                times -= 1
+            else:
+                self._graphs.move_to_end(key)
+            if times:
+                with self.backend.replaying():
+                    for _ in range(times):
+                        self.backend.replay(entry.graph)
+                for _ in range(times):
+                    add_launches(entry.launches)
+                self.replays += times
+        if captured:
+            hold_budget(self.device, self)
+
+    def _capture_step(self, key, body, args, writes, generators) -> Captured:
+        backend = self.backend
+        backend.warm(body, args)
+        kept = [w.clone() for w in writes]
+        drawn = [g.get_state() for g in generators]
+        with recording() as recorded:
+            graph, _ = backend.capture(body, args, generators)
+        for w, k in zip(writes, kept):
+            w.copy_(k)
+        for g, state in zip(generators, drawn):
+            g.set_state(state)
+        return self._keep(key, Captured(graph, tuple(args), (), recorded))
 
     def _replay(self, entry: Captured, args):
         backend = self.backend

@@ -123,8 +123,8 @@ BIN_SEL = "pack"
 #: share the search takes the in-kernel penalty paths instead
 BIN_LIVE_FLOOR = 0.5
 #: the dense probe's flavours whose search an `Index` captures as a CUDA
-#: graph on the card (graphs.py; the others stay eager, `graphs.EAGER`)
-CAPTURED_ROUTES = ("binary", "nofold", "group")
+#: graph on the card (graphs.py; the plain probe stays eager, `graphs.EAGER`)
+CAPTURED_ROUTES = ("binary", "nofold", "group", "pair", "bin")
 
 _SERIALS = itertools.count()
 
@@ -580,15 +580,26 @@ def _ivf_probe_search_dense_binary(metric, kind, q, valid, centroids, table, sta
     return _merge_windows(dt, wi, order, p0, q.shape[0], k)
 
 
-def _binned_ok(metric, kind, table, valid, k: int, nprobe: int, w_pad: int, live_share) -> bool:
+def _binned_ok(metric, kind, width: int, k: int, nprobe: int, w_pad: int, live_share) -> bool:
     """Kernel B7's preconditions: i8 rows of at most `MAX_BINNED_WIDTH`, a
     dot-selectable metric, enough bin winners to cover ``8 k``, and a mostly
-    live mask (B7 masks after its merge, not during selection);
-    ``live_share(valid)`` is asked last."""
+    live mask (B7 masks after its merge, not during selection); the mask's
+    ``live_share()``, a host read, is asked last."""
     return (kind == ScalarKind.I8 and metric in (MetricKind.IP, MetricKind.Cos, MetricKind.L2sq)
-            and table.shape[1] <= MAX_BINNED_WIDTH
+            and width <= MAX_BINNED_WIDTH
             and nprobe * BIN_KEEP * (w_pad // BIN_BW) >= 8 * k
-            and live_share(valid) >= BIN_LIVE_FLOOR)
+            and live_share() >= BIN_LIVE_FLOOR)
+
+
+def _bin_fallback(k: int, nprobe: int, w_pad: int) -> str:
+    """The route ``bin`` takes where B7's gate refuses: as ``nofold``."""
+    return "nofold" if _nofold_fits(k, nprobe, w_pad) else "group" if grouped_fits(k, nprobe, w_pad) else "plain"
+
+
+def _live_fraction(valid: torch.Tensor) -> float:
+    """Share of live positions in ``valid``: an exact count, one scalar
+    read."""
+    return int(valid.sum()) / max(valid.numel(), 1)
 
 
 def _nofold_fits(k: int, nprobe: int, w_pad: int) -> bool:
@@ -625,7 +636,7 @@ def dense_route(metric, kind, n_q: int, n_rows: int, k: int, nprobe: int, p_win:
 
 def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, ndim: int, k: int, nprobe: int,
                 p_win: int, *, shard: bool = False, block: int = DENSE_BLOCK, all_live: bool = False, groups=None,
-                metric_fn=None, live_share=None):
+                metric_fn=None, binned: bool):
     """The dense layout's probe of an `Index` and of each shard of a
     `ShardedIndex`: ``[Q, k]`` distances and table rows, in query chunks of
     `PROBE_QCHUNK`. Inside the kernels' gates (the padded window within the
@@ -635,12 +646,13 @@ def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, n
     flavour, then B3 under the JAX package's working-set guard; the rest
     takes the plain probe of ``block``-row blocks (`dense_route`). A
     ``shard`` takes no other flavour: B3, or the plain probe under
-    ``"xla"`` (see `PROBE_MODE`). ``live_share(valid)`` serves ``bin``'s
-    live floor."""
+    ``"xla"`` (see `PROBE_MODE`). ``binned`` is ``bin``'s gate
+    (`_binned_ok`), decided on the host before the body
+    (`IVFPartitions.plan`); where it is false, ``bin`` takes its fallback."""
     if q.shape[0] > PROBE_QCHUNK:
         parts = [dense_probe(metric, kind, q[lo : lo + PROBE_QCHUNK], valid, centroids, table, stats, starts, lens,
                              ndim, k, nprobe, p_win, shard=shard, block=block, all_live=all_live, groups=groups,
-                             metric_fn=metric_fn, live_share=live_share)
+                             metric_fn=metric_fn, binned=binned)
                  for lo in range(0, q.shape[0], PROBE_QCHUNK)]
         return torch.cat([d for d, _ in parts]), torch.cat([s for _, s in parts])
     route = dense_route(metric, kind, q.shape[0], table.shape[0], k, nprobe, p_win, shard=shard, metric_fn=metric_fn)
@@ -651,9 +663,9 @@ def dense_probe(metric, kind, q, valid, centroids, table, stats, starts, lens, n
     if route == "pair":
         return _ivf_probe_search_dense_pair(*args, groups)
     if route == "bin":
-        if _binned_ok(metric, kind, table, valid, k, nprobe, w_pad, live_share):
+        if binned:
             return _ivf_probe_search_dense_binned(*args, groups, BIN_BW, BIN_KEEP, BIN_SEL)
-        route = "nofold" if _nofold_fits(k, nprobe, w_pad) else "group" if grouped_fits(k, nprobe, w_pad) else "plain"
+        route = _bin_fallback(k, nprobe, w_pad)
     if route == "nofold":
         return _ivf_probe_search_dense_nofold(*args, groups)
     if route == "group":
@@ -959,9 +971,10 @@ class IVFPartitions:
         ``body(q, valid)`` the device part (the top-k of prepared queries:
         ``[Q, k]`` f32 distances and i32 slots, -1 where none), ``key`` the
         decisions it takes on the host, or None where the body stays eager on
-        the card (the copied layout, and the dense routes outside
-        `CAPTURED_ROUTES`: `graphs.EAGER`). The fresh list's and the
-        shadows' tensors are made here, outside the body."""
+        the card (the copied layout, and the plain probe: `graphs.EAGER`).
+        The fresh list's and the shadows' tensors are made here, outside the
+        body, and ``bin``'s gate is decided here (`_live_share`): the body
+        takes the route the key names."""
         nprobe = self.nprobe_for(expansion_search, index._connectivity)
         fresh_n = int(self.fresh_np.size)
         fresh = probe_mask = None
@@ -976,9 +989,23 @@ class IVFPartitions:
         if shadowed:
             self._shadows(valid.device)
 
+        key, binned = None, False
+        if self.inplace_shape is not None:
+            kk = min(2 * k, 128) if shadowed else k
+            route = dense_route(index._metric_kind, index._kind, min(n_q, PROBE_QCHUNK), index._table.shape[0], kk,
+                                nprobe, self.p_win, metric_fn=index._metric_fn)
+            if route == "bin":
+                w_pad = padded_window(self.p_win)
+                binned = _binned_ok(index._metric_kind, index._kind, index._table.shape[1], kk, nprobe, w_pad,
+                                    lambda: self._live_share(valid, probe_mask))
+                route = "bin" if binned else _bin_fallback(kk, nprobe, w_pad)
+            if route in CAPTURED_ROUTES:
+                key = ("ivf", route, nprobe, kk, all_live, 0 if fresh is None else int(fresh.shape[0]),
+                       int(self.shadow_np_pos.size) if shadowed else 0)
+
         def body(q, valid):
             probe_valid = valid if probe_mask is None else valid & probe_mask
-            d, slots = self._search_built(index, q, probe_valid, k, nprobe, all_live)
+            d, slots = self._search_built(index, q, probe_valid, k, nprobe, all_live, binned)
             if fresh is None:
                 return d, slots
             df, sf = _fresh_topk(index._metric_kind, index._kind, q, index._table, index._stats, valid,
@@ -987,26 +1014,18 @@ class IVFPartitions:
             return staged_topk(torch.cat([d, df], dim=1),
                                torch.cat([slots.to(torch.int32), sf.to(torch.int32)], dim=1), k)
 
-        key = None
-        if self.inplace_shape is not None:
-            kk = min(2 * k, 128) if shadowed else k
-            route = dense_route(index._metric_kind, index._kind, min(n_q, PROBE_QCHUNK), index._table.shape[0], kk,
-                                nprobe, self.p_win, metric_fn=index._metric_fn)
-            if route in CAPTURED_ROUTES:
-                key = ("ivf", route, nprobe, kk, all_live, 0 if fresh is None else int(fresh.shape[0]),
-                       int(self.shadow_np_pos.size) if shadowed else 0)
         return key, body
 
-    def _search_built(self, index, q, valid, k: int, nprobe: int, all_live: bool):
+    def _search_built(self, index, q, valid, k: int, nprobe: int, all_live: bool, binned: bool):
         if self.inplace_shape is not None:
             if self.spilled and self.shadow_np_pos.size:
                 # shadows: probe at twice the depth with the extended mask,
                 # map winners to their primaries, drop duplicates
                 pos, src = self._shadows(valid.device)
                 d, slots = self._search_dense(index, q, _shadow_extend(valid, pos, src), min(2 * k, 128), nprobe,
-                                              all_live)
+                                              all_live, binned)
                 return _dedup_trim(d, _shadow_canon(slots.to(torch.int32), pos, src), k)
-            return self._search_dense(index, q, valid, k, nprobe, all_live)
+            return self._search_dense(index, q, valid, k, nprobe, all_live, binned)
         c, p = self.part_slots.shape
         kk = min(2 * k, c * p) if self.spilled else k
         d, slots = _ivf_probe_search(
@@ -1018,16 +1037,22 @@ class IVFPartitions:
             return _dedup_trim(d, slots, k)
         return d, slots
 
-    def _live_share(self, valid: torch.Tensor) -> float:
-        """Share of live positions in the composed mask: an exact count,
-        one scalar read per mask, cached by its identity and version (the
-        index updates its own mask in place)."""
+    def _live_share(self, valid: torch.Tensor, probe_mask: Optional[torch.Tensor]) -> float:
+        """Share of live positions in the mask the dense probe sees (``valid``
+        without the fresh rows' ``probe_mask``, the shadows extended): an
+        exact count, one scalar read, cached by ``valid``'s identity and
+        version (the index updates its own mask in place) and the
+        structure's generation (the fresh list's and the shadows' tensors)."""
         c = self._live_cache
-        if c is None or c[0] is not valid or c[1] != valid._version:
-            self._live_cache = c = (valid, valid._version, int(valid.sum()) / max(valid.numel(), 1))
+        version = (valid._version, self.generation)
+        if c is None or c[0] is not valid or c[1] != version:
+            seen = valid if probe_mask is None else valid & probe_mask
+            if self.spilled and self.shadow_np_pos.size:
+                seen = _shadow_extend(seen, *self._shadows(valid.device))
+            self._live_cache = c = (valid, version, _live_fraction(seen))
         return c[2]
 
-    def _search_dense(self, index, q, valid, k: int, nprobe: int, all_live: bool):
+    def _search_dense(self, index, q, valid, k: int, nprobe: int, all_live: bool, binned: bool):
         return dense_probe(index._metric_kind, index._kind, q, valid, self.centroids, index._table, index._stats,
                            self.starts, self.lens, index._ndim, k, nprobe, self.p_win, all_live=all_live,
-                           groups=self._groups, metric_fn=index._metric_fn, live_share=self._live_share)
+                           groups=self._groups, metric_fn=index._metric_fn, binned=binned)

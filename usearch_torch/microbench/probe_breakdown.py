@@ -113,8 +113,9 @@ PARTS = {
 
 
 def capture(index, queries, mode: str, name: str):
-    """The arguments of the one call of probe kernel ``name`` that a search
-    of ``queries`` in probe flavour ``mode`` makes."""
+    """The arguments of the one call of probe kernel ``name`` that an eager
+    search of ``queries`` in probe flavour ``mode`` makes (no graph: a
+    capture would call it again, a replay not at all)."""
     calls = []
     kern = getattr(probe, name)
 
@@ -124,11 +125,13 @@ def capture(index, queries, mode: str, name: str):
 
     setattr(ivf, name, spy)
     ivf.PROBE_MODE = mode
+    graphs, index._graphs = index._graphs, None
     try:
         index.search(queries, K)
     finally:
         setattr(ivf, name, kern)
         ivf.PROBE_MODE = "group"
+        index._graphs = graphs
     if len(calls) != 1:
         raise RuntimeError(f"the {mode} search called {name} {len(calls)} times")
     return calls[0]

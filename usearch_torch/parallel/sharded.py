@@ -604,7 +604,7 @@ class ShardedIndex:
 
                 def steps(q, t=t, st=st, v=v, off=off, c=c, sta=sta, ln=ln):
                     d, i = ivf.dense_probe(self.metric, self.kind, q, v, c, t, st, sta, ln, self.ndim, k, nprobe,
-                                           iv["p_win"], shard=True, block=iv["block"])
+                                           iv["p_win"], shard=True, block=iv["block"], binned=False)
                     yield  # launched whole, as one step
                     return d, _global_rows(i, off)
             else:
