@@ -26,7 +26,11 @@ Phases, each fatal on failure:
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
    f32; the same at SCAN_EDGES (ragged query tiles, two fully deleted bins,
-   a half 256-row tile, W=128, rows too wide to stay in shared memory); B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
+   a half 256-row tile, W=128, rows too wide to stay in shared memory);
+   the exact rescore's dots (csrc/rescore.cu) at RESCORE_CHECK: i8 rows at
+   W=256 and W=1,152 bit for bit, bf16 and f32 unit rows within
+   FLOAT_RTOL/FLOAT_ATOL, the table's last bin in every query's list and one
+   list of a repeated bin, Q=512, 40 and 1; B3 (grouped probe) on 256 windows of 200-400 rows, the pairs of 512
    and 40 queries at nprobe 8, on the same dtypes and metrics, with and
    without the penalty row (ip), with 4 and k candidates per bin, and B5 on
    the same windows and metrics at 4 and 8 per bin; B3 over packed
@@ -80,8 +84,8 @@ Phases, each fatal on failure:
    and the grouped search once more, unchanged; 4,096 rows added after the
    build and found, 1% of the keys removed and never returned, in every
    flavour. The launch counters are zeroed just before each path and
-   flavour and read just after: B1 and B2 must have launched on the flat
-   paths, on the IVF path B3 and no other kernel, and in each flavour its
+   flavour and read just after: B1, B2 and the rescore's dots must have
+   launched on the flat paths, on the IVF path B3 and no other kernel, and in each flavour its
    own kernel and no other. The flat-scan flavours on the i8 index after its
    removal: `search_fused` (B8), `search_fused_stream` (B9) and
    `search_binned_lanes` (B10) on the 16,384 member queries at k=10, each
@@ -129,7 +133,7 @@ Phases, each fatal on failure:
    (STREAMED): 2**22 unit rows in an i8 ip index (1 GiB), saved and
    `Index.restore(path, view=True, stream=True)`, 1,024 member queries at
    k=10 equal to the resident `search(exact=True)` apart from ties, through
-   B2 once a tile (32) and no other kernel, a filter (even keys) against the
+   B2 and the rescore once a tile (32 each) and no other kernel, a filter (even keys) against the
    resident filtered search, `get` from the map, `add`/`remove` refused,
    the search's time beside the host copy of the rows out of the map into
    pinned memory and a pinned upload of the same bytes, a streamed
@@ -154,18 +158,18 @@ Phases, each fatal on failure:
    within FLOAT_RTOL and f32 summation's bound and whose approximate search has recall@1
    >= 0.99; `cluster()` over the
    IVF path's index within [512, 1024] clusters; `join` of 16,384 perturbed
-   member rows against it, `exact=True` (B2 must launch) and probed (B3
+   member rows against it, `exact=True` (B2 and the rescore must launch) and probed (B3
    must launch), at least 90% of the proposers matched; each piece timed;
    (i) the sharded index (SHARDED): 2**20 unit rows x 256 in an i8 ip
    `ShardedIndex` on `make_mesh(4)` (4 shards of 262,144 rows on the one
-   card), 1,024 member queries searched exactly (B2 once a shard and no
-   other kernel; keys equal to a single-device `Index.search(exact=True)`
+   card), 1,024 member queries searched exactly (B2 and the rescore once a
+   shard and no other kernel; keys equal to a single-device `Index.search(exact=True)`
    over the same rows apart from ties), `optimize(256)` per shard, 16,384
    member queries probed at `expansion_search` 1,024 (B3 once a shard and
    no other kernel, recall@1 >= 0.99, recall@10 against the exact answer
    printed beside the plain core's, ``PROBE_MODE = "xla"``), the same
    search through B3's plain version equal, the host syncs of one search;
-   4,096 rows added and found through B2, 1% of the keys removed and never
+   4,096 rows added and found through B2 and the rescore, 1% of the keys removed and never
    returned, `optimize` again, saved and loaded, the loaded pool searching
    bit for bit as the saved one; then a process group of one over NCCL
    (`distributed_initialize`), the exact search through the all-gather
@@ -184,11 +188,11 @@ Phases, each fatal on failure:
    the keys removed one call each, none returned; `usearch_exact_search`
    over bench.py's 1M x 256 unit i8 rows in host memory with 16,384 member
    queries, distances bit for bit and keys apart from ties against
-   `exact_search`, B2 launched, its upload share; 4,096 one-row
+   `exact_search`, B2 and the rescore launched, its upload share; 4,096 one-row
    `usearch_add` calls into a fresh i8 ip index (adds/s), every row found
    by an exact search; test.c and test.cpp exited 0 on the card;
    (k) whole-search capture (CAPTURE): each captured path's replay (B1,
-   B2, B3 and its `pair` (B6) and `bin` (B7) flavours, B4, B5, the sharded
+   B2 with the rescore's dots, B3 and its `pair` (B6) and `bin` (B7) flavours, B4, B5, the sharded
    searches) equal to its eager body bit for bit, both timed, one replay
    profiled (a graph launch a graph, no kernel launch outside it); the
    updates' replays and recaptures; (l) the k-means fits captured (FITS):
@@ -201,7 +205,8 @@ Phases, each fatal on failure:
    phase 2's tolerances, then timed beside its bound, the plain version's
    time (the hold's own call, synchronised) and one library call's time as
    a yardstick (none for the probe
-   kernels B3-B7); B3 also over the IVF pairs with queries and table in
+   kernels B3-B7 and the rescore over i8; `torch.bmm` of the gathered rows
+   for its bf16 and f32); the rescore's dots at both exact searches' bins; B3 also over the IVF pairs with queries and table in
    bf16, and at the pairs of a batch of 1,024 queries (that search through
    B3's plain version held equal to the kernel's); B3, B5 (`nofold`) and B6
    (`pair`) over f32 at the f32 IVF path's arguments and B8/B9/B10 over f32
@@ -285,7 +290,7 @@ from usearch_torch.ops import casts, microbench, probe, scan, tf32
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits
-from usearch_torch.ops.topk import masked_topk
+from usearch_torch.ops.topk import masked_topk, topk_min
 from usearch_torch.parallel import sharded
 from usearch_torch.parallel.mesh import distributed_initialize, make_mesh
 
@@ -297,6 +302,11 @@ index_module = importlib.import_module("usearch_torch.index")
 SEED = 0
 #: phase 2 shape
 CHECK = dict(n=65536, q=512, ragged_q=40, w=256, deleted=0.1)
+#: phase 2 shape of the exact rescore's dots: table rows by width (i8 also
+#: past I8_F32_EXACT_WIDTH, where the plain version sums in f64), query
+#: counts, bins a query (k=10 + EXACT_BIN_SLACK)
+RESCORE_CHECK = dict(rows={256: 65536, 1152: 16384}, widths={"i8": (256, 1152), "bf16": (256,), "f32": (256,)},
+                     qs=(512, 40, 1), b=14)
 #: phase 3/4 shapes: bench.py's headline, and the f32 compact path
 MAIN = dict(n=1_000_000, w=256, q=16384, k=10, exact_q=1024, removed=0.01)
 COMPACT = dict(n=262144, w=256, q=16384, k=10, exact_q=1024)
@@ -450,9 +460,9 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-5, 1e-4
 TERMS_ATOL = 1e-6
 METRICS = ("ip", "cos", "l2sq")
 DTYPES = {"i8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
-#: the kernel wrappers of the flat paths and of the IVF path, each with its
-#: launch counter
-FLAT_KERNELS = (scan.binned_scan, scan.binned_minima)
+#: the kernel wrappers of the flat paths (B1, B2 and the exact rescore's
+#: dots) and of the IVF path, each with its launch counter
+FLAT_KERNELS = (scan.binned_scan, scan.binned_minima, scan.block_dots)
 PROBE_KERNELS = (probe.grouped_probe, probe.grouped_probe_nofold, probe.pair_probe, probe.binned_probe)
 #: the flat-scan flavours (phase 3): each search with the wrapper of the one
 #: kernel it must launch, and the TPU kernel that one replaces
@@ -801,6 +811,49 @@ def hold_b2(tag: str, args, kern, plain) -> float:
     log(f"  {tag}: B2 vs plain {'ok' if ok else 'MISMATCH'} (max abs err {err:.3g})")
     if not ok:
         fail(f"B2 disagrees with its plain version at {tag}")
+    return err
+
+
+def check_rescore(dev) -> None:
+    """Phase 2, the exact rescore's dots (csrc/rescore.cu) at RESCORE_CHECK:
+    random bins of the table with its last bin in every list and one list
+    of a single bin repeated, at Q=512, 40 and 1; i8 rows from the
+    quantizer (dots past 2**24 at W=1,152), bf16 and f32 unit rows, as the
+    main paths store them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    spec = RESCORE_CHECK
+    for name, widths in spec["widths"].items():
+        for w in widths:
+            n, nq, b = spec["rows"][w], max(spec["qs"]), spec["b"]
+            if name == "i8":
+                table, q = make_rows(n, w, DTYPES[name], gen, dev), make_rows(nq, w, DTYPES[name], gen, dev)
+            else:
+                table, q = unit_rows(n, w, gen, dev).to(DTYPES[name]), unit_rows(nq, w, gen, dev).to(DTYPES[name])
+            bins = torch.randint(0, n // 128, (nq, b), generator=gen, device=dev)
+            bins[:, -1] = n // 128 - 1
+            bins[0] = bins[0, 0]
+            for m in spec["qs"]:
+                args = (q[:m], table, bins[:m])
+                hold_rescore(f"{name} N={n} W={w} Q={m} b={b}", args[0], scan.block_dots(*args),
+                             scan.block_dots_plain(*args))
+
+
+def hold_rescore(tag: str, q, kern, plain) -> float:
+    """The rescore kernel's dots against its plain version's: i8 int32
+    dots equal to the plain version's exact f32/f64 integers, bf16 and f32
+    within FLOAT_RTOL/FLOAT_ATOL (f32 sums in another order). Fails on a
+    mismatch; returns the max abs error."""
+    torch.cuda.synchronize()
+    if q.dtype == torch.int8:
+        ok = kern.dtype == torch.int32 and torch.equal(kern.double(), plain.double())
+        detail = "bit for bit"
+    else:
+        ok = kern.dtype == torch.float32 and torch.allclose(kern, plain.float(), rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+        detail = f"within rtol {FLOAT_RTOL} atol {FLOAT_ATOL}"
+    err = float((kern.double() - plain.double()).abs().max())
+    log(f"  {tag}: the rescore's dots vs plain {'ok' if ok else 'MISMATCH'}, {detail} (max abs err {err:.3g})")
+    if not ok:
+        fail(f"the rescore kernel disagrees with its plain version at {tag}")
     return err
 
 
@@ -2108,8 +2161,8 @@ def drive_streamed(dev, card: str):
     """Phase 3 (e), the streamed view at a real size (STREAMED): 2**22 unit
     rows in an i8 ip index on the card, saved, and `Index.restore(path,
     view=True, stream=True)`; 1,024 member queries at k=10 equal to the
-    resident `search(exact=True)` apart from ties, through B2 once a tile
-    and no other kernel (counters zeroed just before, read just after); a
+    resident `search(exact=True)` apart from ties, through B2 and the
+    rescore once a tile and no other kernel (counters zeroed just before, read just after); a
     filter (even keys) against the resident filtered search; `get` from the
     map, `add` and `remove` refused; the search's time beside the host copy
     of the rows from the map into pinned memory and a pinned upload of the
@@ -2149,9 +2202,7 @@ def drive_streamed(dev, card: str):
         m = viewed.search(queries, k)
         search_s = time.perf_counter() - t0
         launches = counters()
-        if launches["binned_minima"] != spec["tiles"] or any(v for name, v in launches.items()
-                                                             if name != "binned_minima"):
-            fail(f"the streamed search did not launch B2 once a tile and nothing else: {launches}")
+        only_launched("the streamed search", launches, exact_launches(spec["tiles"]))
         if not ties_aside(m, resident):
             fail(f"the streamed search differs from the resident exact search at "
                  f"{int((m.keys != resident.keys).sum())} places")
@@ -2514,7 +2565,7 @@ def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen
     log(f"  removed {len(gone)} keys: none comes back")
     launches = counters()
     log(f"  kernel launches on the b1 {metric} IVF path: {launches}")
-    if launches[kern_name] == 0 or launches["binned_scan"] or launches["binned_minima"]:
+    if launches[kern_name] == 0 or any(launches[kern.__name__] for kern in FLAT_KERNELS):
         fail(f"the b1 {metric} searches did not go through {kern_name} alone among the kernels: {launches}")
     return dict(index=index, queries=queries, recall1=recall1, recall10=recall10, qps=nq / search_s,
                 nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, kern=kern_name)
@@ -2601,6 +2652,48 @@ def kernel_row(name, path, metric, q, table, stats, valid, compact, launches, pe
                 replaces="usearch_tpu/ops/pallas_scan.py:" + ("446" if name == "binned_scan" else "631"),
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, product=scan_product(table, compact))
+
+
+def rescore_row(path: str, run, spec, peak_key: str) -> dict:
+    """Phase 4 row of the exact rescore's dots at an exact search's shape:
+    ``spec``'s first ``exact_q`` member queries on ``run``'s index, their
+    bins from B2 and the bin top-k as `scan.exact_steps` takes them; held
+    against the plain version, timed beside its bound (bytes: the rows of
+    every distinct selected bin once, as this run's bins need them, the
+    queries, the bins, the int32/f32 dots; the rate printed is that of the
+    rows gathered, a bin once a query that selects it) and, for bf16 and
+    f32, one `torch.bmm` over the rows gathered before the timing (torch
+    has no batched int8 product on CUDA)."""
+    ix = run["index"]
+    q = ix._cast_device(run["queries"][: spec["exact_q"]], ScalarKind.F32).contiguous()
+    table = ix._table
+    q_sq, t_sq, penalty = scan.scan_aux(ix.metric, q, ix._stats, ix._valid)
+    vals = scan.binned_minima(ix.metric, q, table, q_sq, t_sq, penalty)
+    _, bins = topk_min(vals, min(spec["k"] + scan.EXACT_BIN_SLACK, vals.shape[1]))
+    (nq, b), w, es = bins.shape, table.shape[1], table.element_size()
+    tag = f"block_dots {path} Q={nq} b={b} N={table.shape[0]}"
+    kern = lambda: scan.block_dots(q, table, bins)  # noqa: E731
+    want, plain_ms = plain_timed(lambda: scan.block_dots_plain(q, table, bins))
+    err = hold_rescore(tag, q, kern(), want)
+    del want
+    ms = time_ms(kern, 10)
+    distinct = int(torch.unique(bins).numel())
+    gathered = nq * b * 128 * w * es
+    nbytes = distinct * 128 * w * es + nq * w * es + nq * b * 8 + nq * b * 128 * 4
+    b_ms, b_by = bound_ms(2.0 * nq * b * 128 * w, PEAK_OPS[peak_key], nbytes)
+    lib = None
+    if q.dtype != torch.int8:
+        rows = table.view(-1, 128, w)[bins].reshape(nq, b * 128, w)
+        lib = time_ms(lambda: torch.bmm(rows, q[:, :, None]), 10)
+        del rows
+    launches = run["launches"]["block_dots"]
+    lib_txt = "none (torch has no batched int8 product on CUDA)" if lib is None else f"{lib:.3f} ms (torch.bmm)"
+    log(f"  {tag} W={w}: {ms:.4f} ms = {gathered / ms / 1e6:.1f} GB/s of rows gathered ({nq * b} bins, "
+        f"{distinct} distinct), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.4f} GB), plain {plain_ms:.1f} ms, "
+        f"library {lib_txt}, launches on its path {launches}, max abs err {err:.3g}")
+    return dict(name=f"block_dots[{path}]", route="cuda", source="usearch_torch/csrc/rescore.cu",
+                replaces="usearch_tpu/ops/pallas_scan.py:789", launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
 
 def scan_product(table: torch.Tensor, compact: bool) -> str:
@@ -3210,7 +3303,7 @@ def drive_metric_tail(dev, ivf_run: dict, card: str) -> None:
     men = Index(ndim=women.ndim, metric="ip", dtype="i8", device=dev)
     men_keys = men.add(np.arange(nj, dtype=np.uint64) + 10**9, rows)
     source = dict(zip(men_keys.tolist(), ivf_run["want"][:nj].tolist()))
-    for exact, kern in ((True, "binned_minima"), (False, "grouped_probe")):
+    for exact, kerns in ((True, ("binned_minima", "block_dots")), (False, ("grouped_probe",))):
         zero_counters()
         pairs, join_s = timed(lambda: men.join(women, max_proposals=TAIL["proposals"], exact=exact))
         launches = counters()
@@ -3219,8 +3312,8 @@ def drive_metric_tail(dev, ivf_run: dict, card: str) -> None:
         log(f"  join of {nj} perturbed member rows against the IVF path's index, {'exact' if exact else 'probed'}, "
             f"max_proposals {TAIL['proposals']}: {join_s:.2f} s, men matched {matched:.4f}, to their own row "
             f"{own:.4f}; launches {launches}; {card}")
-        if launches[kern] == 0:
-            fail(f"join (exact={exact}) did not launch {kern}: {launches}")
+        if not all(launches[kern] for kern in kerns):
+            fail(f"join (exact={exact}) did not launch {kerns}: {launches}")
         if len(set(pairs.values())) != len(pairs) or matched < 0.9:
             fail(f"join (exact={exact}): {matched:.4f} matched, one to one {len(set(pairs.values())) == len(pairs)}")
     log(f"  step (h) {time.perf_counter() - t_step:.1f} s; {card}")
@@ -3247,10 +3340,18 @@ def sharded_plain_probe(pool, queries, k: int, expansion: int):
     return m, calls
 
 
-def only_launched(label: str, launches: dict, kern: str, times: int) -> None:
-    """``kern`` launched ``times`` times and no other kernel did."""
-    if launches[kern] != times or any(launches[name] for name in set(launches) - {kern}):
-        fail(f"{label}: {kern} did not launch {times} times alone: {launches}")
+def only_launched(label: str, launches: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched as often as it says, and no other
+    kernel did."""
+    if any(launches[name] != times for name, times in want.items()) or any(
+            launches[name] for name in set(launches) - set(want)):
+        fail(f"{label}: the launches {launches} are not {want} alone")
+
+
+def exact_launches(times: int) -> dict:
+    """An exact search's kernels, each launched ``times`` times (a shard or
+    a tile each): B2 and the rescore's dots."""
+    return {"binned_minima": times, "block_dots": times}
 
 
 def group_search(x, qx, want, spec, card: str) -> None:
@@ -3274,7 +3375,7 @@ def group_search(x, qx, want, spec, card: str) -> None:
         pool.search(qx, spec["k"], exact=True)  # warm: NCCL's first collective sets up its communicator
         zero_counters()
         got, search_s = timed(lambda: pool.search(qx, spec["k"], exact=True))
-        only_launched("the group's exact search", counters(), "binned_minima", spec["shards"])
+        only_launched("the group's exact search", counters(), exact_launches(spec["shards"]))
         sites, _ = sync_sites(lambda: pool._search_prepared(q, spec["k"], True, spec["expansion"]))
         if not same_search(got, want):
             fail(f"the search through the all-gather differs at {int((got.keys != want.keys).sum())} places")
@@ -3288,13 +3389,14 @@ def group_search(x, qx, want, spec, card: str) -> None:
 
 def drive_sharded(dev, card: str) -> dict:
     """Phase 3 (i), the sharded index (SHARDED), each piece timed: build on
-    `make_mesh(4)`, the exact search of member queries (B2 once a shard and
-    no other kernel, keys equal to a single-device `Index.search(exact=True)`
+    `make_mesh(4)`, the exact search of member queries (B2 and the rescore
+    once a shard and no other kernel, keys equal to a single-device `Index.search(exact=True)`
     over the same rows apart from ties), `optimize` per shard, the probed
     search of member queries (B3 once a shard and no other kernel, recall@1
     >= 0.99, recall@10 against the exact answer beside the plain core's,
     ``PROBE_MODE = "xla"``; equal to the search through B3's plain
-    version), the host syncs of one search; fresh rows found through B2,
+    version), the host syncs of one search; fresh rows found through B2 and
+    the rescore,
     1% of the keys removed and never returned, `optimize` again, save and
     load, the loaded pool searching bit for bit as the saved one; then the
     search through a process group (`group_search`)."""
@@ -3312,8 +3414,8 @@ def drive_sharded(dev, card: str) -> dict:
     pool.search(qx, k, exact=True)  # warm
     zero_counters()
     exact, exact_s = timed(lambda: pool.search(qx, k, exact=True))
-    exact_launches = counters()
-    only_launched("the sharded exact search", exact_launches, "binned_minima", shards)
+    exact_counts = counters()
+    only_launched("the sharded exact search", exact_counts, exact_launches(shards))
     single = Index(ndim=w, metric="ip", dtype="i8", device=dev)
     single.add(None, x)
     single.search(qx, k, exact=True)  # warm
@@ -3323,7 +3425,7 @@ def drive_sharded(dev, card: str) -> dict:
     log(f"  sharded i8 ip {n} x {w} on {pool.mesh}: build {build_s:.2f} s; exact search of {qx.shape[0]} member "
         f"queries {exact_s * 1e3:.1f} ms (single-device {one_s * 1e3:.1f} ms), equal to the single-device "
         f"`search(exact=True)` apart from ties, recall@1 {np.mean(exact.keys[:, 0] == want[: qx.shape[0]]):.4f}; "
-        f"launches {exact_launches}")
+        f"launches {exact_counts}")
 
     _, opt_s = timed(lambda: pool.optimize(n_partitions=spec["partitions"]))
     iv = pool._ivf
@@ -3333,7 +3435,7 @@ def drive_sharded(dev, card: str) -> dict:
     zero_counters()
     m, probe_s = timed(lambda: pool.search(queries, k, expansion_search=e))
     probe_launches = counters()
-    only_launched("the sharded probed search", probe_launches, "grouped_probe", shards)
+    only_launched("the sharded probed search", probe_launches, {"grouped_probe": shards})
     gt = pool.search(qx, k, exact=True)
     recall1, recall10 = recall_at(m, want, gt.keys, k)
     ivf.PROBE_MODE = "xla"
@@ -3367,7 +3469,7 @@ def drive_sharded(dev, card: str) -> dict:
     zero_counters()
     mf = pool.search(new, k)
     fresh_launches = counters()
-    only_launched("the search after the adds", fresh_launches, "binned_minima", shards)
+    only_launched("the search after the adds", fresh_launches, exact_launches(shards))
     found = float(np.mean([key in row for key, row in zip(new_keys.tolist(), mf.keys.tolist())]))
     if pool._ivf is not None or found < 1.0:
         fail(f"after the adds: IVF dropped {pool._ivf is None}, fresh rows found {found:.4f}")
@@ -3380,7 +3482,7 @@ def drive_sharded(dev, card: str) -> dict:
     mut_s = time.perf_counter() - t0
     if hits or removed != len(gone) or len(pool) != n + spec["fresh"] - len(gone):
         fail(f"after the removals: {hits} removed keys came back, {removed} removed, {len(pool)} live")
-    log(f"  {spec['fresh']} rows added: found through B2 ({found:.4f} as members, launches {fresh_launches}); "
+    log(f"  {spec['fresh']} rows added: found through B2 and the rescore ({found:.4f} as members, launches {fresh_launches}); "
         f"{removed} keys removed: none comes back, exactly or probed after `optimize` again ({reopt_s:.2f} s); "
         f"{mut_s:.2f} s")
 
@@ -3396,7 +3498,7 @@ def drive_sharded(dev, card: str) -> dict:
 
     group_search(x, qx, exact, spec, card)
     log(f"  step (i) {time.perf_counter() - t_step:.1f} s; {card}")
-    return dict(single=single, qx=qx, queries=queries, exact_launches=exact_launches, probe_launches=probe_launches,
+    return dict(single=single, qx=qx, queries=queries, exact_launches=exact_counts, probe_launches=probe_launches,
                 pool=pool)
 
 
@@ -3634,7 +3736,7 @@ def drive_cabi(dev, ivf_run: dict, card: str, programs) -> None:
             f"{exact_s:.3f} s ({nq / exact_s:.0f} QPS), the upload of the rows alone {upload_s:.3f} s "
             f"({upload_s / exact_s:.1%}); recall@1 {recall1:.4f}; against exact_search: "
             f"{'distances bit for bit, keys apart from ties' if ok else 'DIFFERENT'}; launches {launches}; {card}")
-        if not ok or launches["binned_minima"] == 0:
+        if not ok or not (launches["binned_minima"] and launches["block_dots"]):
             fail(f"usearch_exact_search: equal to exact_search {ok}, launches {launches}")
         del data
 
@@ -3697,6 +3799,7 @@ def profiled(fn):
 #: the kernels of the captured paths by the name of their device function,
 #: and the wrappers that launch them
 CAPTURED_KERNELS = {"scan.cu": (("wgmma_scan", "simt_scan"), ("binned_scan", "binned_minima")),
+                    "rescore.cu": (("block_dots_kernel",), ("block_dots",)),
                     "probe.cu": (("grouped_wgmma",), ("grouped_probe", "grouped_probe_nofold", "binned_probe",
                                                       "pair_probe")),
                     "pair.cu": (("pair_fold",), ("pair_probe",))}
@@ -4093,14 +4196,15 @@ def sharded_rows(sh: dict, card: str) -> list:
         return probe.grouped_probe(*args)
 
     per_search = {}
-    for exact, kern, qs in ((True, scan.binned_minima, qx), (False, probe.grouped_probe, queries)):
-        before = kern.launches
+    for exact, kerns, qs in ((True, (scan.binned_minima, scan.block_dots), qx), (False, (probe.grouped_probe,),
+                                                                                 queries)):
+        before = [kern.launches for kern in kerns]
         ivf.grouped_probe = recorded
         try:
             pool.search(qs, k, exact=exact, expansion_search=e)
         finally:
             ivf.grouped_probe = probe.grouped_probe
-        per_search[kern.__name__] = kern.launches - before
+        per_search.update({kern.__name__: kern.launches - was for kern, was in zip(kerns, before)})
     log(f"  launches per search, sharded i8 ip ({pool.mesh}): {per_search}")
     b3 = b3_row(dict(launches=sh["probe_launches"], probe_args=calls[0]), label="sharded i8 ip, one shard")
 
@@ -4187,6 +4291,8 @@ def main() -> int:
     stamp("check_kernels")
     check_scan_edges(dev)
     stamp("check_scan_edges")
+    check_rescore(dev)
+    stamp("check_rescore")
     check_probe(dev)
     stamp("check_probe")
     check_probe_edges(dev)
@@ -4247,10 +4353,10 @@ def main() -> int:
     for run, spec in ((head, MAIN), (comp, COMPACT)):
         ix = run["index"]
         per_search = {}
-        for exact, kern in ((False, scan.binned_scan), (True, scan.binned_minima)):
-            before = kern.launches
+        for exact, kerns in ((False, (scan.binned_scan,)), (True, (scan.binned_minima, scan.block_dots))):
+            before = [kern.launches for kern in kerns]
             ix.search(run["queries"][: spec["exact_q"]] if exact else run["queries"], spec["k"], exact=exact)
-            per_search[kern.__name__] = kern.launches - before
+            per_search.update({kern.__name__: kern.launches - was for kern, was in zip(kerns, before)})
         log(f"  launches per search, {ix.dtype.value} {ix.metric.value}: {per_search}")
     before = probe.grouped_probe.launches
     ivf_run["index"].search(ivf_run["queries"], IVF["k"])
@@ -4315,6 +4421,8 @@ def main() -> int:
                    cl["binned_scan"], "bf16"),
         kernel_row("binned_minima", "f32 cos", "cos", qf[: COMPACT["exact_q"]].contiguous(), cx._table,
                    cx._stats, cx._valid, False, cl["binned_minima"], "f32"),
+        rescore_row("i8 ip exact", head, MAIN, "i8"),
+        rescore_row("f32 cos exact", comp, COMPACT, "f32"),
         b3_row(ivf_run),
         b3_row(ivf_run, bf16_probe_args(ivf_run["probe_args"]), "bf16 ip IVF pairs", "bf16"),
         b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),

@@ -74,8 +74,8 @@ def median_ms(fn, dev) -> float:
 
 def eager_prepared(pool, q8, exact: bool):
     """The eager code a search's graphs capture, called directly: each
-    shard's search launched op by op (`sharded.eager_candidates`: B2's
-    rescore chunks a shard at a time in turn), then the merge; ``[Q, K]``
+    shard's search launched op by op (`sharded.eager_candidates`: B2 and
+    its rescore a shard at a time in turn), then the merge; ``[Q, K]``
     distances and global rows."""
     plans = pool._shard_plans(q8.shape[0], K, exact, EXPANSION)
     return merge_candidates(eager_candidates(plans, _replicate(q8, pool.mesh.devices)), K, pool.mesh)

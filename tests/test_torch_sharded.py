@@ -340,8 +340,8 @@ def test_interleave_takes_a_step_of_each_in_turn():
 
 @pytest.mark.parametrize("metric", ["cos", "l2sq"])
 def test_exact_b2_shards_match_jax(metric, monkeypatch):
-    """Shards of 1,536 rows take B2 (its plain version here), their rescore
-    chunks interleaved: keys equal to the JAX pool's, distances within an
+    """Shards of 1,536 rows take B2 and the rescore (their plain versions
+    here), their steps interleaved: keys equal to the JAX pool's, distances within an
     atol of 1e-6 x the largest q_sq + t_sq (B2's l2sq is q_sq + t_sq - 2
     dot, which cancels near a query's own row, as tests/test_torch_fused_edges.py
     holds it), and the same bits whatever the rescore's chunk."""

@@ -42,6 +42,9 @@ SIGNATURES = {
         "usearch_binned_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "usearch_binned_minima": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "rescore": {
+        "usearch_block_dots": [_P] * 4 + [_I] * 5 + [_P],
+    },
     "probe": {
         "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
         "usearch_grouped_probe_nofold": [_P] * 10 + [_I] * 7 + [_P],

@@ -1,5 +1,5 @@
-"""The binned scans: kernels B1, B2, B8, B9 and B10, their plain versions,
-and the searches around them.
+"""The binned scans: kernels B1, B2, B8, B9 and B10, the exact rescore's
+kernel, their plain versions, and the searches around them.
 
 Counterpart of `usearch_tpu/ops/pallas_scan.py`. For every query and every
 128-row bin of the table, a kernel computes the dots, the metric epilogue
@@ -13,7 +13,9 @@ candidates, then plain torch finishes:
   rescored exactly.
 - `search_exact` (B2): the best ``k + 4`` bins by minimum, every row of them
   rescored exactly. A row closer than the true k-th distance makes its bin's
-  minimum smaller than that distance, so no better row is left out.
+  minimum smaller than that distance, so no better row is left out. The
+  rescore's dots are one kernel (`block_dots`), the counterpart of
+  `pallas_search_exact`'s batched ``dot_general`` over the gathered bins.
 
 B1's and B2's surfaces are ``[Q, N/128]`` (the JAX kernels write
 ``[N/128, Q]``), so the top-k reads each query's bins contiguously. The
@@ -40,8 +42,9 @@ TPU kernels' tile sizes and merge interval, and B10's ``split_dot``, change
 no output and are not parameters here.
 
 Each kernel wrapper runs the plain version for CPU tensors and the CUDA
-kernel (csrc/scan.cu, csrc/fused.cu) for CUDA tensors; there is no fallback
-between them. Each wrapper's ``launches`` counts its kernel launches.
+kernel (csrc/scan.cu, csrc/fused.cu, csrc/rescore.cu) for CUDA tensors;
+there is no fallback between them. Each wrapper's ``launches`` counts its
+kernel launches.
 """
 
 from __future__ import annotations
@@ -67,8 +70,11 @@ EXACT_BIN_SLACK = 4
 #: candidates per k that the compact (f32 storage) approximate path rescores
 #: exactly; the JAX package's default (USEARCH_TPU_OVERSAMPLE)
 OVERSAMPLE = 2
-#: bytes of the largest temporary of one chunk of the exact rescore
+#: bytes of the largest temporary of one chunk of the exact rescore's plain
+#: version (`block_dots_plain`)
 _RESCORE_BUDGET = 128 * 1024 * 1024
+#: widest i8 rows the rescore kernel takes: |dot| <= 2**16 * 2**14 in int32
+_I8_DOTS_WIDTH = 1 << 16
 #: elements of the score block of one step of the plain versions
 _PLAIN_BLOCK = 1 << 26
 
@@ -82,9 +88,7 @@ def supports(metric: MetricKind, kind: ScalarKind) -> bool:
     return metric in _METRIC_CODES and kind in (ScalarKind.BF16, ScalarKind.F32, ScalarKind.I8)
 
 
-def _check(metric, q, table, q_sq, t_sq, penalty) -> None:
-    if metric not in _METRIC_CODES:
-        raise ValueError(f"the scan kernels take ip/cos/l2sq, got {metric}")
+def _check_rows(q, table) -> None:
     if q.dtype not in _DTYPE_CODES or table.dtype != q.dtype:
         raise TypeError(f"q and table must share a dtype of {list(_DTYPE_CODES)}: {q.dtype}, {table.dtype}")
     if q.dim() != 2 or table.dim() != 2 or q.shape[1] != table.shape[1]:
@@ -92,6 +96,13 @@ def _check(metric, q, table, q_sq, t_sq, penalty) -> None:
     n, width = table.shape
     if n % LANES or width % LANES:
         raise ValueError(f"table rows and width must be multiples of {LANES}: {tuple(table.shape)}")
+
+
+def _check(metric, q, table, q_sq, t_sq, penalty) -> None:
+    if metric not in _METRIC_CODES:
+        raise ValueError(f"the scan kernels take ip/cos/l2sq, got {metric}")
+    _check_rows(q, table)
+    n = table.shape[0]
     aux = [(q_sq, q.shape[0]), (penalty, n)] + ([] if metric == MetricKind.IP else [(t_sq, n)])
     for x, length in aux:
         if x is None or x.dtype != torch.float32 or x.shape != (length,):
@@ -340,6 +351,73 @@ def _exact_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return (rows.to(acc) * q.to(acc)[:, None, :]).sum(dim=-1).float()
 
 
+def _check_block_dots(q, table, bins) -> None:
+    _check_rows(q, table)
+    n, width = table.shape
+    if n == 0:
+        raise ValueError("the rescore takes bins of a table with rows")
+    if q.dtype == torch.int8 and width > _I8_DOTS_WIDTH:
+        raise ValueError(f"i8 rows past {_I8_DOTS_WIDTH} bytes could overflow an int32 dot: {width}")
+    if bins.dtype != torch.int64 or bins.dim() != 2 or bins.shape[0] != q.shape[0] or bins.shape[1] < 1:
+        raise ValueError(f"bins must be i64 [Q, b], b >= 1: {bins.dtype} {tuple(bins.shape)}")
+    for x in (q, table, bins):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError("all operands must be contiguous and on one device")
+
+
+def block_dots_plain(q: torch.Tensor, table: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """What the rescore kernel computes, in plain torch: ``[Q, b * 128]``
+    dots of each query with every row of its ``b`` bins,
+    ``dots[i, j * 128 + r] = <q[i], table[bins[i, j] * 128 + r]>``. The
+    gathered rows are widened (`_exact_acc`: f64 for i8 past
+    ``I8_F32_EXACT_WIDTH``, else f32), multiplied in place and summed, in
+    query chunks of `_RESCORE_BUDGET`; i8 dots are exact integers."""
+    n_q, b = bins.shape
+    width = table.shape[1]
+    t_blk = table.view(-1, LANES, width)
+    acc = _exact_acc(q)
+    qa = q.to(acc)
+    dots = torch.empty((n_q, b * LANES), dtype=acc, device=q.device)
+    chunk = max(8, min(512, _RESCORE_BUDGET // (b * LANES * (width * 4 + 8))))
+    for lo in range(0, n_q, chunk):
+        bc = bins[lo : lo + chunk]
+        m = bc.shape[0]
+        rows = t_blk[bc].reshape(m, b * LANES, width).to(acc)  # a gathered copy: multiplied in place
+        torch.sum(rows.mul_(qa[lo : lo + m, None, :]), dim=-1, out=dots[lo : lo + m])
+    return dots
+
+
+def block_dots(q: torch.Tensor, table: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """The exact rescore's dots (csrc/rescore.cu `usearch_block_dots`), or
+    its plain version for CPU tensors: ``[Q, b * 128]``, int32 for i8 rows
+    (exact), f32 for bf16 and f32 rows. ``bins`` ``[Q, b]`` i64 must hold
+    bins of the table (a top-k over its bins); the kernel gives 0 dots for
+    any other."""
+    _check_block_dots(q, table, bins)
+    if q.device.type == "cpu":
+        return block_dots_plain(q, table, bins)
+    from .. import build
+
+    (n_q, b), (n, width) = bins.shape, table.shape
+    dots = torch.empty((n_q, b * LANES), dtype=torch.int32 if q.dtype == torch.int8 else torch.float32,
+                       device=q.device)
+    if n_q == 0:
+        return dots
+    if q.data_ptr() % 16 or table.data_ptr() % 16:
+        raise ValueError("the rescore kernel reads rows in 16-byte chunks: q and table must be 16-byte aligned")
+    lib = build.load("rescore")
+    with torch.cuda.device(q.device):
+        _launch(
+            lib.usearch_block_dots, _ptr(q), _ptr(table), _ptr(bins), _ptr(dots), n_q, b, n, width,
+            _DTYPE_CODES[q.dtype], ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    count_launch(block_dots)
+    return dots
+
+
+block_dots.launches = 0
+
+
 def rescore_exact(metric, q, q_sq, table, stats, valid, ids):
     """Exact f32 distances of ``[Q, m]`` candidate rows, sorted ascending."""
     dots = _exact_dots(q, table[ids])
@@ -367,28 +445,21 @@ def search_binned(metric, q, table, stats, valid, k: int,
 
 def exact_steps(metric, q, table, stats, valid, k: int):
     """`search_exact` one launch group at a time: a generator that yields
-    after B2 and after each query chunk's rescore is launched, and returns
-    the ``[Q, k]`` distances and rows. Searches of several shards taken a
-    step each in turn launch every device's first work before any device's
-    last. The dots are `_exact_dots`', a chunk at a time."""
+    after B2 and its bin top-k, and after the rescore's dots are launched,
+    and returns the ``[Q, k]`` distances and rows. Searches of several
+    shards taken a step each in turn launch every device's first work
+    before any device's last. The dots are `block_dots`': the rescore kernel
+    for CUDA tensors, its plain version (widened, a query chunk at a time)
+    for CPU tensors; the epilogue, the mask and the top-k are torch ops over
+    them on either device."""
     q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
     vals = binned_minima(metric, q, table, q_sq, t_sq, penalty)
     n_q, n_bins = vals.shape
-    width = table.shape[1]
     b = min(k + EXACT_BIN_SLACK, n_bins)
     _, bins = topk_min(vals, b)
     yield
-    t_blk = table.view(n_bins, LANES, width)
-    acc = _exact_acc(q)
-    qa = q.to(acc)
-    dots = torch.empty((n_q, b * LANES), dtype=acc, device=q.device)
-    chunk = max(8, min(512, _RESCORE_BUDGET // (b * LANES * (width * 4 + 8))))
-    for lo in range(0, n_q, chunk):
-        bc = bins[lo : lo + chunk]
-        m = bc.shape[0]
-        rows = t_blk[bc].reshape(m, b * LANES, width).to(acc)  # a gathered copy: multiplied in place
-        torch.sum(rows.mul_(qa[lo : lo + m, None, :]), dim=-1, out=dots[lo : lo + m])
-        yield
+    dots = block_dots(q, table, bins)
+    yield
     t_sq_rows = stats[:, 0].reshape(n_bins, LANES)[bins].reshape(n_q, -1)
     dist = dists_from_dots(metric, dots.float(), q_sq[:, None], t_sq_rows)
     dist = torch.where(valid.view(n_bins, LANES)[bins].reshape(n_q, -1), dist, MASKED)
@@ -407,7 +478,7 @@ def run_steps(steps):
 
 def search_exact(metric, q, table, stats, valid, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k: bin minima (B2), the best ``k + 4`` bins, and every row
-    of them rescored, in query chunks of a fixed memory budget."""
+    of them rescored (`block_dots`)."""
     return run_steps(exact_steps(metric, q, table, stats, valid, k))
 
 

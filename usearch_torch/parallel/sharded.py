@@ -161,8 +161,8 @@ def merge_candidates(cands, k: int, mesh: Mesh) -> Tuple[torch.Tensor, torch.Ten
 
 def eager_candidates(plans: list, queries: list) -> list:
     """Each shard's search of `ShardedIndex._shard_plans` run eagerly on its
-    device's queries: every shard launched before any is read, B2's rescore
-    chunks a shard at a time in turn (`_interleave`)."""
+    device's queries: every shard launched before any is read, B2 and its
+    rescore a shard at a time in turn (`_interleave`)."""
     return _interleave([steps(q) for (_, steps), q in zip(plans, queries)])
 
 
