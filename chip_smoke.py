@@ -21,7 +21,9 @@ Phases, each fatal on failure:
    tensor-core probe kernel (B3, B5, B6's lists; B7 over i8) holds IGMMA,
    HGMMA, an HGMMA of TF32 or BGMMA (the b1 and-popc product); no SIMT
    kernel of f32 rows (`grouped_probe_kernel`, `fused_kernel`,
-   `lanes_kernel`) is left;
+   `lanes_kernel`) is left; and the bit-scan library's: every
+   `bit_scan_wgmma` instantiation (hamming, tanimoto, sorensen; lists in
+   shared memory and in the output rows) holds BGMMA;
 2. every kernel against its plain version on the card: B1 (binned scan)
    and B2 (bin minima) at N=65,536 rows, Q=512 and Q=40 queries, width 256,
    ~10% deleted rows, on {i8, bf16, f32} x {ip, cos, l2sq}, and B1 compact on
@@ -40,7 +42,12 @@ Phases, each fatal on failure:
    segment across lanes 60-70, windows mid-bin, empty and ending at the
    table's last row, W=128, 384 and 1,024 bytes, k 1-128 with bin_m 1-16,
    B5 over b1 at 1-16 per bin, ties across a bin edge and between lanes 63
-   and 64; f32 too, W elements; i8 and b1 bit for bit); B6 (per-query
+   and 64; f32 too, W elements; i8 and b1 bit for bit); the exact bit
+   scan (csrc/bitscan.cu) at BITSCAN_CHECK bit for bit against
+   `bit_scan_plain`: tables of few byte values with equal rows across
+   every 128-row tile's edge, ~10% deleted rows and tables of 5 live rows,
+   Q 1, 40 and 4,096, k 1, 10 and 128, widths of 128 and 1,024 bytes,
+   hamming, tanimoto and sorensen, with and without the bf16 rounding; B6 (per-query
    probe: B3's kernel over
    its pairs, then its fold) on such windows for {i8, bf16, f32} x {ip,
    cos, l2sq} and b1 hamming, with and without the penalty row, k 10 and
@@ -103,13 +110,19 @@ Phases, each fatal on failure:
    The binary paths, at the shape of scripts/tpu_binary_ivf_bench.py: 1M
    packed 1024-bit rows of a clustered corpus (400 template rows, 8% of
    the bits flipped), 4,096 member queries, k=10; per metric (hamming, then
-   tanimoto) a new b1 index: `add`, `search(exact=True)` as the ground
-   truth, `optimize(n_partitions=976, reorder=True)`, `expansion_search =
+   tanimoto) a new b1 index: `add`, the flat approximate search of the
+   member queries (recall@1 >= 0.99) and `search(exact=True)` as the ground
+   truth, both through the bit scan and equal bit for bit to
+   `bit_scan_plain` over the same arguments (`bit_scan` and no other
+   kernel must launch on them), the exact search timed beside the plain
+   scan it replaced (ms, QPS, peak device memory; results equal),
+   `optimize(n_partitions=976, reorder=True)`, `expansion_search =
    1024`, the probed search (recall@1 >= 0.99, tie-aware recall@10
    printed), the same search through the kernels' plain versions (keys and
    distances equal), 4,096 rows added after the build and found, 1% of the
-   keys removed and never returned. B3 (B4, its b1 instantiation) must
-   launch on hamming, B5 on tanimoto, and neither B1 nor B2 on either.
+   keys removed and never returned. From `optimize` on, B3 (B4, its b1
+   instantiation) must launch on hamming, B5 on tanimoto, and neither B1,
+   B2 nor the bit scan on either.
    The index lifecycle (LIFECYCLE, bench.py's width): (a) 2**20 host f32
    rows added to a new `Index(ndim=256, metric="ip", dtype="i8")`, the host
    cast, the key map's calls and the rest (upload, scatter, stats) timed,
@@ -192,7 +205,8 @@ Phases, each fatal on failure:
    `usearch_add` calls into a fresh i8 ip index (adds/s), every row found
    by an exact search; test.c and test.cpp exited 0 on the card;
    (k) whole-search capture (CAPTURE): each captured path's replay (B1,
-   B2 with the rescore's dots, B3 and its `pair` (B6) and `bin` (B7) flavours, B4, B5, the sharded
+   B2 with the rescore's dots, B3 and its `pair` (B6) and `bin` (B7) flavours, B4, B5, both b1
+   indexes' exact flat searches (the bit scan), the sharded
    searches) equal to its eager body bit for bit, both timed, one replay
    profiled (a graph launch a graph, no kernel launch outside it); the
    updates' replays and recaptures; (l) the k-means fits captured (FITS):
@@ -206,7 +220,10 @@ Phases, each fatal on failure:
    time (the hold's own call, synchronised) and one library call's time as
    a yardstick (none for the probe
    kernels B3-B7 and the rescore over i8; `torch.bmm` of the gathered rows
-   for its bf16 and f32); the rescore's dots at both exact searches' bins; B3 also over the IVF pairs with queries and table in
+   for its bf16 and f32); the rescore's dots at both exact searches' bins;
+   the bit scan at both b1 exact searches' arguments (its yardstick a bf16
+   `torch.matmul` of the unpacked bits, the product alone, and a profile of
+   each exact b1 search); B3 also over the IVF pairs with queries and table in
    bf16, and at the pairs of a batch of 1,024 queries (that search through
    B3's plain version held equal to the kernel's); B3, B5 (`nofold`) and B6
    (`pair`) over f32 at the f32 IVF path's arguments and B8/B9/B10 over f32
@@ -282,14 +299,14 @@ from usearch_torch.client import IndexClient
 from usearch_torch.rpc import BinaryIndexClient, BinaryIndexServer
 from usearch_torch.server import IndexServer
 from usearch_torch.enums import CompiledMetric, MetricKind, ScalarKind, normalize_metric
-from usearch_torch.exact import pad_queries
+from usearch_torch.exact import pad_queries, pick_tile_rows
 from usearch_torch.matches import BatchMatches
 from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
-from usearch_torch.ops import casts, microbench, probe, scan, tf32
+from usearch_torch.ops import bitscan, casts, microbench, probe, scan, tf32
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
-from usearch_torch.ops.packbits import pack_bits
+from usearch_torch.ops.packbits import pack_bits, unpack_bits
 from usearch_torch.ops.topk import masked_topk, topk_min
 from usearch_torch.parallel import sharded
 from usearch_torch.parallel.mesh import distributed_initialize, make_mesh
@@ -441,6 +458,16 @@ FITS = dict(n=1 << 18, blobs=64, k=2048, iters=25, flat_n=1 << 17, flat_k=256, s
 #: phase 3/4: the binary IVF paths of scripts/tpu_binary_ivf_bench.py
 BINARY = dict(n=1_000_000, bits=1024, templates=400, flip=0.08, q=4096, k=10, partitions=976, expansion=1024,
               fresh=4096, removed=0.01, metrics=("hamming", "tanimoto"))
+#: phase 2 shape of the exact bit scan (csrc/bitscan.cu): table rows (a
+#: ragged last tile), widths in bytes (1,024: the queries stream their
+#: K-blocks beside the table's), query counts, k, the share of rows
+#: deleted, and the live rows of the tables with fewer than k
+BITSCAN_CHECK = dict(n=16384 + 77, widths=(128, 1024), qs=(1, 40, 4096), ks=(1, 10, 128), dead=0.1, live=5)
+#: phase 3/4: the binary metrics the bit scan takes
+BIT_METRICS = ("hamming", "tanimoto", "sorensen")
+#: phase 4: rows of the unpacked table a chunk of the bit scan's library
+#: yardstick (bf16, 2 GiB at 1,024 bits)
+BIT_LIBRARY_ROWS = 1 << 17
 #: H100 SXM peaks (NVIDIA data sheet, dense): ops/s by operand type, bytes/s;
 #: f32 products to f32 accuracy on the tensor cores ("tf32x3") at a third of
 #: the TF32 rate (three products each), beside SIMT f32 FMAs ("f32");
@@ -484,7 +511,9 @@ MICRO = {
                         "scripts/tpu_probe_v2_bisect.py:60"),
 }
 MICRO_KERNELS = tuple(m[1] for m in MICRO.values())
-ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS + MICRO_KERNELS
+#: the exact scan over packed b1 rows (csrc/bitscan.cu)
+BIT_KERNELS = (bitscan.bit_scan,)
+ALL_KERNELS = FLAT_KERNELS + PROBE_KERNELS + FLAVOUR_KERNELS + MICRO_KERNELS + BIT_KERNELS
 #: phase 5 checks at small shapes: B11's (M, K, N, REPS), the first past
 #: 2**24; B12's (W, G, IT); B13 on a 64-partition table of 78,080 rows
 LOOP_CHECK = ((32, 64, 128, 512), (64, 128, 256, 40), (256, 256, 1024, 24))
@@ -669,7 +698,7 @@ def check_scan_edges(dev) -> None:
                                   (metric, qc, table, *scan.scan_aux(metric, qc, stats, valid)), compact)
 
 
-def sass_functions(names=("scan", "fused", "probe")) -> dict:
+def sass_functions(names=("scan", "fused", "probe", "bitscan")) -> dict:
     """The SASS of the built libraries of csrc/<name>.cu (cuobjdump -sass,
     one process a library, all started together), by library and
     function."""
@@ -760,6 +789,24 @@ def check_probe_sass(sass: dict) -> dict:
     log(f"probe.cu SASS, tensor-core products by B3/B5/B6/B7 wgmma instantiation: {found}; SIMT kernels {simt}")
     if set(found) != want or any(n == 0 for n in found.values()) or simt:
         fail(f"probe.cu's B3/B5/B6/B7 instantiations are not the expected ones: {found}, SIMT {simt}")
+    return found
+
+
+def check_bitscan_sass(sass: dict) -> dict:
+    """Phase 1: the SASS of the built bit-scan library holds
+    `bit_scan_wgmma` for every metric (hamming, tanimoto, sorensen: codes
+    3-5) with lists in shared memory and in the output rows, each with
+    BGMMA (the b1 and-popc product). Returns the count of product
+    instructions by instantiation."""
+    found = {}
+    for name, body in sass["bitscan"].items():
+        m = re.search(r"bit_scan_wgmmaILi(\d)ELb(\d)E", name)
+        if m:
+            found[f"metric {m.group(1)}/small lists {m.group(2)}"] = products(body, PROBE_SASS["h"])
+    want = {f"metric {m}/small lists {small}" for m in (3, 4, 5) for small in (0, 1)}
+    log(f"bitscan.cu SASS, BGMMA by bit_scan_wgmma instantiation: {found}")
+    if set(found) != want or any(n == 0 for n in found.values()):
+        fail(f"bitscan.cu's bit_scan_wgmma instantiations lack BGMMA: {found}")
     return found
 
 
@@ -1402,6 +1449,65 @@ def check_binary_probe(dev) -> None:
             args = (MetricKind.Hamming, q_g, q_sq, table, pop_t, penalty, st_c.contiguous(), start, ln, w_pad, bin_m)
             hold_exact(f"b1/hamming Q={nq} w_pad={w_pad} bin_m={bin_m}", "B5", probe.grouped_probe_nofold(*args),
                        probe.grouped_probe_nofold_plain(*args))
+
+
+def hold_bits(tag: str, name: str, kern, plain) -> bool:
+    """Distances (as their f32 bits) and ids equal; fails on a mismatch
+    with the first row that differs."""
+    (kd, ki), (pd, pi) = kern, plain
+    torch.cuda.synchronize()
+    same = (kd.view(torch.int32) == pd.view(torch.int32)) & (ki == pi)
+    if not bool(same.all()):
+        r = int(torch.nonzero(~same.all(dim=1))[0, 0])
+        fail(f"{name} disagrees with its plain version at {tag}, query {r}: {kd[r, :8].tolist()} "
+             f"{ki[r, :8].tolist()} against {pd[r, :8].tolist()} {pi[r, :8].tolist()}")
+    return True
+
+
+def check_bitscan(dev) -> None:
+    """Phase 2, the exact bit scan (csrc/bitscan.cu) against
+    `bit_scan_plain` bit for bit at BITSCAN_CHECK: `few_bytes` tables
+    (many equal distances) with equal rows planted across every 128-row
+    tile's edge (a ring slot's), queries drawn from the rows before an edge
+    (two rows at distance 0, a tie at the first place) and fresh ones, ~10%
+    of the rows deleted and a table of 5 live rows (fewer than k), a ragged
+    last tile, widths of 128 and 1,024 bytes, Q 1, 40 and 4,096 (one and
+    several row splits), k 1, 10 and 128, each metric, with and without
+    the bf16 rounding."""
+    spec = BITSCAN_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    n, nq_max = spec["n"], max(spec["qs"])
+    for w in spec["widths"]:
+        t0 = time.perf_counter()
+        table = few_bytes((n, w), gen, dev)
+        edges = torch.arange(128, n, 128, device=dev)
+        table[edges] = table[edges - 1]
+        valid = torch.rand(n, generator=gen, device=dev) >= spec["dead"]
+        valid[edges] = valid[edges - 1] = True
+        few = torch.zeros(n, dtype=torch.bool, device=dev)
+        few[torch.randperm(n, generator=gen, device=dev)[: spec["live"]]] = True
+        picks = edges[torch.randint(0, edges.numel(), (nq_max,), generator=gen, device=dev)] - 1
+        queries = table[picks]
+        queries[1::2] = few_bytes((nq_max // 2, w), gen, dev)
+        t_pop = row_stats(table, ScalarKind.B1)[:, 0]
+        cases = 0
+        for nq in spec["qs"]:
+            q = queries[:nq].contiguous()
+            q_pop = row_stats(q, ScalarKind.B1)[:, 0]
+            for k in spec["ks"]:
+                for metric in BIT_METRICS:
+                    for rnd in (False, True):
+                        masks = ((valid, "10% deleted"),) + (((few, f"{spec['live']} live"),) if k > spec["live"]
+                                                             else ())
+                        for v, label in masks:
+                            args = (MetricKind(metric), q, table, q_pop, t_pop, v, k, rnd)
+                            tag = f"{metric} W={w} Q={nq} k={k} round={rnd} {label}"
+                            hold_bits(tag, "bit_scan", bitscan.bit_scan(*args), bitscan.bit_scan_plain(*args))
+                            cases += 1
+            log(f"  bit_scan b1 W={w} Q={nq} ({bitscan.splits_for(dev, nq, n)[1]} row splits): every metric, k "
+                f"{spec['ks']}, rounded and not, {spec['dead']:.0%} deleted and {spec['live']} live rows: "
+                f"bit for bit with bit_scan_plain")
+        log(f"  bit_scan W={w}: {cases} cases bit for bit in {time.perf_counter() - t0:.1f} s")
 
 
 def hold_exact(tag: str, name: str, kern, plain) -> float:
@@ -2492,11 +2598,61 @@ def plain_probe_search(index, queries, k: int, name: str):
     return m, calls[0]
 
 
+def bit_args(index, queries, k: int, exact: bool) -> tuple:
+    """The arguments the flat search of ``queries`` on a b1 ``index`` gives
+    `bitscan.bit_scan`: its padded prepared queries, table, popcounts,
+    mask, k and whether it ranks in bf16 (`Index._search_plan`'s tile)."""
+    q = index._padded_queries(index._cast_device(*index._device_rows(queries)))
+    approx, _ = index._route(exact)
+    table, cap = index._table, index._capacity
+    tile_rows = pick_tile_rows(cap, index._width * table.element_size(), index.metric, index.ndim, q.shape[0])
+    while cap % tile_rows:
+        tile_rows //= 2
+    k = min(k, len(index))
+    return (index.metric, q, table, row_stats(q, ScalarKind.B1)[:, 0], index._stats[:, 0], index._valid, k,
+            bitscan.rounds(approx, cap, k, tile_rows))
+
+
+def hold_flat_search(label: str, index, m, args) -> None:
+    """``index``'s search result ``m`` equal to `bit_scan_plain` over
+    ``args`` (`bit_args`) bit for bit: distances and keys."""
+    d, slots = bitscan.bit_scan_plain(*args)
+    nq = m.keys.shape[0]
+    d, slots = d[:nq].cpu().numpy(), slots[:nq].cpu().numpy()
+    keys = np.where(slots >= 0, index._slot_keys[np.clip(slots, 0, None)], 0).astype(np.uint64)
+    if not (np.array_equal(m.distances.view(np.uint32), d.view(np.uint32)) and np.array_equal(m.keys, keys)):
+        fail(f"the {label} differs from bit_scan_plain at {int((m.keys != keys).sum())} keys")
+    log(f"  the {label}: distances and keys equal to bit_scan_plain's bit for bit"
+        f"{' (ranked in bf16)' if args[-1] else ''}")
+
+
+def plain_route_search(index, queries, k: int):
+    """The exact search as it ran before the bit scan: `Index.search`'s
+    eager body with the bit scan's gate closed, so the plain tiled scan
+    (`ops/topk.scan_topk` over `packbits.bit_dot`) serves. Returns the
+    matches, the seconds (synchronised) and the peak device bytes."""
+    serves = bitscan.serves
+    bitscan.serves = lambda *args, **kwargs: False
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = eager_search(index, queries, k, exact=True)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    finally:
+        bitscan.serves = serves
+
+
 def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen) -> dict:
     """Phase 3, one binary path: a b1 index of the corpus ``x`` through
-    add, exact search, optimize, probed search, the plain probe, fresh
-    adds and removals; the launch counters are zeroed just before and read
-    just after."""
+    add, the flat approximate search of the member queries and the exact
+    search (the ground truth; both through the bit scan, held bit for bit
+    against `bit_scan_plain`, the exact one timed beside the plain scan it
+    replaced), optimize, probed search, the plain probe, fresh adds and
+    removals; the launch counters are zeroed just before the flat searches
+    and read just after (`bit_scan` and no other kernel), then zeroed again
+    for the rest (B3 or B5, no flat kernel and no `bit_scan`)."""
     spec = BINARY
     n, nq, k = x.shape[0], spec["q"], spec["k"]
     kern_name = "grouped_probe" if metric == "hamming" else "grouped_probe_nofold"
@@ -2509,11 +2665,37 @@ def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen
     add_s = time.perf_counter() - t0
     member = torch.randperm(n, generator=gen, device=dev)[:nq]
     queries = x[member]
-    index.search(x[torch.randperm(n, generator=gen, device=dev)[:nq]], k, exact=True)  # warm
+    want = keys[member.cpu().numpy()]
+    other = x[torch.randperm(n, generator=gen, device=dev)[:nq]]
+    index.search(other, k)  # warm: the capture
+    flat, flat_s = search_timed(index, queries, k)
+    flat_recall1 = float(np.mean(flat.keys[:, 0] == want))
+    log(f"  b1 {metric} flat approximate search of {nq} member queries over {n} x {spec['bits']} bits (bit_scan): "
+        f"{flat_s * 1e3:.1f} ms = {nq / flat_s:.0f} QPS, recall@1 {flat_recall1:.4f}")
+    if not np.all(np.isfinite(flat.distances)) or flat.keys.shape != (nq, k) or flat_recall1 < 0.99:
+        fail(f"b1 {metric} flat approximate search: recall@1 {flat_recall1:.4f}")
+    index.search(other, k, exact=True)  # warm: the capture
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gt = index.search(queries, k, exact=True)
-    exact_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    exact_s, exact_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    flat_args = bit_args(index, queries, k, exact=False)
+    exact_args = bit_args(index, queries, k, exact=True)
+    hold_flat_search(f"b1 {metric} flat approximate search", index, flat, flat_args)
+    hold_flat_search(f"b1 {metric} exact search", index, gt, exact_args)
+    flat_launches = counters()
+    if flat_launches["bit_scan"] == 0 or any(v for name, v in flat_launches.items() if name != "bit_scan"):
+        fail(f"the b1 {metric} flat searches did not go through bit_scan alone: {flat_launches}")
+    before, before_s, before_peak = plain_route_search(index, queries, k)
+    if not same_search(before, gt):
+        fail(f"the plain scan's b1 {metric} exact search differs from the bit scan's")
+    log(f"  b1 {metric} exact search of {nq} queries, before (the plain scan, eager): {before_s * 1e3:.1f} ms = "
+        f"{nq / before_s:.0f} QPS, peak device memory {before_peak / 2**30:.2f} GiB; after (bit_scan, replayed): "
+        f"{exact_s * 1e3:.1f} ms = {nq / exact_s:.0f} QPS, peak {exact_peak / 2**30:.2f} GiB; equal bit for bit; "
+        f"launches on the flat searches {flat_launches['bit_scan']} ({card_line()})")
+    zero_counters()
     t0 = time.perf_counter()
     index.optimize(n_partitions=spec["partitions"], reorder=True)
     torch.cuda.synchronize()
@@ -2526,7 +2708,6 @@ def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen
     t0 = time.perf_counter()
     m = index.search(queries, k)
     search_s = time.perf_counter() - t0
-    want = keys[member.cpu().numpy()]
     recall1 = float(np.mean(m.keys[:, 0] == want))
     recall10 = tie_recall(m.distances, gt.distances)
     id_recall10 = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(m.keys.tolist(), gt.keys.tolist())]))
@@ -2565,10 +2746,12 @@ def drive_binary(dev, metric: str, x: torch.Tensor, templates: torch.Tensor, gen
     log(f"  removed {len(gone)} keys: none comes back")
     launches = counters()
     log(f"  kernel launches on the b1 {metric} IVF path: {launches}")
-    if launches[kern_name] == 0 or any(launches[kern.__name__] for kern in FLAT_KERNELS):
+    if launches[kern_name] == 0 or any(launches[kern.__name__] for kern in FLAT_KERNELS + BIT_KERNELS):
         fail(f"the b1 {metric} searches did not go through {kern_name} alone among the kernels: {launches}")
     return dict(index=index, queries=queries, recall1=recall1, recall10=recall10, qps=nq / search_s,
-                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, kern=kern_name)
+                nprobe=nprobe, build_s=build_s, launches=launches, probe_args=args, kern=kern_name,
+                exact_args=exact_args, flat_launches=flat_launches["bit_scan"], exact_ms=exact_s * 1e3,
+                before_ms=before_s * 1e3)
 
 
 def run_binary_paths(dev) -> dict:
@@ -2806,6 +2989,49 @@ def binary_row(run) -> dict:
     return dict(name=f"{name}[b1 {run['index'].metric.value} IVF]", route="cuda",
                 source="usearch_torch/csrc/probe.cu", replaces=replaces, launches=run["launches"][name],
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def bit_library_ms(q: torch.Tensor, table: torch.Tensor) -> float:
+    """The bit scan's yardstick: the product alone, one bf16 `torch.matmul`
+    of the 0/1-unpacked query bits by the unpacked table's, chunks of
+    BIT_LIBRARY_ROWS rows unpacked before each chunk's timing (f32
+    accumulation is exact for these counts; the port never calls it)."""
+    qb = unpack_bits(q).to(torch.bfloat16)
+    total = 0.0
+    for lo in range(0, table.shape[0], BIT_LIBRARY_ROWS):
+        tb = unpack_bits(table[lo : lo + BIT_LIBRARY_ROWS]).to(torch.bfloat16)
+        total += time_ms(lambda: torch.matmul(qb, tb.T), 2)
+        del tb
+    return total
+
+
+def bitscan_row(run) -> dict:
+    """Phase 4 row of the bit scan at the exact b1 search's arguments (its
+    member queries on the path's index): held bit for bit against
+    `bit_scan_plain` (its time the hold's own call), timed beside its bound
+    (operations: two per bit pair of every query and row at the b1
+    tensor-core rate, PEAK_OPS["b1"]; bytes: the packed queries and rows,
+    the rows' popcounts and mask, the [Q, k] outputs) and the library
+    product (`bit_library_ms`)."""
+    args = run["exact_args"]
+    metric, q, table, k = args[0], args[1], args[2], args[6]
+    (nq, w), n = q.shape, table.shape[0]
+    tag = f"bit_scan b1 {metric.value} exact Q={nq} N={n} k={k}"
+    want, plain_ms = plain_timed(lambda: bitscan.bit_scan_plain(*args))
+    hold_bits(tag, "bit_scan", bitscan.bit_scan(*args), want)
+    del want
+    ms = time_ms(lambda: bitscan.bit_scan(*args), 5)
+    ops = 2.0 * nq * n * 8 * w
+    nbytes = (n + nq) * w + 4 * (n + nq) + n + nq * k * 8
+    b_ms, b_by = bound_ms(ops, PEAK_OPS["b1"], nbytes)
+    lib = bit_library_ms(q, table)
+    launches = run["flat_launches"]
+    log(f"  {tag} W={w} bytes: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {ops / 1e12:.2f} T bit operations, "
+        f"{nbytes / 1e9:.4f} GB), plain {plain_ms:.1f} ms, library {lib:.3f} ms (bf16 torch.matmul of the unpacked "
+        f"bits, the product alone), launches on its path {launches}, max abs err 0")
+    return dict(name=f"bit_scan[b1 {metric.value} exact]", route="cuda", source="usearch_torch/csrc/bitscan.cu",
+                replaces="usearch_tpu/ops/topk.py:86", launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
 
 def mode_row(run, mode: str, label: str = "i8 ip IVF", peak: str = "i8") -> dict:
@@ -3802,7 +4028,8 @@ CAPTURED_KERNELS = {"scan.cu": (("wgmma_scan", "simt_scan"), ("binned_scan", "bi
                     "rescore.cu": (("block_dots_kernel",), ("block_dots",)),
                     "probe.cu": (("grouped_wgmma",), ("grouped_probe", "grouped_probe_nofold", "binned_probe",
                                                       "pair_probe")),
-                    "pair.cu": (("pair_fold",), ("pair_probe",))}
+                    "pair.cu": (("pair_fold",), ("pair_probe",)),
+                    "bitscan.cu": (("bit_scan_wgmma",), ("bit_scan",))}
 
 
 def api_profile(fn, label: str):
@@ -3975,8 +4202,9 @@ def drive_capture(dev, runs: dict, card: str) -> list:
     eager body (`capture_path`): B1 i8 and compact, B2 i8, B3 i8 IVF with
     shadows and fresh rows at 16,384 queries and at one, B6 (`pair`) and
     B7 (`bin`) on that IVF, B3 f32 cos IVF,
-    b1 hamming (B4) and tanimoto (B5), 4 shards on one card exact and
-    probed; then the updates (`capture_updates`)."""
+    b1 hamming (B4) and tanimoto (B5), both b1 indexes' exact flat
+    searches (the bit scan), 4 shards on one card exact and probed; then
+    the updates (`capture_updates`)."""
     t_step = time.perf_counter()
     head, comp, ivf_run, f32_ivf, binary, sh = (runs[name] for name in ("head", "comp", "ivf", "f32_ivf", "binary",
                                                                           "sharded"))
@@ -3995,6 +4223,8 @@ def drive_capture(dev, runs: dict, card: str) -> list:
         ("B3 f32 cos IVF", f32_ivf["index"], f32_ivf["queries"], IVF["k"], {}),
     ] + [(f"b1 {metric} IVF ({'B4' if metric == 'hamming' else 'B5 + re-rank'})", run["index"], run["queries"],
           BINARY["k"], {}) for metric, run in binary.items()] + [
+        (f"b1 {metric} exact flat (bit_scan)", run["index"], run["queries"], BINARY["k"], dict(exact=True))
+        for metric, run in binary.items()] + [
         ("4 shards on one card, exact (B2 a shard)", sh["pool"], sh["qx"], SHARDED["k"], dict(exact=True)),
         ("4 shards on one card, probed (B3 a shard)", sh["pool"], sh["queries"], SHARDED["k"],
          dict(expansion=SHARDED["expansion"])),
@@ -4299,6 +4529,8 @@ def main() -> int:
     stamp("check_probe_edges")
     check_binary_probe(dev)
     stamp("check_binary_probe")
+    check_bitscan(dev)
+    stamp("check_bitscan")
     check_pair(dev)
     stamp("check_pair")
     check_binned(dev)
@@ -4307,6 +4539,7 @@ def main() -> int:
     stamp("check_flavours")
     check_scan_sass(sass.result())
     check_probe_sass(sass.result())
+    check_bitscan_sass(sass.result())
     stamp("the SASS checks")
 
     log("== phase 3: main paths")
@@ -4383,6 +4616,9 @@ def main() -> int:
         run["index"].search(run["queries"], BINARY["k"])
         run["launches_per_search"] = kern.launches - before
         log(f"  launches per search, b1 {metric} IVF: {{'{run['kern']}': {run['launches_per_search']}}}")
+        before = bitscan.bit_scan.launches
+        run["index"].search(run["queries"], BINARY["k"], exact=True)
+        log(f"  launches per search, b1 {metric} exact: {{'bit_scan': {bitscan.bit_scan.launches - before}}}")
     for label, runs in (("i8", flavours), ("f32", f32_flavours)):
         per_search = {FLAVOURS[name][1].__name__: res["launches"] for name, res in runs.items()}
         log(f"  launches per search, the {label} flat-scan flavours: {per_search}")
@@ -4402,6 +4638,7 @@ def main() -> int:
         ivf.PROBE_MODE = "group"
     for metric, run in binary.items():
         profile_search(run["index"], run["queries"], BINARY["k"], exact=False, label=f"b1 {metric} IVF")
+        profile_search(run["index"], run["queries"], BINARY["k"], exact=True, label=f"b1 {metric} exact (bit_scan)")
     q8 = ix._cast_device(head["queries"], ScalarKind.F32)
     for name, (search, _, _, _) in FLAVOURS.items():
         profile_call(lambda: search(ix.metric, q8, ix._table, ix._stats, ix._valid, MAIN["k"]),
@@ -4428,6 +4665,7 @@ def main() -> int:
         b3_row(ivf_run, small_probe_args(ivf_run), f"i8 ip IVF Q={SMALL_Q}"),
         b3_row(life, label=f"i8 ip IVF {LIFECYCLE['partitions']} partitions"),
     ] + [binary_row(run) for run in binary.values()] + [mode_row(ivf_run, mode) for mode in MODES]
+    rows += [bitscan_row(run) for run in binary.values()]
     rows += [streamed_row, b3_row(f32_ivf, label="f32 cos IVF", peak="tf32x3")]
     rows += [mode_row(f32_ivf, mode, "f32 cos IVF", "tf32x3") for mode in F32_IVF["modes"]]
     i8_lib_ms = rows[0]["library_ms"]  # B1's yardstick: one product of the same operands

@@ -45,6 +45,9 @@ SIGNATURES = {
     "rescore": {
         "usearch_block_dots": [_P] * 4 + [_I] * 5 + [_P],
     },
+    "bitscan": {
+        "usearch_bit_scan": [_P] * 9 + [_I] * 10 + [_P],
+    },
     "probe": {
         "usearch_grouped_probe": [_P] * 9 + [_I] * 7 + [_P],
         "usearch_grouped_probe_nofold": [_P] * 10 + [_I] * 7 + [_P],

@@ -2,8 +2,9 @@
 
 Counterpart of `usearch_tpu/exact.py`. `search_kernel` sends a search to the
 scan kernels (ops/scan.py) under the same gates as the JAX package, so the
-same calls take the kernel path in both; everything else takes the plain
-tiled scan of ops/topk.py.
+same calls take the kernel path in both; packed b1 rows under the binary
+metrics take the bit scan (ops/bitscan.py), where the JAX package runs its
+XLA scan; everything else takes the plain tiled scan of ops/topk.py.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from .enums import MetricKind, ScalarKind, kind_of_dtype, normalize_dtype, normalize_metric
 from .matches import BatchMatches
+from .ops import bitscan
 from .ops.casts import cast_vectors
 from .ops.distances import row_stats, tile_dists
 from .ops.scan import exact_steps, run_steps, search_binned, supports
@@ -109,7 +111,9 @@ def search_steps(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_r
                  approx: bool = False, metric_fn=None):
     """`search_kernel` as a step generator: B2's exact search yields after
     each launch group (`ops.scan.exact_steps`), every other route runs
-    whole at the first step; returns what `search_kernel` does."""
+    whole at the first step; returns what `search_kernel` does. Packed b1
+    rows under hamming, tanimoto or sorensen take `bitscan.bit_scan`,
+    ranked in bf16 exactly where the JAX scan is (`bitscan.rounds`)."""
     if kernel_tiles(metric, kind, q.shape[0], table.shape[0], k, approx, metric_fn) is not None:
         if approx:
             # f32 storage ranks bins on bf16-rounded dots and rescores
@@ -117,6 +121,8 @@ def search_steps(metric, kind, q, table, stats, valid, ndim: int, k: int, tile_r
             compact = kind in (ScalarKind.F32, ScalarKind.F16)
             return search_binned(metric, q, table, stats, valid, k, compact=compact)
         return (yield from exact_steps(metric, q, table, stats, valid, k))
+    if bitscan.serves(metric, kind, k, metric_fn):
+        return bitscan.search(metric, q, table, stats, valid, k, bitscan.rounds(approx, table.shape[0], k, tile_rows))
     q_stats = row_stats(q, kind)
     if table.shape[0] <= tile_rows:
         return masked_topk(tile_dists(metric, kind, q, q_stats, table, stats, ndim, metric_fn), valid, k)

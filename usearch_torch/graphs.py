@@ -81,8 +81,9 @@ EAGER = {
     "exact_search": "the package-level `exact_search` builds a new table at each call, so no graph would be "
                     "replayed (ROADMAP A.14e)",
     "plain scans and probes": "no kernel on the path: the plain scan (`ops/topk.scan_topk`: k past the kernels' "
-                              "gates, f16, pearson), the plain probes (the copied IVF layout, windows past B3's "
-                              "guard), the metric tail and user-defined metrics (ROADMAP A.14f)",
+                              "gates, f16, pearson, the dot metrics over b1; ROADMAP A.16b), the plain probes (the "
+                              "copied IVF layout, windows past B3's guard), the metric tail and user-defined metrics "
+                              "(ROADMAP A.14f)",
     "add": "`Index._scatter` and `_cast_device` are 3-6 launches a batch against a host-bound call, and a "
            "bucketed `index_copy_` would need the drop slot the JAX scatter gets from out-of-bounds semantics "
            "(ROADMAP A.14h)",

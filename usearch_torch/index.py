@@ -55,6 +55,7 @@ from .exact import (kernel_tiles, pad_queries, pad_rows, pick_tile_rows, prepare
 from .graphs import GraphCache
 from .keymap import KeyMap
 from .matches import BatchMatches, Clustering, Matches
+from .ops import bitscan
 from .ops.casts import as_tensor, cast_rows
 from .ops.distances import pair_dists, row_stats
 from .ops.packbits import unpack_bits_np
@@ -1028,6 +1029,8 @@ class Index:
         key = None
         if kernel_tiles(metric, kind, n_q, self._capacity, k, approx, fn) is not None:
             key = ("flat", approx, tile_rows)
+        elif bitscan.serves(metric, kind, k, fn):
+            key = ("bitscan", approx, tile_rows)
         return key, body, self._count
 
     def _search_prepared(self, q: torch.Tensor, k: int, valid, approx: bool, use_ivf: bool = False):

@@ -2,10 +2,12 @@
 
 Counterpart of `usearch_tpu/ops/topk.py`. `scan_topk` is the path that
 serves when the scan kernels' gate says no (f16 storage, pearson, large k),
-as the XLA scan does in the JAX package. ``torch.topk`` is exact; its order
-among equal values is unspecified, so results are re-sorted by
-(distance, id): ties go to the lower id, as ``lax.top_k`` gives them. The
-IVF probe merges by position instead (`stable_topk`, `staged_topk`), as
+as the XLA scan does in the JAX package. ``torch.topk`` is exact, but its
+choice among equal values is unspecified, so the scans select on (distance,
+row): a tile's top-k keeps the earlier row among equal distances, at the
+k-th place too (`first_topk`), and merges sort by (distance, id), as
+``lax.top_k``'s position order gives it over rows met in ascending order.
+The IVF probe merges by position instead (`stable_topk`, `staged_topk`), as
 its JAX counterpart does.
 """
 
@@ -31,6 +33,20 @@ def sort_pairs(d: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return d.gather(-1, order), ids.gather(-1, order)
 
 
+def first_topk(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of ``d`` ``[Q, n]`` and their
+    positions, ascending, the earlier position first among equal values
+    (`stable_topk`'s answer) without sorting the row: ``torch.topk`` finds
+    the k-th value, a second one over int32 keys takes the positions below
+    it and then the first positions at it."""
+    n = d.shape[-1]
+    kth = torch.topk(d, k, dim=-1, largest=False, sorted=True).values[..., -1:]
+    pos = torch.arange(n, dtype=torch.int32, device=d.device)
+    key = torch.where(d < kth, pos, torch.where(d == kth, pos + n, 2 * n))
+    sel = torch.topk(key, k, dim=-1, largest=False, sorted=True).values.long() % n
+    return sort_pairs(d.gather(-1, sel), sel)
+
+
 def finish(d: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort by (distance, id) and give masked results the id -1."""
     d, ids = sort_pairs(d, ids.to(torch.int32))
@@ -42,16 +58,15 @@ def masked_topk(dists, valid, k: int, index_offset: int = 0):
     False surface as ``MASKED`` with id -1."""
     if valid is not None:
         dists = torch.where(valid[None, :], dists, MASKED)
-    d, idx = topk_min(dists, k)
+    d, idx = first_topk(dists, k)
     return finish(d, idx + index_offset)
 
 
 def merge_topk(d_a, i_a, d_b, i_b, k: int):
-    """Best ``k`` of two ``[Q, k']`` candidate sets, ascending."""
-    d = torch.cat([d_a, d_b], dim=1)
-    i = torch.cat([i_a, i_b], dim=1)
-    d_sel, sel = topk_min(d, k)
-    return d_sel, i.gather(1, sel)
+    """Best ``k`` of two ``[Q, k']`` candidate sets by (distance, id),
+    ascending."""
+    d, i = sort_pairs(torch.cat([d_a, d_b], dim=1), torch.cat([i_a, i_b], dim=1))
+    return d[:, :k], i[:, :k]
 
 
 def position_order(d: torch.Tensor) -> torch.Tensor:
@@ -96,8 +111,6 @@ def scan_topk(metric, kind, q, q_stats, table, stats, valid, k: int, tile_rows: 
         d = torch.where(valid[None, sl], d, MASKED)
         if approx and tile_rows >= 4 * k * 128:
             d = d.to(torch.bfloat16).float()
-            d, ids = topk_min(d, k)
-        else:
-            d, ids = topk_min(d, min(k, tile_rows))
+        d, ids = first_topk(d, min(k, tile_rows))
         best_d, best_i = merge_topk(best_d, best_i, d, ids + off, k)
     return finish(best_d, best_i)
