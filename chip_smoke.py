@@ -301,13 +301,13 @@ from usearch_torch.server import IndexServer
 from usearch_torch.enums import CompiledMetric, MetricKind, ScalarKind, normalize_metric
 from usearch_torch.exact import pad_queries, pick_tile_rows
 from usearch_torch.matches import BatchMatches
-from usearch_torch.microbench import i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
+from usearch_torch.microbench import bitscan_breakdown, i8_matmul_probe, probe_v2_bisect, select_microbench, time_once
 from usearch_torch.native import casts_native, keymap_native
 from usearch_torch.ops import bitscan, casts, microbench, probe, scan, tf32
 from usearch_torch.ops.casts import cast_rows
 from usearch_torch.ops.distances import MASKED, dot, row_stats, scan_epilogue, tile_dists
 from usearch_torch.ops.packbits import pack_bits, unpack_bits
-from usearch_torch.ops.topk import masked_topk, topk_min
+from usearch_torch.ops.topk import masked_topk
 from usearch_torch.parallel import sharded
 from usearch_torch.parallel.mesh import distributed_initialize, make_mesh
 
@@ -2852,7 +2852,7 @@ def rescore_row(path: str, run, spec, peak_key: str) -> dict:
     table = ix._table
     q_sq, t_sq, penalty = scan.scan_aux(ix.metric, q, ix._stats, ix._valid)
     vals = scan.binned_minima(ix.metric, q, table, q_sq, t_sq, penalty)
-    _, bins = topk_min(vals, min(spec["k"] + scan.EXACT_BIN_SLACK, vals.shape[1]))
+    bins = scan.select_bins_exact(vals, min(spec["k"] + scan.EXACT_BIN_SLACK, vals.shape[1]))
     (nq, b), w, es = bins.shape, table.shape[1], table.element_size()
     tag = f"block_dots {path} Q={nq} b={b} N={table.shape[0]}"
     kern = lambda: scan.block_dots(q, table, bins)  # noqa: E731
@@ -3026,9 +3026,13 @@ def bitscan_row(run) -> dict:
     b_ms, b_by = bound_ms(ops, PEAK_OPS["b1"], nbytes)
     lib = bit_library_ms(q, table)
     launches = run["flat_launches"]
+    usage = bitscan_breakdown.usage(build.build_log["bitscan"]["report"])
+    regs = "; ".join(f"{name} {u.get('registers', 0)} registers, spills {u.get('spills', (0, 0))[0]}/"
+                     f"{u.get('spills', (0, 0))[1]} B" for name, u in sorted(usage.items()) if "wgmma" in name)
     log(f"  {tag} W={w} bytes: {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {ops / 1e12:.2f} T bit operations, "
         f"{nbytes / 1e9:.4f} GB), plain {plain_ms:.1f} ms, library {lib:.3f} ms (bf16 torch.matmul of the unpacked "
-        f"bits, the product alone), launches on its path {launches}, max abs err 0")
+        f"bits, the product alone), launches on its path {launches}, max abs err 0; the kernel's instantiations "
+        f"(nvcc, stores/loads of spill): {regs}")
     return dict(name=f"bit_scan[b1 {metric.value} exact]", route="cuda", source="usearch_torch/csrc/bitscan.cu",
                 replaces="usearch_tpu/ops/topk.py:86", launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)

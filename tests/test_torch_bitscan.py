@@ -25,6 +25,7 @@ numpy inputs.
 """
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -216,29 +217,79 @@ def pass_bound(thr, rnd):
     return np.uint32(up + 0x10000).view(np.float32)
 
 
-def exact_sign_nonneg(c, u, x):
-    """Whether ``x - c u`` is at least 0 in exact arithmetic (what the sign
-    of the kernel's single-rounding FMA gives), for f32 ``c`` and integer
-    ``u`` and ``x``."""
-    m, e = np.frexp(np.float64(c))
-    mi, e2 = int(m * (1 << 24)), int(e) - 24
-    out = []
-    for uu, xx in zip(u.tolist(), x.tolist()):
-        lhs, rhs = (xx << -e2, mi * uu) if e2 <= 0 else (xx, (mi * uu) << e2)
-        out.append(lhs - rhs >= 0)
-    return np.array(out, bool)
+#: csrc/bitscan.cu's line constants: the bias (1.5 2^23), the clamps of
+#: beta and of hamming's limit, a dead row's popcount, the rows of a tile
+LINE_BIAS, LINE_CLAMP, LIMIT_CLAMP, DEAD_POP, TILE = 12582912, 2**21, 2**22, 1572864, 64
+
+
+def f32_rd(x: Fraction) -> np.float32:
+    """The largest f32 at or below ``x`` (a directed rounding)."""
+    f = np.float32(float(x))
+    while Fraction(float(f)) > x:
+        f = np.nextafter(f, np.float32(-np.inf))
+    while Fraction(float(np.nextafter(f, np.float32(np.inf)))) <= x:
+        f = np.nextafter(f, np.float32(np.inf))
+    return f
+
+
+def f32_ru(x: Fraction) -> np.float32:
+    return -f32_rd(-x)
+
+
+def rd32(x):
+    """The largest f32 at or below each f64 of ``x`` (exact f64 values)."""
+    f = np.asarray(x, np.float64).astype(np.float32)
+    return np.where(f.astype(np.float64) > x, np.nextafter(f, np.float32(-np.inf)), f)
+
+
+def pass_line(metric, thr, pq, rnd):
+    """`pass_line` of csrc/bitscan.cu for a list's last entry ``thr`` and
+    the queries' popcounts ``pq`` (an array): alpha (one f32; none for
+    hamming, whose line is 2a >= pt + base) and each query's unbiased base,
+    an integer (the f32s between 2^23 and 2^24 are the integers, so the
+    biased sum rounded down is a floor), the kernel's directed roundings
+    taken exactly (Fractions; alpha pq is exact in f64)."""
+    b = float(pass_bound(thr, rnd))
+    pq = np.asarray(pq, np.int64)
+    if metric == "hamming":
+        return None, np.minimum(pq - int(np.floor(min(b, LIMIT_CLAMP))), LIMIT_CLAMP // 2 + 1)
+    c = f32_rd(1 - Fraction(float(f32_ru(Fraction(b) + Fraction(1, 2**20)))))
+    if not c > 0:
+        return f32(0), np.full(pq.shape, -LINE_CLAMP, np.int64)
+    cf = Fraction(float(c))
+    if metric == "tanimoto":
+        alpha = f32_rd(cf * Fraction(float(f32_rd(1 / Fraction(float(f32_ru(1 + cf)))))))
+    else:
+        alpha = f32_rd(cf / 2)
+    beta = rd32(np.float64(alpha) * pq).astype(np.float64)
+    return alpha, np.floor(np.minimum(beta, LINE_CLAMP)).astype(np.int64)
+
+
+def line_gap(a, pt, alpha, base):
+    """`line_gap` plus kLineBits, >= 0 on the line's good side: hamming
+    (alpha None) 2a - pt - base, exact; otherwise a minus fma(alpha, pt,
+    base + bias) rounded to nearest (ties to even) less the bias, in exact
+    integer arithmetic: alpha = m 2^-s with m below 2^24, so alpha pt =
+    m pt 2^-s."""
+    a, pt = np.asarray(a, np.int64), np.asarray(pt, np.int64)
+    if alpha is None:
+        return 2 * a - pt - base
+    if alpha == 0:
+        return a - base
+    mant, exp = np.frexp(np.float64(alpha))
+    m, s = int(mant * 2**24), 24 - int(exp)
+    prod = m * pt
+    q, rem = prod >> s, prod & ((1 << s) - 1)
+    x = base + LINE_BIAS + q
+    half = 1 << (s - 1)
+    x = x + ((rem > half) | ((rem == half) & (x % 2 == 1)))
+    return a - (x - LINE_BIAS)
 
 
 def may_pass(metric, a, pt, pq, thr, rnd):
-    """The kernel's prefilter of one query against its list's last
-    distance ``thr`` (`pass_limit`, `may_pass`)."""
-    b = pass_bound(thr, rnd)
-    if metric == "hamming":
-        return pt - 2 * a <= int(min(b, f32(2**30))) - pq
-    c = f32(1) - (b + f32(2**-20))
-    if metric == "tanimoto":
-        return exact_sign_nonneg(c, pq + pt - a, a)
-    return exact_sign_nonneg(c, pq + pt, 2 * a)
+    """The kernel's prefilter of pairs against their queries' lists' last
+    distance ``thr``: each pair lies on its line's good side."""
+    return line_gap(a, pt, *pass_line(metric, thr, pq, rnd)) >= 0
 
 
 def before(v, r, d, s):
@@ -253,42 +304,63 @@ def model_insert(ld, li, v, r):
     ld[j], li[j] = v, r
 
 
-def model_split(metric, a, pq, pop, k, rnd, r0, r1):
-    """One query's list over rows [r0, r1) (a block's split): 128-row tiles
-    in order; in each, the four threads test their 32 rows (8 j + 2 c + e)
-    against the bound of the list's last entry at the tile's start, then
-    insert their candidates in turn, thread 0 first, each in row order."""
-    ld, li = [f32(MASKED)] * k, [2**31 - 1] * k
-    for row0 in range(r0, r1, 128):
-        cols = np.arange(128)
-        rows = row0 + cols
-        inside = rows < r1
-        pt = np.where(inside, pop[np.minimum(rows, len(pop) - 1)], -1)
-        acc = np.where(inside, a[np.minimum(rows, len(a) - 1)], 0)
-        cand = may_pass(metric, acc, pt, pq, ld[-1], rnd) & (pt >= 0)
-        for c in range(4):
-            mine = [8 * (b // 2) + 2 * c + b % 2 for b in range(32)]
-            for col in mine:
-                if cand[col]:
-                    v = model_distance(metric, acc[col : col + 1], pq, pt[col : col + 1], rnd)[0]
-                    if before(v, row0 + col, ld[-1], li[-1]):
-                        model_insert(ld, li, v, row0 + col)
-    return ld, li
+def strictly_below(thr, rnd):
+    """`strictly_below`: the largest list value under ``thr`` (f32, or bf16
+    when ranking rounded), -1 under 0; ``thr`` itself while the list is not
+    full."""
+    if thr >= MASKED:
+        return f32(thr)
+    if thr <= 0:
+        return f32(-1)
+    step = 0x10000 if rnd else 1
+    return np.uint32(int(np.float32(thr).view(np.uint32)) - step).view(np.float32)
+
+
+def model_tile(metric, a, pq, pop, k, rnd, row0, r1, lst, shared):
+    """One 64-row tile of a split's list ``lst`` ([values, rows]): the four
+    threads test their 16 rows (8 j + 2 c + e) against the line of the
+    lower of the value just under the list's last entry (every later row
+    lies past the entry's row) and the splits' shared bound, a dead row's
+    popcount DEAD_POP and dead rows never candidates; then they take their
+    candidates in turn, thread 0 first, each in row order."""
+    ld, li = lst
+    rows = row0 + np.arange(TILE)
+    inside = rows < r1
+    pt = np.where(inside, pop[np.minimum(rows, len(pop) - 1)], -1)
+    acc = np.where(inside, a[np.minimum(rows, len(a) - 1)], 0)
+    bound = min(strictly_below(ld[-1], rnd), shared)
+    cand = may_pass(metric, acc, np.where(pt >= 0, pt, DEAD_POP), pq, bound, rnd) & (pt >= 0)
+    for c in range(4):
+        for col in [8 * (r // 2) + 2 * c + r % 2 for r in range(16)]:
+            if cand[col]:
+                v = model_distance(metric, acc[col : col + 1], pq, pt[col : col + 1], rnd)[0]
+                if before(v, row0 + col, ld[-1], li[-1]):
+                    model_insert(ld, li, v, row0 + col)
 
 
 def model_scan(metric, q, t, valid, k, rnd, split_rows):
-    """The kernel's answer: each split's list, then the merge (the first
-    split's list, the others' entries inserted until one does not come
-    before the last entry), ids -1 at or above MASKED / 2."""
+    """The kernel's answer: the splits' lists, scanned a tile each in turn,
+    each full list's last value lowering the splits' shared bound at once
+    (the kernel reads it later, which only passes more); then the merge (the
+    first split's list, the others' entries inserted until one does not
+    come before the last entry), ids -1 at or above MASKED / 2."""
     qbits, tbits = np.unpackbits(q, axis=1).astype(np.int64), np.unpackbits(t, axis=1).astype(np.int64)
     dots = qbits @ tbits.T
     pq_all, pop = qbits.sum(1), np.where(valid, tbits.sum(1), -1)
     out_d = np.zeros((q.shape[0], k), np.float32)
     out_i = np.zeros((q.shape[0], k), np.int32)
     n = t.shape[0]
+    starts = list(range(0, n, split_rows))
     for i in range(q.shape[0]):
-        lists = [model_split(metric, dots[i], int(pq_all[i]), pop, k, rnd, r0, min(n, r0 + split_rows))
-                 for r0 in range(0, n, split_rows)]
+        lists = [([f32(MASKED)] * k, [2**31 - 1] * k) for _ in starts]
+        shared = f32(np.inf)
+        for off in range(0, split_rows, TILE):
+            for r0, lst in zip(starts, lists):
+                if r0 + off < min(n, r0 + split_rows):
+                    model_tile(metric, dots[i], int(pq_all[i]), pop, k, rnd, r0 + off, min(n, r0 + split_rows), lst,
+                               shared)
+                    if lst[0][-1] < MASKED:
+                        shared = min(shared, lst[0][-1])
         ld, li = list(lists[0][0]), list(lists[0][1])
         for sd, si in lists[1:]:
             for v, r in zip(sd, si):
@@ -311,8 +383,9 @@ def plain(metric, q, t, valid, k, rnd):
                                   (10, False, 512, "few_live")])
 @pytest.mark.parametrize("metric", METRICS)
 def test_kernel_model_matches_plain(metric, case):
-    """The model of the kernel's splits, tiles, threads, prefilter, turns
-    and merge gives `bit_scan_plain`'s answer bit for bit: ties across
+    """The model of the kernel's splits and their shared bound, 64-row
+    tiles, threads, line prefilter (strict on the list's own last entry),
+    turns and merge gives `bit_scan_plain`'s answer bit for bit: ties across
     tile, thread and split edges, dead rows, a ragged last tile, lists
     shorter (k <= 16) and longer than the kernel's shared-memory ones."""
     k, rnd, split_rows, *kind = case
@@ -326,23 +399,67 @@ def test_kernel_model_matches_plain(metric, case):
     assert_bits(model_scan(metric, q, t, valid, k, rnd, split_rows), plain(metric, q, t, valid, k, rnd))
 
 
+def triples(bits, rng=None, n=0):
+    """(pq, pt, a) of rows of ``bits`` bits: every one, or ``n`` drawn at
+    random (the and-count between its bounds)."""
+    if rng is None:
+        pq, pt = (x.ravel() for x in np.meshgrid(np.arange(bits + 1), np.arange(bits + 1), indexing="ij"))
+    else:
+        pq, pt = rng.integers(0, bits + 1, n), rng.integers(0, bits + 1, n)
+    lo, hi = np.maximum(0, pq + pt - bits), np.minimum(pq, pt)
+    if rng is not None:
+        return pq, pt, lo + (rng.random(n) * (hi - lo + 1)).astype(np.int64)
+    count = hi - lo + 1
+    pick = np.repeat(np.arange(pq.size), count)
+    a = lo[pick] + np.arange(pick.size) - np.repeat(np.cumsum(count) - count, count)
+    return pq[pick], pt[pick], a
+
+
+def next_up(thr):
+    """The f32 just above ``thr`` (>= 0) and the bf16 value above it."""
+    bits = int(np.float32(thr).view(np.uint32))
+    up = (bits + 0xFFFF) & 0xFFFF0000
+    return np.nextafter(f32(thr), f32(np.inf)), np.uint32(up + 0x10000 if up == bits else up).view(np.float32)
+
+
+@pytest.mark.parametrize("rows", ["every triple to 64 bits", "1,024 bits", "2^20 bits"])
 @pytest.mark.parametrize("rnd", [False, True])
 @pytest.mark.parametrize("metric", METRICS)
-def test_prefilter_never_drops_an_entry(metric, rnd):
-    """For random popcounts, and-counts and list tails (the tail a distance
-    the metric gives, as the kernel's lists hold), every pair whose
-    distance comes before the tail's value passes the prefilter, and so
-    does every pair at the tail's value (a lower row would enter)."""
+def test_prefilter_never_drops_an_entry(metric, rnd, rows):
+    """Every pair whose (rounded) distance reaches the list's last entry
+    lies on the good side of the kernel's line (`pass_line`, `line_gap`,
+    taken exactly): each (pq, pt, a) against the entry equal to its own
+    distance (a lower row would enter), the f32 just above it and the next
+    bf16 value; and against entries drawn from the distances, every pair
+    at or below one. Every triple of rows up to 64 bits wide, and random
+    ones of 1,024-bit and 2^20-bit rows (popcounts to 2^20, the kernel's
+    widest row); hamming's line is exact, passing no pair past the bound."""
     rng = np.random.default_rng(7)
-    for _ in range(30):
-        pq = int(rng.integers(0, 2049))
-        pt = rng.integers(0, 2049, 4096)
-        a = np.minimum(rng.integers(0, 2049, 4096), np.minimum(pt, pq))
-        d = model_distance(metric, a, pq, pt, rnd)
-        thr = d[int(rng.integers(0, len(d)))]
-        enters = d <= thr
-        assert np.all(may_pass(metric, a, pt, pq, thr, rnd)[enters])
-        assert np.all(may_pass(metric, a, pt, pq, f32(MASKED), rnd))
+    if rows.startswith("every"):
+        pq, pt, a = triples(64)
+    else:
+        pq, pt, a = triples(1024 if rows.startswith("1,024") else 1 << 20, rng, 1500)
+    d = model_distance(metric, a, pq, pt, rnd)
+    for thr in np.unique(d):
+        on = d == thr
+        for t in (thr, *next_up(thr)):
+            assert np.all(may_pass(metric, a[on], pt[on], pq[on], t, rnd)), (thr, t)
+    for thr in [f32(MASKED), *rng.choice(d, 12)]:
+        assert np.all(may_pass(metric, a[d <= thr], pt[d <= thr], pq[d <= thr], thr, rnd)), thr
+    if metric == "hamming":  # an exact line: nothing past the bound passes
+        thr = np.sort(d)[d.size // 20]
+        far = d > pass_bound(thr, rnd)
+        assert not np.any(may_pass(metric, a[far], pt[far], pq[far], thr, rnd))
+
+
+def test_dead_rows_and_queries_never_pass():
+    """A dead row's popcount (DEAD_POP) keeps it off every tight line, and
+    a query past the batch (alpha 0, base past the clamp: `closed_line`)
+    passes nothing."""
+    pq, pt, a = triples(64)
+    for metric in METRICS:
+        assert not np.any(may_pass(metric, a, np.full_like(pt, DEAD_POP), pq, f32(0.1), False))
+    assert not np.any(line_gap(np.arange(2**20 + 1), 0, f32(0), LINE_CLAMP + 2) >= 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "width", "wide", "k0", "k129", "pop", "valid"])

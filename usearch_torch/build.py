@@ -107,7 +107,7 @@ def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     todo = [n for n in names if not targets[n].exists()]
     for n in names:
         if n not in todo:
-            build_log[n] = {"seconds": 0.0, "report": "reused"}
+            build_log.setdefault(n, {"seconds": 0.0, "report": "reused"})
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

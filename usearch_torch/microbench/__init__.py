@@ -7,9 +7,10 @@
 - `probe_v2_bisect` (scripts/tpu_probe_v2_bisect.py): kernel B13, B3's
   window stream cut to each select.
 
-`scan_breakdown`, `fused_breakdown` and `probe_breakdown` are the port's
-own: the flat-scan kernels B1/B2, B8-B10 and the grouped probe B3/B5 rebuilt
-with parts of them taken out, to see where their time goes;
+`scan_breakdown`, `fused_breakdown`, `probe_breakdown` and
+`bitscan_breakdown` are the port's own: the flat-scan kernels B1/B2,
+B8-B10, the grouped probe B3/B5 and the b1 bit scan rebuilt with parts of
+them taken out, to see where their time goes;
 `loop_breakdown` rebuilds B11 with clock stamps in its step loop and
 splits a step into its phases; `sass_diff` compares the kernels' SASS with
 another checkout's (card only).

@@ -103,6 +103,7 @@ def build_variants(parts=None, source: str = "scan.cu") -> dict:
         for fn, argtypes in build.SIGNATURES[lib_name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.report = report  # nvcc's -Xptxas -v lines: registers and spills
         libs[name] = lib
     return libs
 
@@ -123,6 +124,7 @@ def build_other(checkout: Path, lib_name: str):
         if hasattr(loaded, fn):  # an older checkout may lack an entry point
             getattr(loaded, fn).argtypes = argtypes
             getattr(loaded, fn).restype = ctypes.c_int
+    loaded.report = proc.stdout + proc.stderr
     return loaded
 
 

@@ -41,6 +41,8 @@ MAX_WIDTH = 1 << 17
 _PLAIN_ELEMS = 1 << 26
 #: fewest 128-row tiles a split of the kernel scans
 _MIN_SPLIT_TILES = 16
+#: blocks of the kernel an SM holds at once (csrc/bitscan.cu kBlocksPerSM)
+BLOCKS_PER_SM = 2
 
 
 def serves(metric, kind, k: int, metric_fn=None) -> bool:
@@ -109,15 +111,15 @@ _SMS: dict = {}
 
 def splits_for(device: torch.device, n_q: int, n_rows: int) -> Tuple[int, int]:
     """``(split_rows, splits)``: the table's rows cut so that the kernel's
-    blocks (128 queries by a split) about fill the card, each split at least
-    `_MIN_SPLIT_TILES` tiles of 128 rows."""
+    blocks (128 queries by a split, `BLOCKS_PER_SM` an SM) about fill the
+    card, each split at least `_MIN_SPLIT_TILES` tiles of 128 rows."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     sms = _SMS.get(idx)
     if sms is None:
         sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     tiles = -(-n_rows // LANES)
     q_tiles = -(-n_q // (2 * 64))
-    want = max(1, min(sms // q_tiles, tiles // _MIN_SPLIT_TILES))
+    want = max(1, min(BLOCKS_PER_SM * sms // q_tiles, tiles // _MIN_SPLIT_TILES))
     split_tiles = -(-tiles // want)
     return split_tiles * LANES, -(-tiles // split_tiles)
 

@@ -57,7 +57,7 @@ import torch
 from ..enums import MetricKind, ScalarKind
 from ..graphs import count_launch
 from .distances import I8_F32_EXACT_WIDTH, MASKED, dists_from_dots, dot, scan_epilogue
-from .topk import finish, sort_pairs, stable_topk, topk_min
+from .topk import finish, ordered_topk, sort_pairs, stable_topk, topk_min
 
 LANES = 128
 #: most results the fused scans (B8, B9) keep per query
@@ -67,6 +67,8 @@ MERGE_EVERY = 8
 #: bins beyond k rescored by the exact path: absorbs f32 rounding between
 #: the kernel's minima and the rescore (free margin for exact i8 dots)
 EXACT_BIN_SLACK = 4
+#: survivors a lane of the exact search's staged bin selection (`staged_bins`)
+STAGED_SURVIVORS = 4
 #: candidates per k that the compact (f32 storage) approximate path rescores
 #: exactly; the JAX package's default (USEARCH_TPU_OVERSAMPLE)
 OVERSAMPLE = 2
@@ -443,27 +445,75 @@ def search_binned(metric, q, table, stats, valid, k: int,
     return finish(d, rows.gather(1, sel))
 
 
+def full_bins(vals: torch.Tensor, b: int) -> torch.Tensor:
+    """The ``b`` bins of smallest minimum of each row of ``vals`` ``[Q,
+    n_bins]``, by (value, bin number): ``lax.top_k``'s answer."""
+    return ordered_topk(vals, b)[1]
+
+
+def staged_bins(vals: torch.Tensor, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_select_bins_exact`'s staged selection (usearch_tpu/ops/pallas_scan.py
+    :664-703) over ``vals`` ``[Q, n_bins]``, ``n_bins`` a multiple of 128:
+    `STAGED_SURVIVORS` rounds each take every lane's (bin % 128) smallest
+    minimum, the first sub-index among equal ones, and put MASKED in its
+    place; the best ``b`` survivors by (value, position in (round, lane)
+    order), and the device flag that says the result is exact: every
+    query's smallest last-round survivor lies past its ``b``-th survivor,
+    over the whole batch."""
+    n_q, n_bins = vals.shape
+    # lane-major ([Q, lane, sub]), a copy the rounds write into
+    d3 = vals.reshape(n_q, n_bins // LANES, LANES).transpose(1, 2).contiguous()
+    lane = torch.arange(LANES, device=vals.device)
+    values, bins = [], []
+    for _ in range(STAGED_SURVIVORS):
+        first = torch.argmin(d3, dim=2, keepdim=True)  # the first sub-index among equal minima
+        values.append(d3.gather(2, first).squeeze(2))
+        bins.append(first.squeeze(2) * LANES + lane)
+        d3.scatter_(2, first, MASKED)
+    d_sel, pos = ordered_topk(torch.stack(values, dim=1).reshape(n_q, -1), b)
+    exact_ok = torch.all(values[-1].amin(dim=1) > d_sel[:, -1])
+    return torch.stack(bins, dim=1).reshape(n_q, -1).gather(1, pos), exact_ok
+
+
+def select_bins_exact(vals: torch.Tensor, b: int) -> torch.Tensor:
+    """The exact search's ``b`` bins of each query in `_select_bins_exact`'s
+    order: `staged_bins` where the surface takes it (a multiple of 128
+    bins, at least ``2 * STAGED_SURVIVORS`` a lane, ``b`` at most
+    ``STAGED_SURVIVORS * 128``) and its flag holds, else `full_bins`. Both
+    are computed and the flag chooses on the device, as ``lax.cond`` does:
+    no host read, so the search stays capturable."""
+    n_bins = vals.shape[1]
+    full = full_bins(vals, b)
+    if n_bins % LANES or n_bins // LANES < 2 * STAGED_SURVIVORS or b > STAGED_SURVIVORS * LANES:
+        return full
+    staged, exact_ok = staged_bins(vals, b)
+    return torch.where(exact_ok, staged, full)
+
+
 def exact_steps(metric, q, table, stats, valid, k: int):
     """`search_exact` one launch group at a time: a generator that yields
-    after B2 and its bin top-k, and after the rescore's dots are launched,
-    and returns the ``[Q, k]`` distances and rows. Searches of several
-    shards taken a step each in turn launch every device's first work
-    before any device's last. The dots are `block_dots`': the rescore kernel
-    for CUDA tensors, its plain version (widened, a query chunk at a time)
-    for CPU tensors; the epilogue, the mask and the top-k are torch ops over
-    them on either device."""
+    after B2 and its bin selection, and after the rescore's dots are
+    launched, and returns the ``[Q, k]`` distances and rows. Searches of
+    several shards taken a step each in turn launch every device's first
+    work before any device's last. The bins are `select_bins_exact`'s, in
+    its order, and the rows the ``k`` best by (distance, position) over the
+    gathered bins in that order (`topk.ordered_topk`), as `pallas_search_exact`
+    takes them with ``lax.top_k``: among equal distances both pick the same
+    ids. The dots are `block_dots`': the rescore kernel for CUDA tensors,
+    its plain version (widened, a query chunk at a time) for CPU tensors;
+    the epilogue, the mask and the selections are torch ops on either
+    device."""
     q_sq, t_sq, penalty = scan_aux(metric, q, stats, valid)
     vals = binned_minima(metric, q, table, q_sq, t_sq, penalty)
     n_q, n_bins = vals.shape
-    b = min(k + EXACT_BIN_SLACK, n_bins)
-    _, bins = topk_min(vals, b)
+    bins = select_bins_exact(vals, min(k + EXACT_BIN_SLACK, n_bins))
     yield
     dots = block_dots(q, table, bins)
     yield
     t_sq_rows = stats[:, 0].reshape(n_bins, LANES)[bins].reshape(n_q, -1)
     dist = dists_from_dots(metric, dots.float(), q_sq[:, None], t_sq_rows)
     dist = torch.where(valid.view(n_bins, LANES)[bins].reshape(n_q, -1), dist, MASKED)
-    d, sel = topk_min(dist, k)
+    d, sel = ordered_topk(dist, k)
     return finish(d, bins.gather(1, sel // LANES) * LANES + sel % LANES)
 
 

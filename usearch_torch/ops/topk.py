@@ -47,6 +47,22 @@ def first_topk(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return sort_pairs(d.gather(-1, sel), sel)
 
 
+#: widest row that `ordered_topk` sorts whole: on the card a stable sort is
+#: the faster form on rows of a few thousand entries, `first_topk` on the
+#: exact search's surfaces of 8,192 bins
+SORT_WIDTH = 4096
+
+
+def ordered_topk(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`first_topk`'s answer, by whichever of its two forms is faster at the
+    row's width: a stable sort (`stable_topk`) up to `SORT_WIDTH` entries,
+    `first_topk`'s two selections past it."""
+    if d.shape[-1] > SORT_WIDTH:
+        return first_topk(d, k)
+    v, sel = stable_topk(d, k)
+    return v, sel.contiguous()
+
+
 def finish(d: torch.Tensor, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort by (distance, id) and give masked results the id -1."""
     d, ids = sort_pairs(d, ids.to(torch.int32))
